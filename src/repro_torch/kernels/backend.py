@@ -1,0 +1,91 @@
+"""The port's kernel op surface.
+
+The op names and call signatures are those of the JAX package's
+``kernels/backend.py:OP_SURFACE``, so each later slice fills in the same
+names. There is no backend switch: every op dispatches by the device of
+its tensors. A CUDA tensor goes to the hand-written Hopper kernel, a CPU
+tensor to the kernel's plain PyTorch version. Ops whose kernels are not
+ported yet raise ``NotImplementedError`` naming their ROADMAP.md queue
+item; nothing falls back.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.flash_prefill import flash_prefill
+
+#: ``op -> (positional arg names, keyword-only arg names)``, as in the
+#: JAX package.
+OP_SURFACE: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
+    "attention": (("q", "k", "v"),
+                  ("causal", "window", "cap", "scale", "q_offset")),
+    "decode_attention": (("q", "k_cache", "v_cache", "kv_len"),
+                         ("cap", "scale")),
+    "paged_decode_attention": (
+        ("q", "k_pages", "v_pages", "block_tab", "kv_len"),
+        ("cap", "scale")),
+    "verify_attention": (("q", "k_cache", "v_cache", "kv_len"),
+                         ("cap", "scale")),
+    "paged_verify_attention": (
+        ("q", "k_pages", "v_pages", "block_tab", "kv_len"),
+        ("cap", "scale")),
+    "router_topk": (("logits", "k"), ()),
+    "selective_scan": (("dt", "x", "B_", "C_", "A", "h0"), ()),
+    "mlstm_scan": (("q", "k", "v", "i_pre", "f_pre", "state"), ("scale",)),
+}
+
+OPS: Tuple[str, ...] = tuple(OP_SURFACE)
+
+#: every ported kernel wrapper; each counts its launches in ``.launches``
+KERNELS = (flash_prefill, flash_decode)
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def attention(q, k, v, *, causal=True, window=0, cap=0.0, scale=0.0,
+              q_offset=0):
+    return flash_prefill(q, k, v, causal=causal, window=window, cap=cap,
+                         scale=scale, q_offset=q_offset)
+
+
+def decode_attention(q, k_cache, v_cache, kv_len, *, cap=0.0, scale=0.0):
+    return flash_decode(q, k_cache, v_cache, kv_len, cap=cap, scale=scale)
+
+
+def _not_ported(op: str, item: str):
+    raise NotImplementedError(
+        f"{op}: its kernel is not ported yet (ROADMAP.md queue {item})")
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tab, kv_len, *,
+                           cap=0.0, scale=0.0):
+    _not_ported("paged_decode_attention", "B3 flash_decode_paged")
+
+
+def verify_attention(q, k_cache, v_cache, kv_len, *, cap=0.0, scale=0.0):
+    _not_ported("verify_attention", "B4 flash_verify")
+
+
+def paged_verify_attention(q, k_pages, v_pages, block_tab, kv_len, *,
+                           cap=0.0, scale=0.0):
+    _not_ported("paged_verify_attention", "B5 flash_verify_paged")
+
+
+def router_topk(logits, k):
+    _not_ported("router_topk", "B6 moe_router_topk")
+
+
+def selective_scan(dt, x, B_, C_, A, h0=None):
+    _not_ported("selective_scan", "B7 ssm_scan")
+
+
+def mlstm_scan(q, k, v, i_pre, f_pre, state=None, *, scale=0.0):
+    _not_ported("mlstm_scan", "B8 mlstm_scan")

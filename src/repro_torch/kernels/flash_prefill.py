@@ -1,0 +1,77 @@
+"""Flash prefill attention: the Hopper kernel's wrapper and its plain
+version.
+
+Replaces the JAX package's Pallas TPU kernel ``flash_prefill``
+(``src/repro/kernels/flash_prefill.py``). The CUDA source,
+``csrc/flash_prefill.cu``, carries the design note: one block per
+(64-row q tile, q head, batch), an in-block loop over 64-key tiles up to
+the tile's causal bound, fp32 m/l/acc, row-independent arithmetic so
+prefill and extend give the same bits for a row at the same position.
+
+On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
+tensor it runs the plain version, ``ref.attention_ref``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import attention_ref
+
+HEAD_DIM = 64     # the head dim the kernel is built for
+# q, k, v, out; B, Hq, Hkv, Sq, Sk, hd, q_offset, causal, window;
+# cap, scale; stream
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+             + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+
+
+def _check(name, t, dtype, ndim, device):
+    if t.dtype != dtype or t.ndim != ndim or t.device != device:
+        raise ValueError(f"flash_prefill: {name} must be a {ndim}-d "
+                         f"{dtype} tensor on {device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"flash_prefill: {name} must be contiguous and "
+                         f"16-byte aligned")
+
+
+def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0,
+                  cap: float = 0.0, scale: float = 0.0, q_offset=0):
+    """q: (B,Hq,Sq,hd); k,v: (B,Hkv,Sk,hd) bf16 -> (B,Hq,Sq,hd) bf16.
+
+    q_offset: absolute position of q[0] (an int, or a 0-d tensor)."""
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window, cap=cap,
+                             q_offset=q_offset, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_prefill: no kernel for device {q.device}")
+    B, Hq, Sq, hd = q.shape
+    _check("q", q, torch.bfloat16, 4, q.device)
+    _check("k", k, torch.bfloat16, 4, q.device)
+    _check("v", v, torch.bfloat16, 4, q.device)
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if (hd != HEAD_DIM or k.shape[0] != B or k.shape[3] != hd
+            or v.shape != k.shape or Hq % Hkv):
+        raise ValueError(f"flash_prefill: unsupported shapes q "
+                         f"{tuple(q.shape)} k {tuple(k.shape)} v "
+                         f"{tuple(v.shape)} (head dim {HEAD_DIM}, "
+                         f"Hq % Hkv == 0)")
+    scale = scale if scale else 1.0 / math.sqrt(hd)
+    out = torch.empty_like(q)
+    fn = _build.entry("flash_prefill", "flash_prefill_bf16", _ARGTYPES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, Hq, Hkv, Sq, Sk, hd, int(q_offset), int(bool(causal)),
+                int(window), float(cap), float(scale), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_prefill: launch failed with CUDA error "
+                           f"{rc}")
+    flash_prefill.launches += 1
+    return out
+
+
+flash_prefill.launches = 0

@@ -1,0 +1,171 @@
+"""The served planner model: init / prefill / extend / decode.
+
+Port of the JAX package's ``models/model.py`` for dense stacks of
+``"full"`` layers. The JAX package scans stacked per-segment params; the
+port keeps one ``Block`` per layer and runs them in a Python loop.
+Caches are ``{"layers": [{"k", "v"}, ...], "pos": ...}`` with the JAX
+per-layer layout (B, Hkv, cache_len, hd) bf16; ``pos`` is a Python int
+for a B=1 prefill/extend cache and a (B,) int tensor for the batched
+decode cache.
+
+The head is tied and computed in fp32 with full fp32 products, as the
+JAX package's head is: ``_logits`` sets
+``torch.backends.cuda.matmul.allow_tf32 = False`` before its matmul, so
+no caller's TF32 setting can reach it.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import torch
+from torch import nn
+
+from repro_torch.common.config import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.blocks import Block, block_apply, block_cache_init
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device entry points run on: CUDA unless the caller asks for
+    another. No card and no explicit device raises; nothing falls back."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("repro_torch runs on a CUDA device; none is "
+                           "available (pass device='cpu' to run on the CPU)")
+    return dev
+
+
+class Model(nn.Module):
+    """Embedding, the layer stack and the final norm; the head is tied."""
+
+    def __init__(self, cfg: ModelConfig, gen, dtype, device):
+        super().__init__()
+        if not cfg.tie_embeddings or cfg.n_enc_layers or cfg.final_softcap \
+                or cfg.emb_scale_by_sqrt_d or cfg.family != "dense":
+            raise NotImplementedError(
+                f"{cfg.name}: only dense tied-head stacks are ported "
+                f"(ROADMAP.md queue A12)")
+        self.cfg = cfg
+        self.embed = L.normal_param((cfg.vocab_size, cfg.d_model), 0.02, gen,
+                              dtype, device)
+        self.final_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
+        self.layers = nn.ModuleList(
+            Block(kind, cfg, gen, dtype, device)
+            for kind in cfg.layer_kinds())
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None,
+                dtype=torch.bfloat16) -> Model:
+    """Seeded random weights with the JAX package's shapes, std and zero
+    init (``model.py:34-65``): embedding N(0, 0.02), projections
+    N(0, 1/fan_in), norm scales 0. Drawn on the CPU from one
+    ``torch.Generator`` so a seed gives the same weights on any device.
+    They are not the JAX package's bits (threefry vs Philox): tests that
+    compare the two load JAX weights through ``models/convert.py``."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    return Model(cfg, gen, dtype, dev).eval()
+
+
+def count_params(model: Model) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               device) -> dict:
+    return {"layers": [block_cache_init(cfg, batch, cache_len, device)
+                       for _ in cfg.layer_kinds()],
+            "pos": 0}
+
+
+# ------------------------------------------------------------------ stack ----
+
+def _apply_stack(model: Model, x, *, mode, cache, pos, positions):
+    new_layers: List[dict] = []
+    for blk, c in zip(model.layers, cache["layers"]):
+        x, nc = block_apply(blk, x, model.cfg, mode=mode, cache=c, pos=pos,
+                            positions=positions)
+        new_layers.append(nc)
+    return x, new_layers
+
+
+def _tokens(model: Model, batch) -> torch.Tensor:
+    return torch.as_tensor(batch["tokens"], dtype=torch.long,
+                           device=model.device)
+
+
+def _embed_inputs(model: Model, tokens, pos=None):
+    """Token embedding and absolute positions (B,S): from 0, from a scalar
+    ``pos``, or per slot from a (B,) ``pos``."""
+    B, S = tokens.shape
+    x = model.embed[tokens]
+    ar = torch.arange(S, device=tokens.device)
+    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+        positions = pos.to(tokens.device).long()[:, None] + ar[None, :]
+    else:
+        positions = (int(pos or 0) + ar)[None, :].expand(B, S)
+    return x, positions
+
+
+def _logits(model: Model, x):
+    """Tied fp32 head: (…, d) -> (…, V) fp32, never in TF32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return x.float() @ model.embed.float().T
+
+
+# ------------------------------------------------------------- public API ----
+
+@torch.no_grad()
+def prefill(model: Model, batch, cache_len: int):
+    """Process a prompt; returns (last-token logits (B,V) fp32, filled
+    cache with ``pos`` = prompt length)."""
+    tokens = _tokens(model, batch)
+    B, S = tokens.shape
+    x, positions = _embed_inputs(model, tokens)
+    cache = init_cache(model.cfg, B, cache_len, model.device)
+    x, layers = _apply_stack(model, x, mode="prefill", cache=cache, pos=0,
+                             positions=positions)
+    x_last = L.rmsnorm(model.final_norm.scale, x[:, -1:], model.cfg.norm_eps)
+    return _logits(model, x_last)[:, 0], {"layers": layers, "pos": S}
+
+
+@torch.no_grad()
+def prefill_extend(model: Model, cache, batch, n_valid=None):
+    """Chunked-prefill continuation: advance a pre-filled cache (scalar
+    ``pos``) through S new tokens in one pass, updating it in place.
+
+    ``n_valid`` (default S) supports bucket-padded calls: logits are taken
+    at row n_valid-1 and ``pos`` advances by n_valid, so pad rows beyond
+    it are never attended (causal mask) and are overwritten by later
+    writes before they become visible."""
+    pos = int(cache["pos"])
+    tokens = _tokens(model, batch)
+    S = tokens.shape[1]
+    n_valid = S if n_valid is None else int(n_valid)
+    x, positions = _embed_inputs(model, tokens, pos=pos)
+    x, layers = _apply_stack(model, x, mode="extend", cache=cache, pos=pos,
+                             positions=positions)
+    last = L.rmsnorm(model.final_norm.scale, x[:, n_valid - 1:n_valid],
+                     model.cfg.norm_eps)
+    return _logits(model, last)[:, 0], {"layers": layers,
+                                        "pos": pos + n_valid}
+
+
+@torch.no_grad()
+def decode_step(model: Model, cache, batch):
+    """One decode step. batch["tokens"]: (B,1); ``cache["pos"]`` a scalar
+    or a (B,) tensor of per-slot fill levels. Returns (logits (B,V) fp32,
+    cache with ``pos + 1``), the cache updated in place."""
+    pos = cache["pos"]
+    if isinstance(pos, torch.Tensor):
+        pos = pos.to(model.device)
+    tokens = _tokens(model, batch)
+    x, positions = _embed_inputs(model, tokens, pos=pos)
+    x, layers = _apply_stack(model, x, mode="decode", cache=cache, pos=pos,
+                             positions=positions)
+    x = L.rmsnorm(model.final_norm.scale, x, model.cfg.norm_eps)
+    return _logits(model, x)[:, 0], {"layers": layers, "pos": pos + 1}
