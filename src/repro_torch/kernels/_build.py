@@ -4,9 +4,16 @@ At first use, every ``src/repro_torch/csrc/*.cu`` is compiled by ``nvcc``
 into its own shared library with a plain C interface (no PyTorch
 headers, so a build takes seconds), all sources in parallel, into a
 git-ignored ``build/kernels/<hash>/`` directory at the root of the
-checkout. The hash covers the sources and the flags, so an edited source
-builds anew. Libraries are loaded with ``ctypes``. A failed build raises
-with the compiler's output; nothing falls back.
+checkout. The hash covers the sources, the shared headers (``*.cuh``)
+and the flags, so an edited source or header builds anew. Every source
+is compiled with the same flags, so the decode family's shared tile
+routine (``decode_tile.cuh``) compiles to the same arithmetic in each.
+Libraries are loaded with ``ctypes``. A failed build raises with the
+compiler's output; nothing falls back.
+
+The launch helpers at the end are the wrappers' common checks: tensor
+device, type, rank, contiguity and 16-byte alignment, and a (B,) int32
+``kv_len`` on the device.
 """
 from __future__ import annotations
 
@@ -17,6 +24,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -42,7 +51,7 @@ def _nvcc() -> str:
 def build_dir() -> Path:
     """Directory of this source tree's build, keyed by sources + flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
@@ -102,3 +111,30 @@ def build_logs() -> Dict[str, str]:
     of each source built into this tree's build directory."""
     out = build_dir()
     return {p.stem: p.read_text() for p in sorted(out.glob("*.log"))}
+
+
+# ------------------------------------------------------- launch helpers ----
+
+def check_tensor(kernel: str, name: str, t: torch.Tensor, dtype, ndim: int,
+                 device: torch.device) -> None:
+    """Raise ValueError unless ``t`` is a contiguous, 16-byte aligned
+    ``ndim``-d ``dtype`` tensor on ``device``."""
+    if t.dtype != dtype or t.ndim != ndim or t.device != device:
+        raise ValueError(f"{kernel}: {name} must be a {ndim}-d {dtype} "
+                         f"tensor on {device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{kernel}: {name} must be contiguous and "
+                         f"16-byte aligned")
+
+
+def kv_len_i32(kv_len, B: int, device: torch.device) -> torch.Tensor:
+    """A scalar or (B,) ``kv_len`` as a contiguous (B,) int32 tensor on
+    ``device``."""
+    kvl = torch.as_tensor(kv_len, device=device)
+    return kvl.to(torch.int32).reshape(-1).expand(B).contiguous()
+
+
+def check_rc(kernel: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel}: launch failed with CUDA error {rc}")

@@ -13,7 +13,10 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.flash_decode_paged import flash_decode_paged
 from repro_torch.kernels.flash_prefill import flash_prefill
+from repro_torch.kernels.flash_verify import flash_verify, \
+    flash_verify_paged
 
 #: ``op -> (positional arg names, keyword-only arg names)``, as in the
 #: JAX package.
@@ -38,7 +41,8 @@ OP_SURFACE: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
 OPS: Tuple[str, ...] = tuple(OP_SURFACE)
 
 #: every ported kernel wrapper; each counts its launches in ``.launches``
-KERNELS = (flash_prefill, flash_decode)
+KERNELS = (flash_prefill, flash_decode, flash_decode_paged, flash_verify,
+           flash_verify_paged)
 
 
 def reset_launches() -> None:
@@ -60,23 +64,25 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, cap=0.0, scale=0.0):
     return flash_decode(q, k_cache, v_cache, kv_len, cap=cap, scale=scale)
 
 
-def _not_ported(op: str, item: str):
-    raise NotImplementedError(
-        f"{op}: its kernel is not ported yet (ROADMAP.md queue {item})")
-
-
 def paged_decode_attention(q, k_pages, v_pages, block_tab, kv_len, *,
                            cap=0.0, scale=0.0):
-    _not_ported("paged_decode_attention", "B3 flash_decode_paged")
+    return flash_decode_paged(q, k_pages, v_pages, block_tab, kv_len,
+                              cap=cap, scale=scale)
 
 
 def verify_attention(q, k_cache, v_cache, kv_len, *, cap=0.0, scale=0.0):
-    _not_ported("verify_attention", "B4 flash_verify")
+    return flash_verify(q, k_cache, v_cache, kv_len, cap=cap, scale=scale)
 
 
 def paged_verify_attention(q, k_pages, v_pages, block_tab, kv_len, *,
                            cap=0.0, scale=0.0):
-    _not_ported("paged_verify_attention", "B5 flash_verify_paged")
+    return flash_verify_paged(q, k_pages, v_pages, block_tab, kv_len,
+                              cap=cap, scale=scale)
+
+
+def _not_ported(op: str, item: str):
+    raise NotImplementedError(
+        f"{op}: its kernel is not ported yet (ROADMAP.md queue {item})")
 
 
 def router_topk(logits, k):

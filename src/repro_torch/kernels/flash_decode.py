@@ -6,7 +6,8 @@ Replaces the JAX package's Pallas TPU kernel ``flash_decode``
 ``csrc/flash_decode.cu``, carries the design note: one block per
 (kv head, slot) holding all G q rows, a loop over 128-key tiles only up
 to the slot's ``kv_len``, fp32 m/l/acc, and 0 (not NaN) for
-``kv_len == 0``.
+``kv_len == 0``. Its tile arithmetic is ``csrc/decode_tile.cuh``, which
+the paged and verify kernels share.
 
 On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
 tensor it runs the plain version, ``ref.decode_attention_ref``.
@@ -21,21 +22,11 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import decode_attention_ref
 
-HEAD_DIM = 64     # the head dim the kernel is built for
-MAX_GROUP = 8     # the most q heads per kv head the kernel is built for
+HEAD_DIM = 64     # the head dim the kernels are built for
+MAX_ROWS = 64     # the most q rows one block holds (decode_tile.cuh)
 # q, k_cache, v_cache, kv_len, out; B, Hq, Hkv, Sk, hd; cap, scale; stream
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-
-
-def _check(name, t, dtype, ndim, device):
-    if t.dtype != dtype or t.ndim != ndim or t.device != device:
-        raise ValueError(f"flash_decode: {name} must be a {ndim}-d "
-                         f"{dtype} tensor on {device}, got {t.dtype} "
-                         f"{tuple(t.shape)} on {t.device}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"flash_decode: {name} must be contiguous and "
-                         f"16-byte aligned")
 
 
 def flash_decode(q, k_cache, v_cache, kv_len, *, cap: float = 0.0,
@@ -48,19 +39,19 @@ def flash_decode(q, k_cache, v_cache, kv_len, *, cap: float = 0.0,
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: no kernel for device {q.device}")
     B, Hq, hd = q.shape
-    _check("q", q, torch.bfloat16, 3, q.device)
-    _check("k_cache", k_cache, torch.bfloat16, 4, q.device)
-    _check("v_cache", v_cache, torch.bfloat16, 4, q.device)
+    for name, t, nd in (("q", q, 3), ("k_cache", k_cache, 4),
+                        ("v_cache", v_cache, 4)):
+        _build.check_tensor("flash_decode", name, t, torch.bfloat16, nd,
+                            q.device)
     Hkv, Sk = k_cache.shape[1], k_cache.shape[2]
     if (hd != HEAD_DIM or k_cache.shape[0] != B or k_cache.shape[3] != hd
             or v_cache.shape != k_cache.shape or Hq % Hkv
-            or Hq // Hkv > MAX_GROUP):
+            or Hq // Hkv > MAX_ROWS):
         raise ValueError(f"flash_decode: unsupported shapes q "
                          f"{tuple(q.shape)} caches {tuple(k_cache.shape)} "
                          f"(head dim {HEAD_DIM}, Hq % Hkv == 0, "
-                         f"Hq // Hkv <= {MAX_GROUP})")
-    kvl = torch.as_tensor(kv_len, device=q.device)
-    kvl = kvl.to(torch.int32).reshape(-1).expand(B).contiguous()
+                         f"Hq // Hkv <= {MAX_ROWS})")
+    kvl = _build.kv_len_i32(kv_len, B, q.device)
     scale = scale if scale else 1.0 / math.sqrt(hd)
     out = torch.empty_like(q)
     fn = _build.entry("flash_decode", "flash_decode_bf16", _ARGTYPES)
@@ -69,9 +60,7 @@ def flash_decode(q, k_cache, v_cache, kv_len, *, cap: float = 0.0,
         rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                 kvl.data_ptr(), out.data_ptr(), B, Hq, Hkv, Sk, hd,
                 float(cap), float(scale), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_decode: launch failed with CUDA error "
-                           f"{rc}")
+    _build.check_rc("flash_decode", rc)
     flash_decode.launches += 1
     return out
 

@@ -28,16 +28,6 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
              + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 
 
-def _check(name, t, dtype, ndim, device):
-    if t.dtype != dtype or t.ndim != ndim or t.device != device:
-        raise ValueError(f"flash_prefill: {name} must be a {ndim}-d "
-                         f"{dtype} tensor on {device}, got {t.dtype} "
-                         f"{tuple(t.shape)} on {t.device}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"flash_prefill: {name} must be contiguous and "
-                         f"16-byte aligned")
-
-
 def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0,
                   cap: float = 0.0, scale: float = 0.0, q_offset=0):
     """q: (B,Hq,Sq,hd); k,v: (B,Hkv,Sk,hd) bf16 -> (B,Hq,Sq,hd) bf16.
@@ -49,9 +39,9 @@ def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill: no kernel for device {q.device}")
     B, Hq, Sq, hd = q.shape
-    _check("q", q, torch.bfloat16, 4, q.device)
-    _check("k", k, torch.bfloat16, 4, q.device)
-    _check("v", v, torch.bfloat16, 4, q.device)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _build.check_tensor("flash_prefill", name, t, torch.bfloat16, 4,
+                            q.device)
     Hkv, Sk = k.shape[1], k.shape[2]
     if (hd != HEAD_DIM or k.shape[0] != B or k.shape[3] != hd
             or v.shape != k.shape or Hq % Hkv):
@@ -67,9 +57,7 @@ def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0,
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 B, Hq, Hkv, Sq, Sk, hd, int(q_offset), int(bool(causal)),
                 int(window), float(cap), float(scale), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_prefill: launch failed with CUDA error "
-                           f"{rc}")
+    _build.check_rc("flash_prefill", rc)
     flash_prefill.launches += 1
     return out
 

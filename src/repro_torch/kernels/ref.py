@@ -1,11 +1,11 @@
 """Plain PyTorch versions of the attention kernels (the allclose targets).
 
-Ports of ``attention_ref`` and ``decode_attention_ref`` from the JAX
-package's ``kernels/ref.py``: they materialise the full fp32 score matrix
-and are correctness references, not fast paths. On a CPU tensor the
-kernel wrappers run these; on the card they are what ``chip_smoke.py``
-holds the kernels against. The oracles of the unported kernels (paged,
-verify, router, scans) come with those kernels.
+Ports of the attention oracles of the JAX package's ``kernels/ref.py``
+(dense, decode, paged decode, verify, paged verify): they materialise the
+full fp32 score matrix and are correctness references, not fast paths.
+On a CPU tensor the kernel wrappers run these; on the card they are what
+``chip_smoke.py`` holds the kernels against. The oracles of the unported
+kernels (router, scans) come with those kernels.
 """
 from __future__ import annotations
 
@@ -69,3 +69,78 @@ def decode_attention_ref(q, k_cache, v_cache, kv_len, *, cap=0.0,
     out = attention_ref(q[:, :, None], k_cache, v_cache, causal=False,
                         cap=cap, kv_len=kv_len, scale=scale)
     return out[:, :, 0]
+
+
+def paged_gather_kv(pages, block_tab):
+    """The logical per-sequence KV view of a paged pool.
+
+    pages: (n_blocks, Hkv, bs, hd) physical block pool (one layer);
+    block_tab: (B, mb) int block table. Entries >= n_blocks are
+    out-of-table sentinels and clamp to the last block (their rows are
+    garbage, masked away by kv_len downstream).
+    Returns (B, Hkv, mb * bs, hd), contiguous.
+    """
+    nb, Hkv, bs, hd = pages.shape
+    B, mb = block_tab.shape
+    ids = torch.clamp(block_tab.to(pages.device).long(), 0, nb - 1)
+    view = pages[ids]                                  # (B, mb, Hkv, bs, hd)
+    return view.permute(0, 2, 1, 3, 4).reshape(B, Hkv, mb * bs, hd)
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, block_tab, kv_len, *,
+                               cap=0.0, scale=0.0):
+    """Decode attention against scattered KV blocks (gather oracle).
+    q: (B,Hq,hd); pages: (n_blocks,Hkv,bs,hd); block_tab: (B,mb);
+    kv_len: (B,) valid rows per sequence. Returns (B,Hq,hd)."""
+    return decode_attention_ref(q, paged_gather_kv(k_pages, block_tab),
+                                paged_gather_kv(v_pages, block_tab),
+                                kv_len, cap=cap, scale=scale)
+
+
+def verify_attention_ref(q, k_cache, v_cache, kv_len, *, cap=0.0,
+                         scale=0.0):
+    """Speculative-verify attention, fused: W query rows per sequence
+    against a (partially) filled cache, causal at per-sequence offsets.
+
+    q: (B,Hq,W,hd); caches: (B,Hkv,Sc,hd); kv_len: (B,) int, the valid
+    rows AFTER the verify write, so query row r sits at absolute
+    position kv_len - W + r and attends kv positions <= that (the mask a
+    single-token decode at that position uses). Returns (B,Hq,W,hd).
+    The oracle both ``verify_rows_ref`` and the CUDA kernels are held
+    against."""
+    return attention_ref(q, k_cache, v_cache, causal=True, cap=cap,
+                         kv_len=kv_len, scale=scale)
+
+
+def verify_rows_ref(q, k_cache, v_cache, kv_len, *, cap=0.0, scale=0.0):
+    """The plain verify read the CPU path takes: W decode-shaped calls of
+    ``decode_attention_ref``, row r at kv_len - W + r + 1 (the JAX
+    package's ``_verify_rows``). Each call has exactly the shapes of a
+    single-token decode at that position, so on the CPU a verify row is
+    bitwise the decode row; one fused W-row einsum would be
+    mathematically equal but may reduce in another order."""
+    W = q.shape[2]
+    kvl = _kv_len_tensor(kv_len, q.device)
+    outs = [decode_attention_ref(q[:, :, r].contiguous(), k_cache, v_cache,
+                                 kvl - W + r + 1, cap=cap, scale=scale)
+            for r in range(W)]
+    return torch.stack(outs, dim=2)
+
+
+def paged_verify_attention_ref(q, k_pages, v_pages, block_tab, kv_len, *,
+                               cap=0.0, scale=0.0):
+    """Speculative-verify attention over scattered KV blocks (gather
+    oracle). q: (B,Hq,W,hd); pages: (n_blocks,Hkv,bs,hd); block_tab:
+    (B,mb); kv_len: (B,) valid rows after the verify write."""
+    return verify_attention_ref(q, paged_gather_kv(k_pages, block_tab),
+                                paged_gather_kv(v_pages, block_tab),
+                                kv_len, cap=cap, scale=scale)
+
+
+def paged_verify_rows_ref(q, k_pages, v_pages, block_tab, kv_len, *,
+                          cap=0.0, scale=0.0):
+    """``verify_rows_ref`` over the gathered view of a paged pool: the
+    plain version the CPU path takes for paged verify."""
+    return verify_rows_ref(q, paged_gather_kv(k_pages, block_tab),
+                           paged_gather_kv(v_pages, block_tab), kv_len,
+                           cap=cap, scale=scale)

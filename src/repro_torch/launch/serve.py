@@ -1,17 +1,20 @@
-"""Serving launcher of the port: run the dense inference engine on a batch
-of requests, on the card unless ``--device cpu`` is given.
+"""Serving launcher of the port: run the inference engine on a batch of
+requests, on the card unless ``--device cpu`` is given.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
-      --requests 4 --max-new 8
+      --requests 4 --max-new 8 [--kv-mode paged] [--spec-decode]
 
 The command line is the JAX launcher's (``repro.launch.serve``) plus
 ``--device``. ``--backend`` is gone: the device decides which attention
 runs (Hopper kernels on CUDA tensors, their plain versions on the CPU).
-The cluster-only flags (``--router``, ``--profile``, ``--skew``,
-``--turns``) and ``--draft-k`` come back with replicas and speculative
-decoding; until then paged KV, speculative decoding, replicas, retrieval
-and SLA spill are refused as not ported yet. ``--checkpoint`` loads a JAX-package npz
-through the weight bridge. ``main`` returns the run's numbers as a dict.
+``--kv-mode paged`` (with ``--kv-blocks``, ``--block-size``) serves from
+the paged block pool; ``--spec-decode`` drafts ``--draft-k`` tokens per
+slot with a self-draft (the target's own weights: the repo ships no
+trained draft) and verifies them in one target forward. The cluster-only
+flags (``--router``, ``--profile``, ``--skew``, ``--turns``) come back
+with replicas; until then replicas, retrieval and SLA spill are refused
+as not ported yet. ``--checkpoint`` loads a JAX-package npz through the
+weight bridge. ``main`` returns the run's numbers as a dict.
 """
 from __future__ import annotations
 
@@ -29,12 +32,11 @@ from repro_torch.obs.export import write_trace
 from repro_torch.serving.engine import InferenceEngine
 from repro_torch.serving.sampling import SamplerConfig
 from repro_torch.serving.sched import ADMISSION_POLICIES
+from repro_torch.serving.specdec import SpecConfig
 
 # flags of the JAX launcher this slice does not serve, with the ROADMAP.md
 # queue item that brings each
 NOT_PORTED = {
-    "kv_mode": "--kv-mode paged (queue A4)",
-    "spec_decode": "--spec-decode (queue A5)",
     "replicas": "--replicas > 1 (queue A6)",
     "retriever_k": "--retriever-k (queue A8)",
     "catalog_size": "--catalog-size (queue A8)",
@@ -55,9 +57,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--temperature", type=float, default=0.7)
     ap.add_argument("--checkpoint", default="",
                     help="JAX-package npz checkpoint to serve")
-    ap.add_argument("--kv-mode", default="dense", choices=("dense", "paged"))
-    ap.add_argument("--kv-blocks", type=int, default=None)
-    ap.add_argument("--block-size", type=int, default=None)
+    ap.add_argument("--kv-mode", default="dense", choices=("dense", "paged"),
+                    help="KV-cache manager: dense per-slot slabs or the "
+                         "paged block pool with CoW prefix sharing")
+    ap.add_argument("--kv-blocks", type=int, default=None,
+                    help="paged: physical KV blocks (default: the dense "
+                         "budget, max_batch*cache_len/block_size)")
+    ap.add_argument("--block-size", type=int, default=None,
+                    help="paged: tokens per KV block (default: 16)")
     ap.add_argument("--replicas", type=int, default=1)
     ap.add_argument("--prefill-budget", type=int, default=None,
                     help="chunked prefill: max prompt tokens per engine "
@@ -70,7 +77,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--admission", default="fifo",
                     choices=ADMISSION_POLICIES)
     ap.add_argument("--sla-spill", action="store_true")
-    ap.add_argument("--spec-decode", action="store_true")
+    ap.add_argument("--spec-decode", action="store_true",
+                    help="speculative decoding: draft --draft-k greedy "
+                         "tokens per slot with a draft sharing the "
+                         "target's weights, verify them in one target "
+                         "forward (tokens identical to non-speculative "
+                         "decoding at --temperature 0)")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="draft tokens per speculative round (>= 1)")
     ap.add_argument("--catalog-size", type=int, default=None)
     ap.add_argument("--retriever-k", type=int, default=None)
     ap.add_argument("--trace-out", default="",
@@ -81,9 +95,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def validate_args(ap: argparse.ArgumentParser, args):
     """Invalid or unported combinations error before any model is built."""
-    given = {"kv_mode": args.kv_mode == "paged",
-             "spec_decode": args.spec_decode,
-             "replicas": args.replicas > 1,
+    given = {"replicas": args.replicas > 1,
              "retriever_k": args.retriever_k is not None,
              "catalog_size": args.catalog_size is not None,
              "sla_spill": args.sla_spill}
@@ -92,8 +104,11 @@ def validate_args(ap: argparse.ArgumentParser, args):
             ap.error(f"{NOT_PORTED[key]} is not ported yet")
     if args.replicas < 1:
         ap.error(f"--replicas must be >= 1, got {args.replicas}")
-    if args.kv_blocks is not None or args.block_size is not None:
+    if args.kv_mode == "dense" and (args.kv_blocks is not None
+                                    or args.block_size is not None):
         ap.error("--kv-blocks/--block-size apply only to --kv-mode paged")
+    if args.spec_decode and args.draft_k < 1:
+        ap.error(f"--spec-decode needs --draft-k >= 1, got {args.draft_k}")
     if args.prefill_budget is not None and args.prefill_budget < 1:
         ap.error(f"--prefill-budget must be >= 1, "
                  f"got {args.prefill_budget}")
@@ -114,12 +129,21 @@ def main(argv=None) -> dict:
     else:
         model = init_params(cfg, seed=0, device=device)
 
+    # no trained draft checkpoint ships with the repo: self-draft (perfect
+    # agreement) stands in for a distilled small model, as in the JAX
+    # launcher
+    spec = (SpecConfig(draft_cfg=cfg, draft_model=model, k=args.draft_k)
+            if args.spec_decode else None)
     prompts = [
         f"Plot xview1 images around Tampa Bay with cloud cover below "
         f"{10 + i}%" for i in range(args.requests)]
     tracer = Tracer() if args.trace_out else None
     engine = InferenceEngine(cfg, model, max_batch=args.max_batch,
                              cache_len=args.cache_len,
+                             kv_mode=args.kv_mode,
+                             kv_blocks=args.kv_blocks,
+                             block_size=args.block_size,
+                             spec_decode=spec,
                              prefill_budget=args.prefill_budget,
                              interleave=not args.no_interleave,
                              admission=args.admission, tracer=tracer,
@@ -140,8 +164,15 @@ def main(argv=None) -> dict:
     print(f"served {len(done)} requests in {dt:.2f}s on {device} | "
           f"decode steps {st['decode_steps']} | {tok_s:.1f} tok/s | "
           f"{step_ms:.2f} ms/step")
+    if spec is not None:
+        print(f"spec-decode[k={spec.k}]: {st['tokens_per_step']:.2f} "
+              f"tokens/target-forward, accept rate "
+              f"{st['spec_accept_rate']:.2f} over {st['spec_rounds']} "
+              f"rounds")
     print(f"kv[{st['kv_mode']}]: peak {st['kv_bytes_peak'] / 2**20:.1f} "
-          f"MiB of {st['kv_bytes_allocated'] / 2**20:.1f} MiB allocated")
+          f"MiB of {st['kv_bytes_allocated'] / 2**20:.1f} MiB allocated"
+          + (f" | {st['preemptions']} preemptions"
+             if st["kv_mode"] == "paged" else ""))
     lat = [r.finish_t - r.enqueue_t for r in done]
     ttft = [r.first_token_t - r.enqueue_t for r in done]
     if done:
@@ -152,6 +183,8 @@ def main(argv=None) -> dict:
         print(f"trace: {len(tracer.records)} records -> {args.trace_out}")
     return {"requests": len(done), "seconds": dt, "steps": engine.step_no,
             "tok_s": tok_s, "step_ms": step_ms, "stats": st,
+            "spec_accept_rate": st["spec_accept_rate"],
+            "preemptions": st["preemptions"],
             "outputs": {r.request_id: list(r.output) for r in done}}
 
 

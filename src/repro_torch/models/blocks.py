@@ -1,30 +1,53 @@
 """Per-layer blocks of the port.
 
 Port of the JAX package's ``models/blocks.py`` for the ``"full"`` layer
-kind (full causal self-attention + SiLU-GLU MLP) in the modes the dense
-serving engine runs:
+kind (full causal self-attention + SiLU-GLU MLP) in the modes the serving
+engine runs:
 
   mode="prefill" full-sequence forward, returns a filled KV cache
   mode="extend"  multi-token continuation against a pre-filled B=1 cache
                  (chunked prefill: writes S new K/V rows at [pos, pos+S)
                  and attends with q_offset=pos)
   mode="decode"  single-token forward against the batched cache, with a
-                 scalar or per-slot (B,) ``pos``
+                 scalar or per-slot (B,) ``pos``; with a ``block_tab`` the
+                 cache leaves are paged block pools (n_blocks, Hkv, bs,
+                 hd) shared by every slot
+  mode="verify"  speculative verify: W = K+1 tokens per slot at per-slot
+                 positions [pos_b, pos_b + W), dense or paged
 
-JAX arrays are immutable; here the extend and decode writes update the
-cache tensors IN PLACE (the engine clones a shared prefix cache before it
-extends it). Other kinds and modes (train, verify, paged) raise
-``NotImplementedError`` naming the slice that brings them.
+JAX arrays are immutable; here the extend, decode and verify writes
+update the cache tensors IN PLACE (the engine clones a shared prefix
+cache before it extends it). The JAX package blends a one-hot in fp32
+(cache*(1-oh) + new*oh, cast to bf16), which writes exactly the bf16 new
+value and keeps every other row's bits, so an indexed write is bitwise
+the same update. JAX drops writes that have nowhere to go
+(``.at[...].set(mode="drop")``): sentinel table entries of idle slots,
+verify rows at or past the logical capacity, slots whose table is all
+sentinel. Torch index writes do not drop (they raise on the CPU and
+device-assert on CUDA), and clamping the index would overwrite a block
+that may belong to a live request, so ``write_plan`` filters those rows
+out on the host before the write.
+
+Verify runs every row-wise operation (norms, projections, rope, MLP) per
+row at decode's (B, 1, d) shape, and the attention through a kernel
+whose rows are bitwise decode rows: a matmul or reduction may pick
+another kernel or blocking for (B*W, d) rows than for (B, d) rows and
+round the last bits differently, and the engine promises that verify
+logits ARE the decode logits. Train mode raises ``NotImplementedError``
+naming the slice that brings it.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.common.config import ModelConfig
+from repro_torch.kernels import backend as KB
 from repro_torch.models import layers as L
 
-MODES = ("prefill", "extend", "decode")
+MODES = ("prefill", "extend", "decode", "verify")
 
 
 class Block(nn.Module):
@@ -51,16 +74,71 @@ def block_cache_init(cfg: ModelConfig, batch: int, cache_len: int, device):
             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
 
 
-def _attn_sublayer(p: Block, x, cfg: ModelConfig, mode: str, cache, pos,
-                   positions):
-    """Attention sub-layer. Returns (y, cache)."""
-    q, k, v = L.qkv_proj(p.attn, x, cfg)
+def block_paged_cache_init(cfg: ModelConfig, n_blocks: int, block_size: int,
+                           device):
+    """Zero-initialised paged block pool for one full-attention layer."""
+    shape = (n_blocks, cfg.n_kv_heads, block_size, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+
+
+# (slot, row of the window, destination block or row[, offset in block])
+WritePlan = Tuple[torch.Tensor, ...]
+
+
+def write_plan(pos, W: int, capacity: int, device, block_tab=None,
+               n_blocks: int = 0, block_size: int = 0) -> WritePlan:
+    """Where the W new K/V rows of each slot go, rows with nowhere to go
+    dropped. Row w of slot b sits at logical position pos_b + w; it is
+    dropped at or past ``capacity`` (Sc dense, mb*bs paged) and, paged,
+    when its table entry is a sentinel (>= n_blocks). Computed on the
+    host from ``pos`` and ``block_tab`` (free when the caller keeps them
+    on the host, as the engine does); returns device index tensors:
+    dense (slot, w, row), paged (slot, w, block, offset)."""
+    p = torch.as_tensor(pos).cpu().long().reshape(-1)
+    rows = p[:, None] + torch.arange(W)[None, :]                  # (B, W)
+    ok = rows < capacity
+    if block_tab is not None:
+        tab = torch.as_tensor(block_tab).cpu().long()
+        j = torch.clamp(rows // block_size, 0, tab.shape[1] - 1)
+        blk = torch.gather(tab, 1, j)
+        ok &= (blk >= 0) & (blk < n_blocks)
+    bi, wi = ok.nonzero(as_tuple=True)
+    if block_tab is None:
+        plan = (bi, wi, rows[bi, wi])
+    else:
+        plan = (bi, wi, blk[bi, wi], rows[bi, wi] % block_size)
+    return tuple(t.to(device) for t in plan)
+
+
+def _write_rows(cache, k, v, plan: WritePlan) -> None:
+    """Write k/v rows (B, Hkv, W, hd) where ``plan`` says, in place."""
+    bi, wi = plan[0], plan[1]
+    if len(plan) == 3:                                   # dense (B,Hkv,Sc,hd)
+        cache["k"][bi, :, plan[2]] = k[bi, :, wi]
+        cache["v"][bi, :, plan[2]] = v[bi, :, wi]
+    else:                                                # pool (nb,Hkv,bs,hd)
+        cache["k"][plan[2], :, plan[3]] = k[bi, :, wi]
+        cache["v"][plan[2], :, plan[3]] = v[bi, :, wi]
+
+
+def _rope_qkv(p: Block, h, cfg: ModelConfig, positions):
+    """Projections and rope of (B, S, d) normed rows at (B, S)
+    positions: q (B,Hq,S,hd), bf16 k and v (B,Hkv,S,hd)."""
+    q, k, v = L.qkv_proj(p.attn, h, cfg)
     if cfg.rope_kind != "rope":
         raise NotImplementedError(f"rope_kind {cfg.rope_kind!r} comes with "
                                   f"its model family (ROADMAP.md queue A12)")
     q = L.apply_rope(q, positions[:, None], cfg.rope_theta)
     k = L.apply_rope(k, positions[:, None], cfg.rope_theta)
-    k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    return q, k.to(torch.bfloat16), v.to(torch.bfloat16)
+
+
+def _attn_sublayer(p: Block, x, cfg: ModelConfig, mode: str, cache, pos,
+                   positions, block_tab, plan):
+    """Attention sub-layer of prefill, extend and decode. Returns
+    (y, cache)."""
+    q, k, v = _rope_qkv(p, x, cfg, positions)
 
     if mode == "prefill":
         out = L.attention(q, k, v, causal=True, cap=cfg.attn_softcap,
@@ -84,46 +162,102 @@ def _attn_sublayer(p: Block, x, cfg: ModelConfig, mode: str, cache, pos,
                           scale=cfg.attn_scale)
         return L.out_proj(p.attn, out), cache
 
-    if mode == "decode":
-        # Write this token's K/V row at min(pos, Sc-1). The JAX package
-        # blends a one-hot in fp32 (cache*(1-oh) + new*oh, cast to bf16):
-        # the written row becomes exactly the bf16 new value and every
-        # other row keeps its bits, so this indexed write is bitwise the
-        # same update.
-        Sc = cache["k"].shape[2]
-        if isinstance(pos, torch.Tensor) and pos.ndim == 1:
-            slot = torch.clamp(pos, max=Sc - 1).long()
-            rows = torch.arange(x.shape[0], device=slot.device)
-            cache["k"][rows, :, slot] = k[:, :, 0]
-            cache["v"][rows, :, slot] = v[:, :, 0]
-            kv_len = torch.clamp(pos + 1, max=Sc)
-        else:
-            slot = min(int(pos), Sc - 1)
-            cache["k"][:, :, slot] = k[:, :, 0]
-            cache["v"][:, :, slot] = v[:, :, 0]
-            kv_len = min(int(pos) + 1, Sc)
-        out = L.attention(q, cache["k"], cache["v"], causal=False,
-                          kv_len=kv_len, cap=cfg.attn_softcap,
-                          scale=cfg.attn_scale)
-        return L.out_proj(p.attn, out), cache
+    if block_tab is not None:
+        # paged decode: the row lands in block block_tab[b, pos // bs] at
+        # offset pos % bs; the read walks the slot's blocks (the kernel on
+        # the card, the gathered view's decode attention on the CPU), so
+        # paged and dense decode are bitwise equal
+        nb, _, bs, _ = cache["k"].shape
+        capacity = block_tab.shape[1] * bs
+        if plan is None:
+            plan = write_plan(pos, 1, capacity, x.device, block_tab, nb, bs)
+        _write_rows(cache, k, v, plan)
+        kv_len = torch.clamp(pos + 1, max=capacity)
+        out = KB.paged_decode_attention(
+            q[:, :, 0].contiguous(), cache["k"], cache["v"], block_tab,
+            kv_len, cap=cfg.attn_softcap, scale=cfg.attn_scale)
+        return L.out_proj(p.attn, out[:, :, None]), cache
 
-    raise _mode_not_ported(mode)
+    # dense decode: write this token's K/V row at min(pos, Sc-1)
+    Sc = cache["k"].shape[2]
+    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+        slot = torch.clamp(pos, max=Sc - 1).long()
+        rows = torch.arange(x.shape[0], device=slot.device)
+        cache["k"][rows, :, slot] = k[:, :, 0]
+        cache["v"][rows, :, slot] = v[:, :, 0]
+        kv_len = torch.clamp(pos + 1, max=Sc)
+    else:
+        slot = min(int(pos), Sc - 1)
+        cache["k"][:, :, slot] = k[:, :, 0]
+        cache["v"][:, :, slot] = v[:, :, 0]
+        kv_len = min(int(pos) + 1, Sc)
+    out = L.attention(q, cache["k"], cache["v"], causal=False,
+                      kv_len=kv_len, cap=cfg.attn_softcap,
+                      scale=cfg.attn_scale)
+    return L.out_proj(p.attn, out), cache
+
+
+def _mlp_tail(p: Block, x, cfg: ModelConfig):
+    h2 = L.rmsnorm(p.norm2.scale, x, cfg.norm_eps)
+    return x + L.mlp(p.mlp, h2)
+
+
+def _verify_block(p: Block, x, cfg: ModelConfig, cache, pos, positions,
+                  block_tab, plan):
+    """Speculative verify of one layer. x: (B, W, d); per slot the W rows
+    at positions [pos_b, pos_b + W). Every row-wise operation runs per
+    row at decode's (B, 1, d) shape (see the module note); the W rows'
+    K/V are written first, then one verify attention reads them with row
+    w at kv_len pos + w + 1: exactly what W sequential decode steps would
+    write and read. ``pos`` is not advanced: the engine truncates to the
+    accepted length on the host, and that is the whole rollback."""
+    W = x.shape[1]
+    rows = [x[:, w:w + 1].contiguous() for w in range(W)]
+    qkv = [_rope_qkv(p, L.rmsnorm(p.norm1.scale, r, cfg.norm_eps), cfg,
+                     positions[:, w:w + 1]) for w, r in enumerate(rows)]
+    q, k, v = (torch.cat([t[i] for t in qkv], dim=2) for i in range(3))
+    if block_tab is not None:
+        nb, _, bs, _ = cache["k"].shape
+        if plan is None:
+            plan = write_plan(pos, W, block_tab.shape[1] * bs, x.device,
+                              block_tab, nb, bs)
+        _write_rows(cache, k, v, plan)
+        out = KB.paged_verify_attention(q, cache["k"], cache["v"],
+                                        block_tab, pos + W,
+                                        cap=cfg.attn_softcap,
+                                        scale=cfg.attn_scale)
+    else:
+        if plan is None:
+            plan = write_plan(pos, W, cache["k"].shape[2], x.device)
+        _write_rows(cache, k, v, plan)
+        out = KB.verify_attention(q, cache["k"], cache["v"], pos + W,
+                                  cap=cfg.attn_softcap, scale=cfg.attn_scale)
+    ys = []
+    for w, r in enumerate(rows):
+        a = out[:, :, w].contiguous()[:, :, None]       # decode's layout
+        ys.append(_mlp_tail(p, r + L.out_proj(p.attn, a), cfg))
+    return torch.cat(ys, dim=1), cache
 
 
 def _mode_not_ported(mode: str) -> NotImplementedError:
     return NotImplementedError(
         f"mode {mode!r}: train comes with the training slice (ROADMAP.md "
-        f"queue A11), verify and paged KV with the next serving slice "
-        f"(queue A4/A5, B3-B5)")
+        f"queue A11)")
 
 
 def block_apply(p: Block, x, cfg: ModelConfig, *, mode: str, cache,
-                pos, positions):
-    """Returns (x_out, cache)."""
+                pos, positions, block_tab=None,
+                plan: Optional[WritePlan] = None):
+    """Returns (x_out, cache). ``block_tab`` (decode and verify): the
+    (B, mb) int32 block table of a paged cache, on x's device. ``plan``:
+    the step's ``write_plan``, computed once by the model for all layers
+    (computed here when None)."""
     if mode not in MODES:
         raise _mode_not_ported(mode)
+    if mode == "verify":
+        return _verify_block(p, x, cfg, cache, pos, positions, block_tab,
+                             plan)
     h = L.rmsnorm(p.norm1.scale, x, cfg.norm_eps)
-    attn_y, cache = _attn_sublayer(p, h, cfg, mode, cache, pos, positions)
-    x = x + attn_y
-    h2 = L.rmsnorm(p.norm2.scale, x, cfg.norm_eps)
-    return x + L.mlp(p.mlp, h2), cache
+    attn_y, cache = _attn_sublayer(p, h, cfg, mode, cache, pos, positions,
+                                   block_tab, plan)
+    return _mlp_tail(p, x + attn_y, cfg), cache

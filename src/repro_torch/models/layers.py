@@ -83,9 +83,9 @@ def attention(q, k, v, *, causal: bool, window: int = 0, cap: float = 0.0,
     """q: (B,Hq,Sq,hd); k,v: (B,Hkv,Sk,hd). The JAX package's dispatch
     (``layers.py:144-153``): a single-token query against a ``kv_len``'d
     cache is decode attention; ``kv_len=None`` is prefill / extend with
-    absolute query positions from ``q_offset``. Other shapes (multi-token
-    queries against a ``kv_len``'d cache) are speculative verify, which
-    comes with its kernel."""
+    absolute query positions from ``q_offset``. Multi-token queries
+    against a ``kv_len``'d cache are speculative verify, which
+    ``models/blocks.py`` sends to ``KB.verify_attention`` itself."""
     if kv_len is not None and q.shape[2] == 1 and not window:
         out = KB.decode_attention(q[:, :, 0].contiguous(), k, v, kv_len,
                                   cap=cap, scale=scale)
@@ -94,9 +94,9 @@ def attention(q, k, v, *, causal: bool, window: int = 0, cap: float = 0.0,
         return KB.attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             causal=causal, window=window, cap=cap,
                             scale=scale, q_offset=q_offset)
-    raise NotImplementedError(
-        "multi-token attention against a kv_len'd cache (speculative "
-        "verify) is not ported yet (ROADMAP.md queue B4)")
+    raise ValueError(
+        "multi-token attention against a kv_len'd cache is speculative "
+        "verify: call KB.verify_attention (models/blocks.py does)")
 
 
 # --------------------------------------------------------- attn projections --

@@ -6,7 +6,12 @@ port keeps one ``Block`` per layer and runs them in a Python loop.
 Caches are ``{"layers": [{"k", "v"}, ...], "pos": ...}`` with the JAX
 per-layer layout (B, Hkv, cache_len, hd) bf16; ``pos`` is a Python int
 for a B=1 prefill/extend cache and a (B,) int tensor for the batched
-decode cache.
+decode cache. A paged cache (``init_paged_cache``) holds per-layer block
+pools (n_blocks, Hkv, bs, hd) and a (B, cache_len // bs) int32
+``block_tab``; ``decode_step`` and ``verify_extend`` take either. Their
+``pos`` and ``block_tab`` may be host tensors (the engine keeps them on
+the host): they go to the device once per call, and the write plan of
+the step (``blocks.write_plan``) is computed from the host copies.
 
 The head is tied and computed in fp32 with full fp32 products, as the
 JAX package's head is: ``_logits`` sets
@@ -22,7 +27,8 @@ from torch import nn
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.blocks import Block, block_apply, block_cache_init
+from repro_torch.models.blocks import Block, block_apply, \
+    block_cache_init, block_paged_cache_init, write_plan
 
 
 def resolve_device(device=None) -> torch.device:
@@ -82,15 +88,57 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
             "pos": 0}
 
 
+def init_paged_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                     n_blocks: int, block_size: int, device) -> dict:
+    """Paged decode cache: per-layer block pools (n_blocks, Hkv, bs, hd)
+    bf16 shared by every slot, a (batch, cache_len // block_size) int32
+    ``block_tab`` filled with the sentinel ``n_blocks``, and a (batch,)
+    ``pos``. ``cache_len`` stays each slot's LOGICAL capacity; the
+    physical budget is n_blocks * block_size rows, independent of batch
+    (serving/kvpool.py assigns the block ids)."""
+    if cache_len % block_size:
+        raise ValueError(f"cache_len {cache_len} must be a multiple of "
+                         f"block_size {block_size}")
+    return {"layers": [block_paged_cache_init(cfg, n_blocks, block_size,
+                                              device)
+                       for _ in cfg.layer_kinds()],
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+            "block_tab": torch.full((batch, cache_len // block_size),
+                                    n_blocks, dtype=torch.int32,
+                                    device=device)}
+
+
 # ------------------------------------------------------------------ stack ----
 
-def _apply_stack(model: Model, x, *, mode, cache, pos, positions):
+def _apply_stack(model: Model, x, *, mode, cache, pos, positions,
+                 block_tab=None, plan=None):
     new_layers: List[dict] = []
     for blk, c in zip(model.layers, cache["layers"]):
         x, nc = block_apply(blk, x, model.cfg, mode=mode, cache=c, pos=pos,
-                            positions=positions)
+                            positions=positions, block_tab=block_tab,
+                            plan=plan)
         new_layers.append(nc)
     return x, new_layers
+
+
+def _step_inputs(model: Model, cache, W: int):
+    """(pos on the device, block table on the device or None, the step's
+    write plan or None) of a decode (W=1) or verify step. A dense decode
+    writes at min(pos, Sc-1) and needs no plan."""
+    pos = cache["pos"]
+    tab = cache.get("block_tab")
+    plan = None
+    if tab is not None:
+        nb, _, bs, _ = cache["layers"][0]["k"].shape
+        plan = write_plan(pos, W, tab.shape[1] * bs, model.device, tab, nb,
+                          bs)
+        tab = tab.to(model.device, torch.int32).contiguous()
+    elif W > 1:
+        plan = write_plan(pos, W, cache["layers"][0]["k"].shape[2],
+                          model.device)
+    if isinstance(pos, torch.Tensor):
+        pos = pos.to(model.device)
+    return pos, tab, plan
 
 
 def _tokens(model: Model, batch) -> torch.Tensor:
@@ -158,14 +206,49 @@ def prefill_extend(model: Model, cache, batch, n_valid=None):
 @torch.no_grad()
 def decode_step(model: Model, cache, batch):
     """One decode step. batch["tokens"]: (B,1); ``cache["pos"]`` a scalar
-    or a (B,) tensor of per-slot fill levels. Returns (logits (B,V) fp32,
+    or a (B,) tensor of per-slot fill levels. A cache with a
+    ``block_tab`` decodes against its paged pools; the table rides
+    through unchanged (the engine owns it). Returns (logits (B,V) fp32,
     cache with ``pos + 1``), the cache updated in place."""
-    pos = cache["pos"]
-    if isinstance(pos, torch.Tensor):
-        pos = pos.to(model.device)
+    pos, tab, plan = _step_inputs(model, cache, 1)
     tokens = _tokens(model, batch)
     x, positions = _embed_inputs(model, tokens, pos=pos)
     x, layers = _apply_stack(model, x, mode="decode", cache=cache, pos=pos,
-                             positions=positions)
+                             positions=positions, block_tab=tab, plan=plan)
     x = L.rmsnorm(model.final_norm.scale, x, model.cfg.norm_eps)
-    return _logits(model, x)[:, 0], {"layers": layers, "pos": pos + 1}
+    out = {"layers": layers, "pos": pos + 1}
+    if tab is not None:
+        out["block_tab"] = tab
+    return _logits(model, x)[:, 0], out
+
+
+@torch.no_grad()
+def verify_extend(model: Model, cache, batch):
+    """Speculative-decode verify: score W = K+1 positions per slot in ONE
+    forward against a continuous-batching cache (dense or paged) with
+    per-slot (B,) fill levels.
+
+    batch["tokens"]: (B, W), per slot the carried last token and its K
+    draft proposals. Returns logits for all W positions ((B, W, V) fp32;
+    row i is the target distribution after tokens[:, :i+1]) and the cache
+    with the W K/V rows written at [pos_b, pos_b + W), rows past the
+    capacity dropped. ``pos`` comes back UNCHANGED: the engine advances
+    each slot by its accepted length on the host, and that truncation is
+    the whole rejected-token rollback. The layers and the head run per
+    row at decode's shape, as the JAX package's head does, so row i is
+    bitwise the logits of the i'th sequential ``decode_step``."""
+    tokens = _tokens(model, batch)
+    W = tokens.shape[1]
+    pos, tab, plan = _step_inputs(model, cache, W)
+    x, positions = _embed_inputs(model, tokens, pos=pos)
+    x, layers = _apply_stack(model, x, mode="verify", cache=cache, pos=pos,
+                             positions=positions, block_tab=tab, plan=plan)
+    logits = torch.stack(
+        [_logits(model, L.rmsnorm(model.final_norm.scale,
+                                  x[:, i:i + 1].contiguous(),
+                                  model.cfg.norm_eps))[:, 0]
+         for i in range(W)], dim=1)                              # (B,W,V)
+    out = {"layers": layers, "pos": pos}
+    if tab is not None:
+        out["block_tab"] = tab
+    return logits, out

@@ -1,10 +1,10 @@
-"""Inference engine: prefill + continuous-batching decode (dense KV).
+"""Inference engine: prefill + continuous-batching decode.
 
-Port of the JAX package's ``serving/engine.py`` for ``kv_mode="dense"``.
-A fixed pool of ``max_batch`` slots shares one batched cache with
-per-slot positions (the (B,) ``pos`` vector, so every slot can sit at its
-own fill level). Requests are prefilled on arrival (B=1) and their caches
-copied into a free slot; one ``decode_step`` advances every active slot.
+Port of the JAX package's ``serving/engine.py``. A fixed pool of
+``max_batch`` slots shares one batched cache with per-slot positions (the
+(B,) ``pos`` vector, so every slot can sit at its own fill level).
+Requests are prefilled on arrival (B=1) and their caches copied into a
+free slot; one ``decode_step`` advances every active slot.
 
   * **prompt-prefix caching** — ``register_prefix`` prefills a shared
     prompt prefix once; requests tagged with its ``prefix_key`` extend a
@@ -18,14 +18,30 @@ copied into a free slot; one ``decode_step`` advances every active slot.
     decode (``interleave=False`` runs them to completion first);
     ``admission`` orders the queue: ``"fifo"`` or ``"slack"``.
 
-The port updates caches in place where the JAX package returns new
-arrays: an admission copies its B=1 cache into its slot, and a prefix hit
-clones the registered prefix cache before extending it, so the prefix
-stays intact for the next hit. Host-side state (per-slot positions, last
-tokens) lives in numpy and goes to the device once per step.
+``kv_mode`` selects the KV-cache memory manager:
 
-Not ported yet: ``kv_mode="paged"`` and ``spec_decode`` (ROADMAP.md queue
-A4/A5); the constructor raises ``NotImplementedError`` for them.
+  * ``"dense"`` (default): one (max_batch, cache_len) slab; admission
+    copies the request's prefill (and any cached prefix) into its slot;
+  * ``"paged"``: a fixed budget of ``kv_blocks`` blocks of ``block_size``
+    rows (serving/kvpool.py) with per-slot block tables. A registered
+    prefix's blocks are CoW-shared by every admission (refcount++, zero
+    copies), admission waits for free blocks, cold prefix pins are
+    LRU-evicted under pressure and the lowest-priority running request
+    is preempted and requeued (a bit-exact host copy of its rows)
+    instead of dropped. Dense and paged decode are bitwise identical.
+
+``spec_decode`` (a ``serving/specdec.py`` SpecConfig) turns on
+draft-verify speculative decoding: every step drafts K greedy tokens per
+slot and verifies them in ONE target ``verify_extend`` forward, emitting
+1..K+1 tokens per slot, bitwise the tokens of non-speculative decoding
+(T=0 always; any temperature for seeded requests), in both kv modes.
+
+The port updates caches in place where the JAX package returns new
+arrays: an admission copies its B=1 cache into its slot (dense) or its
+blocks (paged), and a prefix hit clones the registered prefix cache
+before extending it, so the prefix stays intact for the next hit.
+Host-side state (per-slot positions, last tokens, the block table) lives
+in numpy; positions and the table go to the device once per step.
 """
 from __future__ import annotations
 
@@ -39,17 +55,22 @@ import torch
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.perf import get_flags
 from repro_torch.models.model import Model, decode_step, init_cache, \
-    prefill, prefill_extend
+    init_paged_cache, prefill, prefill_extend, verify_extend
 from repro_torch.obs import NULL_TRACER, MetricsRegistry, StatsView
+from repro_torch.serving.kvpool import BlockTable, KVBlockPool
 from repro_torch.serving.sampling import SamplerConfig, request_generator, \
     sample
-from repro_torch.serving.sched import AdmissionQueue, deadline_step
+from repro_torch.serving.sched import AdmissionQueue, deadline_step, \
+    victim_key
+from repro_torch.serving.specdec import SpecConfig, SpecDecoder, \
+    check_spec_stack
 from repro_torch.serving.tokenizer import SPECIALS, TOKENIZER
 
 KV_MODES = ("dense", "paged")
 
-# The engine's counter surface, the JAX engine's keys (same semantics;
-# the paged and speculative counters stay 0 until those modes are ported).
+# The engine's counter surface, the JAX engine's keys and semantics:
+# decode_steps counts TARGET forwards (verify forwards under spec decode);
+# spec_drafted/spec_accepted count draft tokens (accept rate = ratio).
 ENGINE_STAT_KEYS = (
     "decode_steps", "prefills", "tokens_generated", "prefix_hits",
     "prefix_tokens_saved", "admissions", "prefix_registrations",
@@ -72,7 +93,8 @@ class Request:
     # filled by the engine:
     output: List[int] = field(default_factory=list)
     done: bool = False
-    # "eos" | "max_new_tokens" | "cache_len" | "sla_expired"
+    # "eos" | "max_new_tokens" | "cache_len" | "kv_oom" (paged: can never
+    # fit the block budget) | "sla_expired"
     finish_reason: Optional[str] = None
     enqueue_t: float = 0.0
     first_token_t: float = 0.0
@@ -82,6 +104,10 @@ class Request:
     admit_step: Optional[int] = None
     first_token_step: Optional[int] = None
     finish_step: Optional[int] = None
+    # paged preemption: host copy of the request's KV blocks
+    # ({"layers": [{"k", "v"}, ...] of (n_blocks, Hkv, bs, hd), "pos": n})
+    # while it sits requeued
+    swap: Optional[dict] = None
 
 
 @dataclass
@@ -103,6 +129,8 @@ class PendingPrefill:
     i: int                           # ids already in the cache
     logits: Optional[torch.Tensor]   # (1,V) after toks[:i]; None pre-head
     cache: Optional[dict]            # B=1 cache; None pre-head
+    table: Optional[BlockTable] = None   # paged: blocks held from admission
+    j0: int = 0                          # paged: shared prefix blocks
 
 
 def _clone_cache(cache: dict) -> dict:
@@ -117,6 +145,27 @@ def _insert_slot(batched: dict, single: dict, slot: int) -> None:
     for b, s in zip(batched["layers"], single["layers"]):
         for key, leaf in b.items():
             leaf[slot:slot + 1].copy_(s[key])
+
+
+def _paged_scatter(paged: dict, layers, blocks: List[int],
+                   first: int = 0) -> None:
+    """Copy logical blocks [first, len(blocks)) of a B=1 dense cache's
+    layers ((1, Hkv, S, hd) leaves, S >= len(blocks) * bs) into the
+    paged cache's pool blocks ``blocks``, in place (the JAX package's
+    ``_paged_scatter``; logical blocks below ``first`` are shared prefix
+    blocks, already in the pool)."""
+    n = len(blocks)
+    if first >= n:
+        return
+    dst = torch.as_tensor(blocks[first:],
+                          device=paged["layers"][0]["k"].device)
+    for pool, single in zip(paged["layers"], layers):
+        for key in ("k", "v"):
+            bs = pool[key].shape[2]
+            src = single[key][0, :, first * bs:n * bs]        # (Hkv, R, hd)
+            Hkv, _, hd = src.shape
+            pool[key][dst] = src.reshape(Hkv, n - first, bs, hd
+                                         ).transpose(0, 1)
 
 
 def advance_cache_through(model: Model, logits, cache, tokens, *,
@@ -146,6 +195,7 @@ def advance_cache_through(model: Model, logits, cache, tokens, *,
 
 
 def _kv_cache_bytes(cache: dict) -> int:
+    """Bytes of the K/V leaves of every layer (dense slabs or pools)."""
     return sum(t.numel() * t.element_size()
                for c in cache["layers"] for t in c.values())
 
@@ -155,7 +205,7 @@ class InferenceEngine:
                  cache_len: int = 512, seed: int = 0, kv_mode: str = "dense",
                  kv_blocks: Optional[int] = None,
                  block_size: Optional[int] = None,
-                 spec_decode=None,
+                 spec_decode: Optional[SpecConfig] = None,
                  prefill_budget: Optional[int] = None,
                  interleave: bool = True,
                  admission: str = "fifo",
@@ -164,15 +214,8 @@ class InferenceEngine:
         if kv_mode not in KV_MODES:
             raise ValueError(f"kv_mode must be one of {KV_MODES}, "
                              f"got {kv_mode!r}")
-        if kv_mode == "paged":
-            raise NotImplementedError(
-                "kv_mode='paged' is not ported yet (ROADMAP.md queue A4, "
-                "kernel B3)")
-        if spec_decode is not None:
-            raise NotImplementedError(
-                "spec_decode is not ported yet (ROADMAP.md queue A5, "
-                "kernel B4)")
-        if kv_blocks is not None or block_size is not None:
+        if kv_mode == "dense" and (kv_blocks is not None
+                                   or block_size is not None):
             raise ValueError("kv_blocks/block_size apply only to "
                              "kv_mode='paged'")
         if prefill_budget is not None and prefill_budget < 1:
@@ -193,7 +236,31 @@ class InferenceEngine:
         self.kv_mode = kv_mode
         self.seed = seed
         self.rng = torch.Generator().manual_seed(seed)
-        self.cache = init_cache(cfg, max_batch, cache_len, self.device)
+        if kv_mode == "paged":
+            self.block_size = 16 if block_size is None else block_size
+            if cache_len % self.block_size:
+                raise ValueError(f"cache_len {cache_len} must be a "
+                                 f"multiple of block_size {self.block_size}")
+            # default physical budget: exactly the dense reservation
+            self.kv_blocks = (kv_blocks if kv_blocks is not None
+                              else max_batch * cache_len // self.block_size)
+            self.pool = KVBlockPool(self.kv_blocks, self.block_size,
+                                    metrics=self.metrics)
+            self.cache = init_paged_cache(cfg, max_batch, cache_len,
+                                          self.kv_blocks, self.block_size,
+                                          self.device)
+            self.tables: List[Optional[BlockTable]] = [None] * max_batch
+            self._prefix_tables: Dict[str, BlockTable] = {}
+            self._prefix_lru: Dict[str, int] = {}
+            self._lru_tick = 0
+            # host block table, uploaded once per step
+            self._tab = np.full((max_batch, cache_len // self.block_size),
+                                self.kv_blocks, np.int32)
+        else:
+            self.block_size = 0
+            self.kv_blocks = 0
+            self.pool = None
+            self.cache = init_cache(cfg, max_batch, cache_len, self.device)
         self.slots: List[Optional[Request]] = [None] * max_batch
         self.admission = admission
         self.queue = AdmissionQueue(admission, metrics=self.metrics)
@@ -207,10 +274,20 @@ class InferenceEngine:
         self._next_session = 0
         self.stats = StatsView(self.metrics, ENGINE_STAT_KEYS)
         self._kv_bytes_total = _kv_cache_bytes(self.cache)
-        self._kv_peak_slots = 0
+        self._kv_peak_blocks = 0       # paged: peak pool blocks in use
+        self._kv_peak_shared = 0       # paged: peak CoW-shared blocks
+        self._kv_peak_slots = 0        # dense: peak busy slots
         # host mirrors of the per-slot fill levels and carried tokens
         self._pos = np.zeros((max_batch,), np.int32)
         self._last_tokens = np.zeros((max_batch, 1), np.int64)
+        # speculative decoding: draft K tokens per slot, verify them in
+        # ONE target forward (serving/specdec.py)
+        self.spec: Optional[SpecDecoder] = None
+        if spec_decode is not None:
+            check_spec_stack(cfg, "target model")
+            self.spec = SpecDecoder(spec_decode, max_batch=max_batch,
+                                    cache_len=cache_len,
+                                    metrics=self.metrics)
 
     # ------------------------------------------------------------- API ----
     def add_request(self, prompt_text_or_ids, max_new_tokens: int = 32,
@@ -251,12 +328,14 @@ class InferenceEngine:
 
     @property
     def spec_k(self) -> int:
-        return 0
+        """Draft tokens per speculative round (0 = spec decode off)."""
+        return self.spec.k if self.spec is not None else 0
 
     def reset(self, seed: Optional[int] = None):
         """Return the engine to its just-constructed state. Cache storage
-        is reused: stale rows are masked by the zeroed positions and
-        overwritten at the next admission."""
+        is reused: stale rows are masked by the zeroed positions (and, in
+        paged mode, the all-sentinel table) and overwritten at the next
+        admission."""
         if seed is not None:
             self.seed = seed
         self.rng = torch.Generator().manual_seed(self.seed)
@@ -264,6 +343,14 @@ class InferenceEngine:
         self._req_spans.clear()
         self._pos[:] = 0
         self._last_tokens[:] = 0
+        if self.kv_mode == "paged":
+            self.pool = KVBlockPool(self.kv_blocks, self.block_size,
+                                    metrics=self.metrics)
+            self.tables = [None] * self.max_batch
+            self._prefix_tables = {}
+            self._prefix_lru = {}
+            self._lru_tick = 0
+            self._tab[:] = self.kv_blocks
         self.slots = [None] * self.max_batch
         self.queue.clear()
         self._pending.clear()
@@ -272,7 +359,11 @@ class InferenceEngine:
         self.prefixes.clear()
         self._next_id = 0
         self._next_session = 0
+        self._kv_peak_blocks = 0
+        self._kv_peak_shared = 0
         self._kv_peak_slots = 0
+        if self.spec is not None:
+            self.spec.reset()
 
     # -------------------------------------------------- prefix caching ----
     def register_prefix(self, key: str, prefix_text_or_ids) -> int:
@@ -280,7 +371,8 @@ class InferenceEngine:
         returns its length in tokens. Text prefixes are encoded as <bos> +
         tokens (no <eos>). A prefix longer than one attention chunk is
         prefilled on its chunk-aligned head and extended over the tail,
-        the JAX engine's split."""
+        the JAX engine's split. In paged mode the prefix's rows are also
+        pinned in pool blocks that every hit shares."""
         ids = ([SPECIALS["<bos>"]] + TOKENIZER.encode(prefix_text_or_ids)
                if isinstance(prefix_text_or_ids, str)
                else list(prefix_text_or_ids))
@@ -296,6 +388,8 @@ class InferenceEngine:
         self.stats["prefix_registrations"] += 1
         logits, cache = self._decode_through(logits, cache, ids[len(head):])
         self.prefixes[key] = CachedPrefix(ids, cache, logits)
+        if self.kv_mode == "paged":
+            self._pin_prefix(key, self.prefixes[key])
         return len(ids)
 
     def _decode_through(self, logits, cache, tokens: List[int]
@@ -309,8 +403,186 @@ class InferenceEngine:
         return self._decode_through(pref.logits, _clone_cache(pref.cache),
                                     suffix)
 
+    # ------------------------------------------------ paged KV memory ----
+    # Host-side policy over serving/kvpool.py: the pool owns block ids and
+    # refcounts; the engine owns what is cold (LRU prefix pins) and who is
+    # lowest priority (the admission policy's preemption victim).
+    def _pin_prefix(self, key: str, pref: CachedPrefix):
+        """Write the prefix's KV rows into pool blocks ONCE and pin them
+        (an LRU-evictable hold). Every admission that hits the prefix
+        forks this table (refcount++, zero copies). If the pool cannot
+        hold the prefix even after evicting colder pins, it stays
+        unpinned: hits still reuse the staged prefill and scatter their
+        own copy."""
+        old = self._prefix_tables.pop(key, None)
+        if old is not None:
+            self._prefix_lru.pop(key, None)
+            self.pool.free(old)
+        need = self.pool.blocks_needed(len(pref.ids))
+        if need > self.pool.n_blocks or not self._reserve(need):
+            return
+        table = self.pool.alloc(len(pref.ids))
+        _paged_scatter(self.cache, pref.cache["layers"], table.blocks)
+        self._prefix_tables[key] = table
+        self._touch_prefix(key)
+        self._note_kv_peak()
+
+    def _touch_prefix(self, key: str):
+        self._prefix_lru[key] = self._lru_tick
+        self._lru_tick += 1
+
+    def _reserve(self, need: int, keep: Optional[str] = None) -> bool:
+        """True once >= ``need`` blocks are free, evicting cold prefix
+        pins (LRU; never ``keep``, the pin an admission is about to fork)
+        as required. Evicts only when eviction can satisfy the request:
+        pins are never re-established, so destroying them for an
+        unsatisfiable reservation would end sharing for nothing. Never
+        touches running requests (that is _ensure_room's call)."""
+        if self.pool.free_blocks() >= need:
+            return True
+        # blocks an eviction sweep would free: a pin's exclusively held
+        # blocks (shared ones stay with their forks)
+        gain = sum(1 for k, t in self._prefix_tables.items()
+                   if k != keep
+                   for b in t.blocks if self.pool.ref[b] == 1)
+        if self.pool.free_blocks() + gain < need:
+            return False
+        while self.pool.free_blocks() < need \
+                and self._evict_cold_prefix(keep):
+            pass
+        return self.pool.free_blocks() >= need
+
+    def _evict_cold_prefix(self, keep: Optional[str] = None) -> bool:
+        """Evict the LRU prefix pin among those whose eviction frees at
+        least one block NOW."""
+        candidates = [k for k, t in self._prefix_tables.items()
+                      if k != keep
+                      and any(self.pool.ref[b] == 1 for b in t.blocks)]
+        if not candidates:
+            return False
+        key = min(candidates, key=self._prefix_lru.get)
+        self.pool.free(self._prefix_tables.pop(key))
+        del self._prefix_lru[key]
+        self.stats["prefix_evictions"] += 1
+        if self.tracer.enabled:
+            self.tracer.event("kv_evict", tick=self.step_no,
+                              group=self.trace_group, lane="kv",
+                              prefix=key)
+        return True
+
+    def _install_paged(self, slot: int, req: Request, table: BlockTable,
+                       layers, scatter_from: int):
+        """Bind (request, block table) to a slot: scatter the B=1 cache
+        rows of logical blocks [scatter_from, len(table)) into the
+        table's blocks, then point the slot's table row and pos at
+        them."""
+        _paged_scatter(self.cache, layers, table.blocks, scatter_from)
+        self._bind_table(slot, req, table)
+
+    def _bind_table(self, slot: int, req: Request, table: BlockTable):
+        self._tab[slot] = self.kv_blocks
+        self._tab[slot, :len(table.blocks)] = table.blocks
+        self._pos[slot] = table.n_tokens
+        self.slots[slot] = req
+        self.tables[slot] = table
+        self._note_kv_peak()
+
+    def _release_slot(self, slot: int):
+        """Free a paged slot's blocks and sentinel its table row."""
+        self.pool.free(self.tables[slot])
+        self.tables[slot] = None
+        self._tab[slot] = self.kv_blocks
+
+    def _preempt(self, slot: int):
+        """Swap the slot's KV blocks to host memory, free them and requeue
+        the request at the queue head. The swap payload is a bit-exact
+        host copy, so the resumed request decodes the same tokens it
+        would have (seeded requests are provably unperturbed; engine-
+        stream requests see another draw order, as any co-tenancy change
+        gives them)."""
+        req = self.slots[slot]
+        table = self.tables[slot]
+        ids = torch.as_tensor(table.blocks, device=self.device)
+        req.swap = {"layers": [{key: pool[key][ids].cpu() for key in pool}
+                               for pool in self.cache["layers"]],
+                    "pos": table.n_tokens}
+        self.slots[slot] = None
+        self._pos[slot] = 0
+        self._release_slot(slot)
+        # FIFO requeues at the head (the victim resumes before new
+        # arrivals); slack mode re-competes by deadline
+        self.queue.push(req, front=True)
+        self.stats["preemptions"] += 1
+        h = self._req_spans.pop(req.request_id, None)
+        if h is not None:
+            self.tracer.end(h, tick=self.step_no, preempted=True,
+                            tokens=len(req.output))
+        if self.tracer.enabled:
+            self.tracer.event("preempt", tick=self.step_no,
+                              group=self.trace_group, lane="queue",
+                              request=req.request_id, slot=slot)
+
+    def _resume(self, slot: int, req: Request, table: BlockTable):
+        """Restore a preempted request's swapped blocks into ``table``."""
+        n = min(len(table.blocks),
+                req.swap["layers"][0]["k"].shape[0])
+        dst = torch.as_tensor(table.blocks[:n], device=self.device)
+        for pool, saved in zip(self.cache["layers"], req.swap["layers"]):
+            for key in ("k", "v"):
+                pool[key][dst] = saved[key][:n].to(self.device)
+        self._bind_table(slot, req, table)
+
+    def _ensure_room(self, width: int = 1) -> List[Request]:
+        """Pre-decode: every active slot must own blocks for the ``width``
+        rows it is about to write (1 per decode step, K+1 per speculative
+        verify; rejected rows stay in blocks the slot already owns).
+        Under memory pressure, evict cold prefix pins (inside _reserve),
+        then preempt and requeue the lowest-priority running request
+        (sched.victim_key), never drop it. Pending chunked prefills are
+        neither growers nor victims. A lone request that has outgrown the
+        whole pool finishes with ``kv_oom``."""
+        finished: List[Request] = []
+        for i in range(self.max_batch):
+            if self.slots[i] is None or i in self._pending:
+                continue
+            table = self.tables[i]
+            needed_rows = min(table.n_tokens + width, self.cache_len)
+            blocked = False
+            while (not blocked
+                   and len(table.blocks) * self.block_size < needed_rows):
+                if self._reserve(1):
+                    j = len(table.blocks)
+                    self._tab[i, j] = self.pool.append_block(table)
+                    continue
+                active = [j for j in range(self.max_batch)
+                          if self.slots[j] is not None
+                          and j not in self._pending]
+                victim = max(active, key=lambda j: victim_key(
+                    self.slots[j], self.admission))
+                if victim == i and len(active) == 1:
+                    req = self.slots[i]
+                    self._finish_now(req, "kv_oom")
+                    finished.append(req)
+                    self.slots[i] = None
+                    self._pos[i] = 0
+                    self._release_slot(i)
+                    blocked = True
+                    break
+                self._preempt(victim)
+                if victim == i:
+                    blocked = True
+        self._note_kv_peak()
+        return finished
+
     def _note_kv_peak(self):
-        self._kv_peak_slots = max(self._kv_peak_slots, self.busy_slots())
+        if self.kv_mode == "paged":
+            self._kv_peak_blocks = max(self._kv_peak_blocks,
+                                       self.pool.used_blocks())
+            self._kv_peak_shared = max(self._kv_peak_shared,
+                                       self.pool.shared_blocks())
+        else:
+            self._kv_peak_slots = max(self._kv_peak_slots,
+                                      self.busy_slots())
 
     # ------------------------------------------------------- sessions ----
     def open_session(self, prefix_key: Optional[str] = None,
@@ -340,9 +612,10 @@ class InferenceEngine:
             return pref
         return None
 
-    def _prefill_request(self, req: Request):
-        """Admission logits + B=1 cache, via the prefix cache on a hit."""
-        pref = self._prefix_hit(req)
+    def _prefill_request(self, req: Request,
+                         pref: Optional[CachedPrefix]):
+        """Admission logits + B=1 cache, via the prefix cache on a hit
+        (``pref``, the request's ``_prefix_hit``)."""
         if pref is not None:
             logits, cache1 = self._extend_prefix(
                 pref, req.prompt[len(pref.ids):])
@@ -354,16 +627,16 @@ class InferenceEngine:
         self.stats["prefills"] += 1
         return logits, cache1
 
-    def _trace_admit(self, req: Request, slot: int):
+    def _trace_admit(self, req: Request, slot: int, resumed: bool = False):
         if not self.tracer.enabled:
             return
-        self.tracer.event("admit", tick=self.step_no,
-                          group=self.trace_group, lane="queue",
-                          request=req.request_id, slot=slot)
+        self.tracer.event("resume" if resumed else "admit",
+                          tick=self.step_no, group=self.trace_group,
+                          lane="queue", request=req.request_id, slot=slot)
         self._req_spans[req.request_id] = self.tracer.begin(
             "request", tick=self.step_no, group=self.trace_group,
             lane=slot, request=req.request_id,
-            prompt_tokens=len(req.prompt), resumed=False)
+            prompt_tokens=len(req.prompt), resumed=resumed)
 
     def _finish_now(self, req: Request, reason: str):
         req.done = True
@@ -405,7 +678,8 @@ class InferenceEngine:
         return False
 
     def _drop_expired(self) -> List[Request]:
-        """Drop fresh queue heads whose SLA deadline has passed."""
+        """Drop fresh queue heads whose SLA deadline has passed (a
+        preempted request, which holds output, always resumes)."""
         dropped: List[Request] = []
         while self.queue:
             req = self.queue.peek()
@@ -421,21 +695,32 @@ class InferenceEngine:
         _insert_slot(self.cache, cache1, slot)
         self._pos[slot] = len(req.prompt)
         self.slots[slot] = req
+
+    def _seated(self, slot: int, req: Request):
+        """A request now decodes from ``slot``: carry its last token and,
+        with spec decode, build the draft's cache over its context."""
         self._last_tokens[slot, 0] = req.output[-1]
+        if self.spec is not None:
+            self.spec.admit(slot, req.prompt + req.output[:-1])
 
     def _admit(self) -> List[Request]:
         """Prefill queued requests into free slots (or, under
         ``prefill_budget``, start their chunked prefills); returns the
         ones whose admission token was terminal plus expired drops."""
+        if self.kv_mode == "paged":
+            return self._admit_paged()
         finished: List[Request] = self._drop_expired()
         free = deque(self._free_slots())
         while free and self.queue:
             slot = free[0]
             req = self.queue.pop()
-            if self.prefill_budget is not None and \
-                    len(req.prompt) >= self.cache_len:
-                # a chunk-by-chunk replay cannot reproduce the clamped
-                # overflow write of a truncated monolithic prefill
+            if (self.spec is not None or self.prefill_budget is not None) \
+                    and len(req.prompt) >= self.cache_len:
+                # plain dense truncates the prefill and emits a token or
+                # two before dying with "cache_len"; that clamped overflow
+                # write cannot be reproduced by one verify forward or
+                # replayed chunk by chunk, so spec and budget modes refuse
+                # up front (the paged semantics)
                 self._finish_now(req, "cache_len")
                 finished.append(req)
                 continue
@@ -446,16 +731,131 @@ class InferenceEngine:
                 free.popleft()
                 self._start_pending(slot, req, self._prefix_hit(req))
                 continue
-            logits, cache1 = self._prefill_request(req)
+            logits, cache1 = self._prefill_request(req,
+                                                   self._prefix_hit(req))
             if self._first_token(req, logits):
                 finished.append(req)
                 continue
             free.popleft()
             self._install(slot, req, cache1)
+            self._seated(slot, req)
         return finished
 
+    def _admit_paged(self) -> List[Request]:
+        """Paged admission: FIFO like dense, but gated on free blocks. A
+        queue head that does not fit (after LRU-evicting cold prefix
+        pins) WAITS for running requests to free memory; requests that
+        can never fit the pool finish with ``kv_oom``; preempted requests
+        at the head are restored from their swap payload without
+        recomputation. Each admission holds one block of headroom for
+        the decode write of its first step."""
+        finished: List[Request] = self._drop_expired()
+        free = deque(self._free_slots())
+        while free and self.queue:
+            slot = free[0]
+            req = self.queue.peek()
+            if req.swap is not None:                       # resume
+                total = req.swap["pos"]
+                need = self.pool.blocks_needed(total + 1)
+                if need > self.pool.n_blocks:
+                    self.queue.pop()
+                    self._finish_now(req, "kv_oom")
+                    finished.append(req)
+                    continue
+                if not self._reserve(need):
+                    break                                  # wait
+                self.queue.pop()
+                table = self.pool.alloc(total + 1)
+                table.n_tokens = total
+                self._resume(slot, req, table)
+                req.swap = None
+                self.stats["resumes"] += 1
+                self._trace_admit(req, slot, resumed=True)
+                # the swap restored the target's KV; the draft cache was
+                # dropped at preemption and is rebuilt over the context
+                self._seated(slot, req)
+                free.popleft()
+                continue
+            total = len(req.prompt)
+            if total >= self.cache_len:
+                # no room in the logical view for even one decode write
+                self.queue.pop()
+                self._finish_now(req, "cache_len")
+                finished.append(req)
+                continue
+            # zero-copy sharing needs the prefix PINNED; a hit on an
+            # evicted pin reuses the staged prefill but scatters a
+            # private copy (j0 = 0)
+            pref = self._prefix_hit(req)
+            ptab = (self._prefix_tables.get(req.prefix_key)
+                    if pref is not None else None)
+            j0 = len(pref.ids) // self.block_size if ptab is not None else 0
+            if ptab is not None:
+                self._touch_prefix(req.prefix_key)
+            need = self.pool.blocks_needed(total + 1) - j0
+            if need > self.pool.n_blocks:
+                self.queue.pop()
+                self._finish_now(req, "kv_oom")
+                finished.append(req)
+                continue
+            if not self._reserve(need, keep=(req.prefix_key
+                                             if ptab is not None else None)):
+                if self.busy_slots() > 0:
+                    break      # wait: running requests will free blocks
+                # nothing running will free blocks; last resort, retry as
+                # a private copy (may evict the pin we would have forked)
+                if ptab is not None:
+                    ptab, j0 = None, 0
+                    need = self.pool.blocks_needed(total + 1)
+                if not self._reserve(need):
+                    self.queue.pop()
+                    self._finish_now(req, "kv_oom")
+                    finished.append(req)
+                    continue
+            self.queue.pop()
+            self.stats["admissions"] += 1
+            req.admit_step = self.step_no
+            self._trace_admit(req, slot)
+            if self.prefill_budget is not None:
+                # chunked admission takes its blocks NOW, so co-resident
+                # decodes cannot starve the in-flight prefill
+                table = self._take_table(req, ptab, j0, total)
+                free.popleft()
+                self._start_pending(slot, req, pref, table, j0)
+                self._note_kv_peak()
+                continue
+            logits, cache1 = self._prefill_request(req, pref)
+            if self._first_token(req, logits):
+                finished.append(req)
+                continue
+            table = self._take_table(req, ptab, j0, total)
+            self._install_paged(slot, req, table, cache1["layers"], j0)
+            self._seated(slot, req)
+            free.popleft()
+        return finished
+
+    def _take_table(self, req: Request, ptab: Optional[BlockTable],
+                    j0: int, total: int) -> BlockTable:
+        """The admission's block table, with one block of headroom for
+        its first decode write: a CoW fork of the prefix pin (sharing its
+        ``j0`` full blocks, owning a fresh copy of the rest) or fresh
+        blocks."""
+        if ptab is not None:
+            table = self.pool.fork(ptab, total)
+            self.pool.cow_from(table, j0)
+            self.pool.grow(table, total + 1)
+            if self.tracer.enabled:
+                self.tracer.event("cow_fork", tick=self.step_no,
+                                  group=self.trace_group, lane="kv",
+                                  request=req.request_id, shared_blocks=j0)
+        else:
+            table = self.pool.alloc(total + 1)
+        table.n_tokens = total
+        return table
+
     def _start_pending(self, slot: int, req: Request,
-                       pref: Optional[CachedPrefix]):
+                       pref: Optional[CachedPrefix],
+                       table: Optional[BlockTable] = None, j0: int = 0):
         i, logits, cache = 0, None, None
         if pref is not None:
             i = len(pref.ids)
@@ -468,7 +868,7 @@ class InferenceEngine:
         self.slots[slot] = req
         self._pending[slot] = PendingPrefill(
             req=req, slot=slot, toks=list(req.prompt), i=i,
-            logits=logits, cache=cache)
+            logits=logits, cache=cache, table=table, j0=j0)
         self._pending_rr.append(slot)
 
     def _advance_pending(self, p: PendingPrefill, chunks: int) -> int:
@@ -508,12 +908,22 @@ class InferenceEngine:
         return spent
 
     def _complete_pending(self, slot: int) -> Optional[Request]:
+        """Last chunk landed: sample the admission token and install the
+        B=1 cache into the slot (dense copy or paged scatter), as the
+        monolithic admission does. Returns the request when its first
+        token was terminal."""
         p = self._pending.pop(slot)
         req = p.req
         if self._first_token(req, p.logits):
             self.slots[slot] = None
+            if self.kv_mode == "paged":
+                self.pool.free(p.table)
             return req
-        self._install(slot, req, p.cache)
+        if self.kv_mode == "paged":
+            self._install_paged(slot, req, p.table, p.cache["layers"], p.j0)
+        else:
+            self._install(slot, req, p.cache)
+        self._seated(slot, req)
         return None
 
     def _advance_pendings(self) -> List[Request]:
@@ -537,12 +947,21 @@ class InferenceEngine:
 
     def step(self) -> List[Request]:
         """One engine iteration: admit, advance pending chunked prefills,
-        then decode one token for every active slot (skipped while any
-        prefill is pending when ``interleave=False``). Returns newly
-        finished requests."""
+        then (paged) grow the block tables for this step's writes and
+        decode one token for every active slot, or, with spec decode on,
+        draft K tokens per slot and verify them in one target forward
+        (skipped while any prefill is pending when ``interleave=False``).
+        Returns newly finished requests."""
         finished = self._step_once()
         self.step_no += 1
         return finished
+
+    def _upload_step_state(self):
+        """This step's per-slot positions and block table (host tensors;
+        the model moves them to the device once per forward)."""
+        self.cache["pos"] = torch.from_numpy(self._pos.copy())
+        if self.kv_mode == "paged":
+            self.cache["block_tab"] = torch.from_numpy(self._tab.copy())
 
     def _step_once(self) -> List[Request]:
         finished = self._admit()
@@ -550,6 +969,8 @@ class InferenceEngine:
         if self._pending:
             finished.extend(self._advance_pendings())
         stalled = not self.interleave and bool(self._pending)
+        if self.kv_mode == "paged" and not stalled:
+            finished.extend(self._ensure_room(self.spec_k + 1))
         active = [i for i, s in enumerate(self.slots)
                   if s is not None and i not in self._pending]
         if not active:
@@ -561,7 +982,10 @@ class InferenceEngine:
                                   group=self.trace_group, lane="engine",
                                   pending=len(self._pending))
             return finished
-        self.cache["pos"] = torch.as_tensor(self._pos, device=self.device)
+        if self.spec is not None:
+            finished.extend(self._spec_step(active))
+            return finished
+        self._upload_step_state()
         logits, self.cache = decode_step(
             self.model, self.cache,
             {"tokens": torch.as_tensor(self._last_tokens,
@@ -573,6 +997,9 @@ class InferenceEngine:
             self.tracer.event("decode", tick=self.step_no,
                               group=self.trace_group, lane="engine",
                               active=len(active))
+        if self.kv_mode == "paged":
+            for i in active:          # one KV row written per sequence
+                self.tables[i].n_tokens += 1
         greedy = torch.argmax(logits, dim=-1).tolist()
         for i in active:
             req = self.slots[i]
@@ -593,6 +1020,85 @@ class InferenceEngine:
                 finished.append(req)
                 self.slots[i] = None
                 self._pos[i] = 0
+                if self.kv_mode == "paged":
+                    self._release_slot(i)
+        return finished
+
+    def _spec_step(self, active: List[int]) -> List[Request]:
+        """One speculative round: K greedy draft steps, one target verify
+        forward over W = K+1 positions per slot, then per-slot
+        sample-and-match acceptance (serving/specdec.py). Every emitted
+        token is sampled from verify logits that are bitwise the decode
+        logits, with the generator non-speculative decoding would use for
+        it, and the finish checks replay step()'s decisions token by
+        token, so outputs and finish reasons match the non-speculative
+        engine."""
+        k = self.spec.k
+        pos0 = self._pos.copy()
+        drafts = self.spec.draft(self._last_tokens)              # (B, k)
+        toks = np.concatenate([self._last_tokens, drafts], axis=1)
+        self._upload_step_state()
+        vlogits, self.cache = verify_extend(
+            self.model, self.cache,
+            {"tokens": torch.as_tensor(toks, device=self.device)})
+        self.stats["decode_steps"] += 1
+        self.stats["spec_rounds"] += 1
+        greedy = torch.argmax(vlogits, dim=-1).tolist()          # (B, W)
+        new_pos = pos0.copy()
+        finished: List[Request] = []
+        full_accept = False
+        round_accepted = 0
+        for i in active:
+            req = self.slots[i]
+            emitted = accepted = 0
+            reason = None
+            for j in range(k + 1):
+                if req.sampler.temperature <= 0.0:
+                    tok = greedy[i][j]
+                else:
+                    tok = int(sample(vlogits[i, j][None],
+                                     self._request_gen(req),
+                                     req.sampler)[0])
+                req.output.append(tok)
+                emitted += 1
+                self.stats["tokens_generated"] += 1
+                matched = j < k and tok == int(drafts[i, j])
+                if matched:
+                    accepted += 1
+                hit_cap = len(req.output) >= req.max_new_tokens
+                hit_len = int(pos0[i]) + j + 2 >= self.cache_len - 1
+                reason = ("eos" if tok == SPECIALS["<eos>"]
+                          else "max_new_tokens" if hit_cap
+                          else "cache_len" if hit_len else None)
+                if reason is not None or not matched:
+                    break
+            self.stats["spec_drafted"] += k
+            self.stats["spec_accepted"] += accepted
+            round_accepted += accepted
+            full_accept = full_accept or accepted == k
+            new_pos[i] = int(pos0[i]) + emitted
+            self._last_tokens[i, 0] = req.output[-1]
+            if self.kv_mode == "paged":
+                # rollback IS this truncation: rejected rows sit in blocks
+                # the table already holds and are overwritten before
+                # kv_len reaches them
+                self.tables[i].n_tokens = int(pos0[i]) + emitted
+            if reason is not None:
+                self._finish_now(req, reason)
+                finished.append(req)
+                self.slots[i] = None
+                new_pos[i] = 0
+                if self.kv_mode == "paged":
+                    self._release_slot(i)
+        if self.tracer.enabled:
+            self.tracer.event("spec_round", tick=self.step_no,
+                              group=self.trace_group, lane="engine",
+                              active=len(active), drafted=k * len(active),
+                              accepted=round_accepted)
+        self._pos = new_pos
+        if full_accept:
+            self.spec.catch_up()
+        self.spec.set_pos(new_pos)
         return finished
 
     def run_until_done(self, max_iters: int = 10_000) -> List[Request]:
@@ -606,15 +1112,34 @@ class InferenceEngine:
 
     def throughput_stats(self) -> Dict[str, float]:
         st = {**self.stats, **self.kv_memory_stats()}
+        # tokens per TARGET forward (> busy slots when drafts are
+        # accepted); accept rate = accepted / drafted over every round
         st["tokens_per_step"] = round(
             st["tokens_generated"] / max(st["decode_steps"], 1), 4)
-        st["spec_accept_rate"] = 0.0
+        st["spec_accept_rate"] = round(
+            st["spec_accepted"] / max(st["spec_drafted"], 1), 4)
         st["spec_k"] = self.spec_k
         return st
 
     def kv_memory_stats(self) -> Dict:
-        """Dense KV accounting: the full (max_batch, cache_len) slab is
-        allocated; live requests hold one slot each."""
+        """KV-memory accounting, alike across modes:
+        ``kv_bytes_allocated`` is the physical reservation (dense: the
+        full (max_batch, cache_len) slab; paged: the block pool),
+        ``kv_bytes_in_use``/``kv_bytes_peak`` what live requests hold,
+        and ``kv_shared_frac`` the peak fraction of in-use blocks
+        CoW-shared between holders (dense never shares)."""
+        if self.kv_mode == "paged":
+            ps = self.pool.stats()
+            bpb = self._kv_bytes_total // max(self.kv_blocks, 1)
+            return {**ps, "kv_mode": "paged",
+                    "kv_bytes_allocated": self._kv_bytes_total,
+                    "kv_bytes_in_use": ps["kv_blocks_used"] * bpb,
+                    "kv_bytes_peak": self._kv_peak_blocks * bpb,
+                    "kv_blocks_used_peak": self._kv_peak_blocks,
+                    "kv_blocks_shared_peak": self._kv_peak_shared,
+                    "kv_shared_frac": round(
+                        self._kv_peak_shared
+                        / max(self._kv_peak_blocks, 1), 4)}
         per_slot = self._kv_bytes_total // max(self.max_batch, 1)
         return {"kv_mode": "dense",
                 "kv_bytes_allocated": self._kv_bytes_total,

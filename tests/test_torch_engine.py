@@ -208,11 +208,20 @@ def test_sessions_collect_their_turns(pair):
 
 
 @pytest.mark.parametrize("kw", [{"kv_mode": "paged"},
-                                {"spec_decode": object()}])
+                                {"spec_decode": "self"}])
 def test_unported_modes_refused(pair, kw):
+    """Paged KV and speculative decoding are ported now: each mode
+    serves the dense engine's greedy tokens."""
+    from repro_torch.serving.specdec import SpecConfig
     _, _, cfg, model = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        InferenceEngine(cfg, model, **kw)
+    if kw.get("spec_decode") == "self":
+        kw = {"spec_decode": SpecConfig(cfg, model, k=2)}
+    eng = InferenceEngine(cfg, model, max_batch=2, cache_len=64, **kw)
+    assert _serve(eng, PROMPTS, 4) == _serve(
+        InferenceEngine(cfg, model, max_batch=2, cache_len=64), PROMPTS, 4)
+    st = eng.throughput_stats()
+    assert st["kv_mode"] == kw.get("kv_mode", "dense")
+    assert (st["spec_rounds"] > 0) == ("spec_decode" in kw)
 
 
 def test_engine_runs_no_kernel_on_cpu(pair):
@@ -221,5 +230,7 @@ def test_engine_runs_no_kernel_on_cpu(pair):
     KB.reset_launches()
     _serve(InferenceEngine(cfg, model, max_batch=2, cache_len=64),
            PROMPTS[:1], 2)
-    assert KB.launch_counts() == {"flash_prefill": 0, "flash_decode": 0}
+    assert KB.launch_counts() == {
+        "flash_prefill": 0, "flash_decode": 0, "flash_decode_paged": 0,
+        "flash_verify": 0, "flash_verify_paged": 0}
     assert model.device == torch.device("cpu")

@@ -3,7 +3,10 @@
 On the CPU the kernel wrappers run their plain PyTorch versions; these
 tests hold those against ``repro.kernels.ref`` on the same numpy inputs,
 in fp32 (the point is the algorithm, not bf16 rounding): |diff| <= 1e-5,
-a few fp32 ulps of O(1) outputs summed in another order. The kernels
+a few fp32 ulps of O(1) outputs summed in another order. Within the
+port, the decode family's contracts are bitwise (``torch.equal``): a
+verify row is the decode row at its position, paged is dense on the
+gathered view, and sentinel table entries change nothing. The kernels
 themselves are held against the plain versions on the card by
 ``chip_smoke.py`` and by the card-only tests at the end, which skip here.
 """
@@ -18,7 +21,10 @@ from repro.kernels import ref as JR
 from repro_torch.kernels import backend as KB
 from repro_torch.kernels import ref as TR
 from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.flash_decode_paged import flash_decode_paged
 from repro_torch.kernels.flash_prefill import flash_prefill
+from repro_torch.kernels.flash_verify import flash_verify, \
+    flash_verify_paged
 
 ATOL = 1e-5
 
@@ -106,15 +112,36 @@ def test_op_surface_matches_jax_package():
         assert JKB.check_op_signature(op, getattr(KB, op)) is None, op
 
 
+def _small_paged():
+    """One slot, 4 q heads over 2 kv heads, a 3-block pool of 16 rows, a
+    table with one sentinel entry, 20 valid rows."""
+    q, _, _ = map(torch.from_numpy, _inputs(7, 1, 4, 2, 3, 1))
+    pages = torch.from_numpy(_inputs(8, 3, 1, 2, 1, 16)[1])
+    return q, pages, torch.tensor([[2, 0, 3]], dtype=torch.int32)
+
+
 @pytest.mark.parametrize("op,args", [
-    ("paged_decode_attention", (None,) * 5),
-    ("verify_attention", (None,) * 4),
-    ("paged_verify_attention", (None,) * 5),
+    ("paged_decode_attention", None),       # ported: runs on the CPU
+    ("verify_attention", None),             # ported
+    ("paged_verify_attention", None),       # ported
     ("router_topk", (None, 2)),
     ("selective_scan", (None,) * 5),
     ("mlstm_scan", (None,) * 5),
 ])
 def test_unported_ops_raise_naming_their_queue_item(op, args):
+    if args is None:
+        q, pages, tab = _small_paged()
+        if op == "paged_decode_attention":
+            out = KB.paged_decode_attention(q[:, :, 0], pages, pages, tab,
+                                            torch.tensor([20]))
+        elif op == "verify_attention":
+            out = KB.verify_attention(q, pages[:1], pages[:1], 16)
+        else:
+            out = KB.paged_verify_attention(q, pages, pages, tab, 20)
+        assert out.shape == (q[:, :, 0] if op.startswith("paged_d")
+                             else q).shape
+        assert bool(torch.isfinite(out).all())
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue B"):
         getattr(KB, op)(*args)
 
@@ -124,15 +151,128 @@ def test_cpu_wrappers_do_not_count_launches():
     q, k, v = map(torch.from_numpy, _inputs(1, 1, 4, 2, 8, 8))
     KB.attention(q, k, v)
     KB.decode_attention(q[:, :, 0], k, v, 8)
-    assert KB.launch_counts() == {"flash_prefill": 0, "flash_decode": 0}
+    qp, pages, tab = _small_paged()
+    KB.paged_decode_attention(qp[:, :, 0], pages, pages, tab, 20)
+    KB.verify_attention(q, k, v, 8)
+    KB.paged_verify_attention(qp, pages, pages, tab, 20)
+    assert KB.launch_counts() == {
+        "flash_prefill": 0, "flash_decode": 0, "flash_decode_paged": 0,
+        "flash_verify": 0, "flash_verify_paged": 0}
 
 
 def test_wrappers_refuse_other_devices():
     q = torch.zeros(1, 4, 8, 64, device="meta")
+    tab = torch.zeros(1, 2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         flash_prefill(q, q[:, :2], q[:, :2])
     with pytest.raises(ValueError, match="no kernel for device"):
         flash_decode(q[:, :, 0], q[:, :2], q[:, :2], 8)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        flash_decode_paged(q[:, :, 0], q[:, :2], q[:, :2], tab, 8)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        flash_verify(q, q[:, :2], q[:, :2], 8)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        flash_verify_paged(q, q[:, :2], q[:, :2], tab, 8)
+
+
+# ------------------------------------------- paged and verify oracles ----
+
+NB, BS, MB = 12, 16, 4
+
+
+def _pool(seed, Hkv=2, hd=64):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((NB, Hkv, BS, hd), dtype=np.float32),
+            rng.standard_normal((NB, Hkv, BS, hd), dtype=np.float32))
+
+
+# shuffled ids with sentinel (== NB) and out-of-range (> NB) tails
+TABS = np.array([[7, 2, 11, NB], [0, 5, NB, NB + 3], [9, 4, 1, 6]],
+                np.int32)
+
+
+def test_paged_gather_matches_oracle():
+    kp, _ = _pool(0)
+    got = TR.paged_gather_kv(torch.from_numpy(kp), torch.from_numpy(TABS))
+    want = JR.paged_gather_kv(jnp.asarray(kp), jnp.asarray(TABS))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("kv_len,cap", [([40, 20, 64], 0.0),
+                                        ([1, 32, 17], 30.0)])
+def test_paged_decode_matches_oracle(kv_len, cap):
+    kp, vp = _pool(1)
+    q = np.random.default_rng(2).standard_normal((3, 6, 64),
+                                                 dtype=np.float32)
+    kvl = np.asarray(kv_len, np.int32)
+    got = flash_decode_paged(*map(torch.from_numpy, (q, kp, vp, TABS, kvl)),
+                             cap=cap)
+    want = JR.paged_decode_attention_ref(
+        *map(jnp.asarray, (q, kp, vp, TABS, kvl)), cap=cap)
+    _close(got, want)
+
+
+def test_sentinel_table_entries_are_harmless():
+    """Entries past kv_len (sentinels or live blocks) change nothing."""
+    kp, vp = map(torch.from_numpy, _pool(3))
+    q = torch.from_numpy(_inputs(4, 1, 4, 2, 1, 1)[0][:, :, 0])
+    kvl = torch.tensor([20])
+    a = flash_decode_paged(q, kp, vp, torch.tensor([[2, 4, NB, NB]],
+                                                   dtype=torch.int32), kvl)
+    b = flash_decode_paged(q, kp, vp, torch.tensor([[2, 4, 0, 1]],
+                                                   dtype=torch.int32), kvl)
+    assert torch.equal(a, b)
+
+
+def test_paged_decode_is_dense_decode_on_the_gathered_view():
+    kp, vp = map(torch.from_numpy, _pool(5))
+    tab = torch.from_numpy(TABS)
+    q = torch.from_numpy(_inputs(6, 3, 6, 2, 1, 1)[0][:, :, 0])
+    kvl = torch.tensor([40, 20, 64])
+    dense = flash_decode(q, TR.paged_gather_kv(kp, tab),
+                         TR.paged_gather_kv(vp, tab), kvl)
+    assert torch.equal(flash_decode_paged(q, kp, vp, tab, kvl), dense)
+
+
+@pytest.mark.parametrize("G", [2, 3])
+def test_verify_matches_oracle(G):
+    """Fused oracle and the CPU path's row-wise version vs the JAX
+    oracle; every row has keys (kv_len >= W, as in the engine)."""
+    W = 5
+    q, k, v = _inputs(10 + G, 3, 2 * G, 2, W, 64)
+    kvl = np.array([7, 40, 64], np.int32)
+    want = JR.verify_attention_ref(*map(jnp.asarray, (q, k, v, kvl)))
+    args = tuple(map(torch.from_numpy, (q, k, v, kvl)))
+    _close(TR.verify_attention_ref(*args), want)
+    _close(flash_verify(*args), want)
+
+
+def test_verify_rows_are_decode_rows_bitwise():
+    W = 4
+    q, k, v = map(torch.from_numpy, _inputs(12, 2, 6, 2, W, 96))
+    kvl = torch.tensor([9, 96])
+    out = flash_verify(q, k, v, kvl)
+    for w in range(W):
+        row = flash_decode(q[:, :, w].contiguous(), k, v, kvl - W + w + 1)
+        assert torch.equal(out[:, :, w], row), w
+
+
+def test_paged_verify_matches_oracle_and_dense_view():
+    W = 4
+    kp, vp = _pool(13)
+    q = np.random.default_rng(14).standard_normal((3, 4, W, 64),
+                                                  dtype=np.float32)
+    kvl = np.array([37, 19, 64], np.int32)
+    args = tuple(map(torch.from_numpy, (q, kp, vp, TABS, kvl)))
+    want = JR.paged_verify_attention_ref(
+        *map(jnp.asarray, (q, kp, vp, TABS, kvl)))
+    _close(TR.paged_verify_attention_ref(*args), want)
+    got = flash_verify_paged(*args)
+    _close(got, want)
+    tab = args[3]
+    dense = flash_verify(args[0], TR.paged_gather_kv(args[1], tab),
+                         TR.paged_gather_kv(args[2], tab), args[4])
+    assert torch.equal(got, dense)
 
 
 # ------------------------------------------------- on the card only ----
@@ -172,3 +312,55 @@ def test_flash_decode_kernel_on_card():
     assert float(out[0].float().abs().max()) == 0.0      # kv_len 0 -> 0
     torch.testing.assert_close(out[1:].float(), ref[1:].float(), atol=1e-2,
                                rtol=1e-2)
+
+
+def _card_paged(dev, kv_len, W=None):
+    """Full-width heads over a shuffled 64-block pool of 16 rows."""
+    rng = np.random.default_rng(len(kv_len))
+    B, nb, bs, mb = len(kv_len), 64, 16, 32
+    shape = (B, 12, 64) if W is None else (B, 12, W, 64)
+    q = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+    kp, vp = (torch.from_numpy(rng.standard_normal((nb, 4, bs, 64),
+                                                   dtype=np.float32))
+              for _ in range(2))
+    tab = np.full((B, mb), nb, np.int32)
+    perm = rng.permutation(nb)
+    used = 0
+    for b, n in enumerate(kv_len):
+        need = -(-n // bs)
+        tab[b, :need] = perm[used:used + need]
+        used += need
+    to = lambda t: t.to(dev, torch.bfloat16)
+    return (to(q), to(kp), to(vp), torch.from_numpy(tab).to(dev),
+            torch.tensor(kv_len, dtype=torch.int32, device=dev))
+
+
+def test_flash_decode_paged_kernel_on_card():
+    dev = _card()
+    q, kp, vp, tab, kvl = _card_paged(dev, [1, 512, 300, 17])
+    before = flash_decode_paged.launches
+    out = flash_decode_paged(q, kp, vp, tab, kvl)
+    ref = TR.paged_decode_attention_ref(q, kp, vp, tab, kvl)
+    dense = flash_decode(q, TR.paged_gather_kv(kp, tab),
+                         TR.paged_gather_kv(vp, tab), kvl)
+    torch.cuda.synchronize()
+    assert flash_decode_paged.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2,
+                               rtol=1e-2)
+    assert torch.equal(out, dense)
+
+
+def test_flash_verify_kernels_on_card():
+    dev = _card()
+    W = 5
+    q, kp, vp, tab, kvl = _card_paged(dev, [5, 512, 300, 17], W=W)
+    kc, vc = TR.paged_gather_kv(kp, tab), TR.paged_gather_kv(vp, tab)
+    out = flash_verify(q, kc, vc, kvl)
+    torch.testing.assert_close(
+        out.float(), TR.verify_attention_ref(q, kc, vc, kvl).float(),
+        atol=1e-2, rtol=1e-2)
+    for w in range(W):
+        row = flash_decode(q[:, :, w].contiguous(), kc, vc, kvl - W + w + 1)
+        assert torch.equal(out[:, :, w], row), w
+    assert torch.equal(flash_verify_paged(q, kp, vp, tab, kvl), out)
+    torch.cuda.synchronize()

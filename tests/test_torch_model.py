@@ -220,10 +220,19 @@ def test_no_card_and_no_device_raises():
 
 @pytest.mark.parametrize("mode", ["train", "verify"])
 def test_unported_modes_raise(pair, mode):
+    """Train waits for its slice; verify is ported (a 2-row window
+    against a dense B=1 cache)."""
     _, _, model = pair
-    from repro_torch.models.blocks import block_apply
+    from repro_torch.models.blocks import block_apply, block_cache_init
+    x = torch.zeros(1, 2, 256, dtype=torch.bfloat16)
+    positions = torch.tensor([[5, 6]])
+    if mode == "verify":
+        cache = block_cache_init(model.cfg, 1, 16, "cpu")
+        y, cache = block_apply(model.layers[0], x, model.cfg, mode=mode,
+                               cache=cache, pos=torch.tensor([5]),
+                               positions=positions)
+        assert y.shape == x.shape and bool(torch.isfinite(y.float()).all())
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        block_apply(model.layers[0], torch.zeros(1, 2, 256,
-                                                 dtype=torch.bfloat16),
-                    model.cfg, mode=mode, cache=None, pos=0,
-                    positions=torch.zeros(1, 2, dtype=torch.long))
+        block_apply(model.layers[0], x, model.cfg, mode=mode, cache=None,
+                    pos=0, positions=positions)

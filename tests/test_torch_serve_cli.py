@@ -21,8 +21,7 @@ def test_defaults_match_jax_launcher():
     from repro.launch.serve import build_parser as jax_parser
     ours = vars(parse([]))
     theirs = vars(jax_parser().parse_args([]))
-    shared = set(theirs) - {"backend", "router", "profile", "skew", "turns",
-                            "draft_k"}
+    shared = set(theirs) - {"backend", "router", "profile", "skew", "turns"}
     assert {k: ours[k] for k in shared} == {k: theirs[k] for k in shared}
     assert ours["device"] is None and set(ours) == shared | {"device"}
 
@@ -32,20 +31,28 @@ def test_defaults_match_jax_launcher():
     ["--prefill-budget", "1024"],
     ["--prefill-budget", "64", "--no-interleave", "--admission", "slack"],
     ["--cache-len", "2048", "--max-batch", "8", "--temperature", "0"],
+    ["--kv-mode", "paged", "--kv-blocks", "24", "--block-size", "16"],
+    ["--kv-mode", "paged", "--spec-decode", "--draft-k", "4"],
 ])
 def test_valid_combinations_parse(argv):
     parse(argv)
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--kv-mode", "paged"], "--kv-mode paged"),
-    (["--spec-decode"], "--spec-decode"),
+    (["--kv-mode", "paged"], None),          # ported: parses
+    (["--spec-decode"], None),               # ported: parses
     (["--replicas", "2"], "--replicas"),
     (["--retriever-k", "4"], "--retriever-k"),
     (["--catalog-size", "64", "--retriever-k", "4"], "--retriever-k"),
     (["--sla-spill"], "--sla-spill"),
 ])
 def test_unported_flags_refused(argv, msg, capsys):
+    if msg is None:
+        args = parse(argv)
+        assert args.kv_mode == ("paged" if "--kv-mode" in argv
+                                else "dense")
+        assert args.spec_decode == ("--spec-decode" in argv)
+        return
     with pytest.raises(SystemExit):
         parse(argv)
     err = capsys.readouterr().err
@@ -56,6 +63,7 @@ def test_unported_flags_refused(argv, msg, capsys):
     ["--backend", "pallas"],                 # the device decides
     ["--kv-blocks", "8"],
     ["--block-size", "16"],
+    ["--spec-decode", "--draft-k", "0"],
     ["--prefill-budget", "0"],
     ["--no-interleave"],
     ["--replicas", "0"],
@@ -85,6 +93,26 @@ def test_budgeted_run_serves_the_same_tokens():
             "0"]
     assert (main(base)["outputs"]
             == main(base + ["--prefill-budget", "16"])["outputs"])
+
+
+@pytest.mark.parametrize("extra", [
+    ["--kv-mode", "paged"],
+    ["--spec-decode", "--draft-k", "3"],
+    ["--kv-mode", "paged", "--kv-blocks", "6", "--spec-decode"],
+], ids=["paged", "spec", "paged_spec_tight"])
+def test_paged_and_spec_runs_serve_the_dense_tokens(extra, capsys):
+    base = ["--device", "cpu", "--smoke", "--requests", "4", "--max-new",
+            "9", "--max-batch", "2", "--cache-len", "64", "--temperature",
+            "0"]
+    dense = main(base)
+    res = main(base + extra)
+    assert res["outputs"] == dense["outputs"]
+    out = capsys.readouterr().out
+    if "--spec-decode" in extra:
+        assert "spec-decode[k=" in out and res["spec_accept_rate"] > 0
+    if "paged" in extra:
+        assert "kv[paged]" in out and "preemptions" in out
+    assert res["preemptions"] == res["stats"]["preemptions"]
 
 
 def test_checkpoint_flag_loads_jax_weights(tmp_path):
