@@ -1,15 +1,15 @@
 """Architecture registry of the port.
 
 ``get_config(name)`` returns the full config, ``get_smoke_config(name)``
-the reduced same-family variant the CPU tests use. Only the served
-planner is ported so far; the other architectures come with their model
-families (ROADMAP.md, queue A12).
+the reduced same-family variant the CPU tests use. The served planner
+and the two MoE families (arctic, kimi-k2) are ported; the other
+architectures come with their model families (ROADMAP.md, queue A12).
 """
 from __future__ import annotations
 
 import importlib
 
-ALL_IDS = ("planner-proxy-100m",)
+ALL_IDS = ("planner-proxy-100m", "arctic-480b", "kimi-k2-1t-a32b")
 
 
 def _module(name: str):

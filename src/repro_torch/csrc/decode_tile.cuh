@@ -9,9 +9,10 @@
 // decode, G*W for verify). Everything else is here, so the four kernels
 // do the same arithmetic per query row over the same key partition:
 //
-//   * keys are taken in tiles of NT = 128, staged through shared memory
-//     with 16-byte loads; K rows are padded to 33 words so that one
-//     thread per key reads its row without bank conflicts;
+//   * keys are taken in tiles of NT = 128, staged through dynamic shared
+//     memory with 16-byte loads; K rows are padded to HD/2 + 1 words (an
+//     odd count: 17, 33, 65) so that one thread per key reads its row
+//     without bank conflicts;
 //   * a row takes part in a tile only if the tile starts below the
 //     row's own key limit, and inside it masks the keys at or past the
 //     limit, so a verify row at kv_len L repeats exactly the operations
@@ -25,7 +26,13 @@
 //   * every multiply-add of the update is an explicit fmaf, so FMA
 //     contraction cannot differ between the four kernels;
 //   * block reductions use a fixed order, so the result does not vary
-//     from run to run; a row with no keys writes 0 (acc / max(l, 1e-30)).
+//     from run to run; a row with no keys writes 0 (acc / max(l, 1e-30));
+//   * the head dim HD is a template parameter; every kernel file
+//     instantiates HD = 32, 64 and 128 and its launcher dispatches on hd.
+//     The operations per element do not depend on HD, so every contract
+//     above holds at each head dim. The K/V tiles live in static shared
+//     memory up to HD = 64 and in dynamic shared memory at HD = 128
+//     (65 KB there, over the 48 KB static limit).
 //
 // What bounds these kernels on an H100: each K/V row is read once from
 // device memory and serves the block's rows (G or G*W query rows, ~4
@@ -38,20 +45,36 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace decode_tile {
 
 constexpr int NT = 128;            // threads per block = keys per tile
-constexpr int HD = 64;             // head dim this build serves
 constexpr int MAX_R = 8;           // rows updated together (registers)
 constexpr int MAX_ROWS = 64;       // rows one block holds (G or G*W)
-constexpr int KSTRIDE = HD + 2;    // padded K row (33 words)
 constexpr int NWARP = NT / 32;
 constexpr float NEG_INF = -1e30f;
 
-// Dynamic shared memory a block holding `rows` query rows needs (their
-// fp32 q and acc).
+// padded K row of head dim HD, in bf16 elements (HD/2 + 1 words: odd)
+template <int HD>
+__host__ __device__ constexpr int kstride() { return HD + 2; }
+
+// Whether the K/V tiles of head dim HD are static shared memory: they
+// are where they fit under the 48 KB static limit beside the block's
+// other arrays (HD <= 64). In dynamic shared memory at HD = 64 nvcc gave
+// the verify kernels 56-64 registers where static tiles get 85-90, and
+// verify ran 11-13% slower on an H100; at HD = 128 they must be dynamic.
+template <int HD>
+__host__ __device__ constexpr bool static_tiles() { return HD <= 64; }
+
+// Dynamic shared memory a block holding `rows` query rows needs: the
+// staged K tile (padded rows) and V tile unless they are static, then
+// the rows' fp32 q and acc.
+template <int HD>
 inline size_t dyn_smem_bytes(int rows) {
-  return (size_t)2 * rows * HD * sizeof(float);
+  const size_t tiles = static_tiles<HD>() ? 0
+      : (size_t)NT * (kstride<HD>() + HD) * sizeof(__nv_bfloat16);
+  return tiles + (size_t)2 * rows * HD * sizeof(float);
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -68,6 +91,7 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // Where key `key` of a dense (Sk, HD) K/V slab starts, in elements.
+template <int HD>
 struct DenseRows {
   long long base;
   __device__ __forceinline__ long long operator()(int key) const {
@@ -78,8 +102,9 @@ struct DenseRows {
 // Where logical key `key` of one slot lives in a paged pool
 // (n_blocks, Hkv, bs, HD): block tab[key / bs] (sentinels >= n_blocks
 // clamp to the last block, as the plain version's gather does), row
-// key % bs. A row is HD contiguous elements (128 bytes), so any block
+// key % bs. A row is HD contiguous elements (2*HD bytes), so any block
 // size works.
+template <int HD>
 struct PagedRows {
   const int* tab;   // this slot's row of the block table
   int nb, Hkv, hk, bs;
@@ -92,7 +117,7 @@ struct PagedRows {
 
 // Stage keys [k0, k0 + NT) into sK (padded) and sV; keys at or past n
 // are zeros.
-template <class Rows>
+template <int HD, class Rows>
 __device__ __forceinline__ void stage_tile(
     __nv_bfloat16* sK, __nv_bfloat16* sV, const __nv_bfloat16* kc,
     const __nv_bfloat16* vc, const Rows& rows, int k0, int n) {
@@ -105,7 +130,8 @@ __device__ __forceinline__ void stage_tile(
       vv4 = *reinterpret_cast<const uint4*>(vc + off);
     }
     *reinterpret_cast<uint4*>(sV + r * HD + c) = vv4;
-    uint32_t* kdst = reinterpret_cast<uint32_t*>(sK + r * KSTRIDE + c);
+    uint32_t* kdst =
+        reinterpret_cast<uint32_t*>(sK + r * kstride<HD>() + c);
     kdst[0] = kv4.x; kdst[1] = kv4.y; kdst[2] = kv4.z; kdst[3] = kv4.w;
   }
 }
@@ -115,6 +141,7 @@ __device__ __forceinline__ void stage_tile(
 // Thread t owns key k0 + t. A row whose key limit sLim[r] is at or below
 // k0 is left untouched. Ends with every thread past its reads of sP,
 // sV and sRed; the new m and l are in sM/sL once it returns.
+template <int HD>
 __device__ __forceinline__ void tile_update(
     const __nv_bfloat16* sK, const __nv_bfloat16* sV, const float* sQ,
     float* sAcc, float* sM, float* sL, const int* sLim, float* sP,
@@ -127,7 +154,7 @@ __device__ __forceinline__ void tile_update(
 
   // scores: q . k for every row of the group, d in order
   const __nv_bfloat162* kr =
-      reinterpret_cast<const __nv_bfloat162*>(sK + t * KSTRIDE);
+      reinterpret_cast<const __nv_bfloat162*>(sK + t * kstride<HD>());
   float dot[MAX_R];
 #pragma unroll
   for (int r = 0; r < MAX_R; ++r) dot[r] = 0.f;
@@ -230,23 +257,35 @@ __device__ __forceinline__ void tile_update(
 
 // The whole block: `nrows` query rows (q rows contiguous at qp, out rows
 // at op), row i = g * W + w at key limit kv_len - W + w + 1, clamped to
-// [0, Sk]. Decode is W = 1. Needs dyn_smem_bytes(nrows) of dynamic
+// [0, Sk]. Decode is W = 1. Needs dyn_smem_bytes<HD>(nrows) of dynamic
 // shared memory.
-template <class Rows>
+template <int HD, class Rows>
 __device__ __forceinline__ void attend_rows(
     const __nv_bfloat16* __restrict__ qp, __nv_bfloat16* __restrict__ op,
     const __nv_bfloat16* __restrict__ kc,
     const __nv_bfloat16* __restrict__ vc, const Rows& rows, int nrows,
     int W, int kv_len, int Sk, float cap, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 sK[NT * KSTRIDE];
-  __shared__ __align__(16) __nv_bfloat16 sV[NT * HD];
   __shared__ float sP[MAX_R * NT];
   __shared__ float sRed[MAX_R * NWARP];
   __shared__ float sM[MAX_ROWS], sL[MAX_ROWS];
   __shared__ int sLim[MAX_ROWS];
   extern __shared__ __align__(16) float dyn[];
-  float* sQ = dyn;
-  float* sAcc = dyn + nrows * HD;
+  __nv_bfloat16* sK;
+  __nv_bfloat16* sV;
+  float* sQ;
+  if constexpr (static_tiles<HD>()) {
+    __shared__ __align__(16) __nv_bfloat16 sKs[NT * kstride<HD>()];
+    __shared__ __align__(16) __nv_bfloat16 sVs[NT * HD];
+    sK = sKs;
+    sV = sVs;
+    sQ = dyn;
+  } else {
+    // K/V tiles first, at offsets known when compiling; then q and acc
+    sK = reinterpret_cast<__nv_bfloat16*>(dyn);
+    sV = sK + NT * kstride<HD>();
+    sQ = reinterpret_cast<float*>(sV + NT * HD);
+  }
+  float* sAcc = sQ + nrows * HD;
 
   const int t = threadIdx.x;
   for (int i = t; i < nrows * HD; i += NT) {
@@ -264,10 +303,10 @@ __device__ __forceinline__ void attend_rows(
   // tiles up to the largest limit (the last row's, w = W - 1)
   const int n = kv_len < 0 ? 0 : (kv_len > Sk ? Sk : kv_len);
   for (int k0 = 0; k0 < n; k0 += NT) {
-    stage_tile(sK, sV, kc, vc, rows, k0, n);
+    stage_tile<HD>(sK, sV, kc, vc, rows, k0, n);
     __syncthreads();
     for (int r0 = 0; r0 < nrows; r0 += MAX_R)
-      tile_update(sK, sV, sQ, sAcc, sM, sL, sLim, sP, sRed, r0,
+      tile_update<HD>(sK, sV, sQ, sAcc, sM, sL, sLim, sP, sRed, r0,
                   min(MAX_R, nrows - r0), k0, cap, scale);
   }
   __syncthreads();   // the last group's l is in sL
@@ -276,14 +315,28 @@ __device__ __forceinline__ void attend_rows(
     op[o] = __float2bfloat16_rn(sAcc[o] / fmaxf(sL[o / HD], 1e-30f));
 }
 
-// Host side: allow `rows` rows' dynamic shared memory for `kernel` and
-// check the shape limits. Returns a CUDA error code.
-template <class Kernel>
-inline cudaError_t prepare(Kernel kernel, int rows, int hd) {
-  if (hd != HD || rows <= 0 || rows > MAX_ROWS) return cudaErrorInvalidValue;
+// Host side: allow `rows` rows' dynamic shared memory for `kernel` (an
+// instance for head dim HD) and check the row limit. Returns a CUDA
+// error code.
+template <int HD, class Kernel>
+inline cudaError_t prepare(Kernel kernel, int rows) {
+  if (rows <= 0 || rows > MAX_ROWS) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)dyn_smem_bytes(rows));
+                              (int)dyn_smem_bytes<HD>(rows));
+}
+
+// Call `launch` with the head dim as a compile-time constant
+// (std::integral_constant<int, HD>) for the head dims the kernels are
+// built for; any other hd returns cudaErrorInvalidValue.
+template <class Launch>
+inline cudaError_t dispatch_hd(int hd, Launch launch) {
+  switch (hd) {
+    case 32: return launch(std::integral_constant<int, 32>{});
+    case 64: return launch(std::integral_constant<int, 64>{});
+    case 128: return launch(std::integral_constant<int, 128>{});
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace decode_tile

@@ -29,6 +29,7 @@ namespace {
 
 using namespace decode_tile;
 
+template <int HD>
 __global__ void __launch_bounds__(NT)
 flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ kc,
@@ -38,16 +39,16 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     int Hkv, int G, int Sk, float cap, float scale) {
   const int hk = blockIdx.x, b = blockIdx.y;
   const long long row0 = ((long long)b * Hkv * G + (long long)hk * G) * HD;
-  const DenseRows rows{((long long)b * Hkv + hk) * Sk * HD};
-  attend_rows(q + row0, out + row0, kc, vc, rows, G, 1, kv_len[b], Sk, cap,
-              scale);
+  const DenseRows<HD> rows{((long long)b * Hkv + hk) * Sk * HD};
+  attend_rows<HD>(q + row0, out + row0, kc, vc, rows, G, 1, kv_len[b], Sk,
+                  cap, scale);
 }
 
 }  // namespace
 
-// q: (B,Hq,hd), caches: (B,Hkv,Sk,hd) bf16 contiguous; kv_len: (B,) int32
-// on the device; out: (B,Hq,hd) bf16. Launches on `stream` and returns
-// cudaGetLastError().
+// q: (B,Hq,hd), caches: (B,Hkv,Sk,hd) bf16 contiguous, hd in {32, 64,
+// 128}; kv_len: (B,) int32 on the device; out: (B,Hq,hd) bf16. Launches
+// on `stream` and returns cudaGetLastError().
 extern "C" int flash_decode_bf16(const void* q, const void* k_cache,
                                  const void* v_cache, const void* kv_len,
                                  void* out, int B, int Hq, int Hkv, int Sk,
@@ -56,13 +57,16 @@ extern "C" int flash_decode_bf16(const void* q, const void* k_cache,
   if (Hkv <= 0 || Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
-  cudaError_t err = prepare(flash_decode_kernel, G, hd);
-  if (err != cudaSuccess) return (int)err;
-  if (B == 0) return (int)cudaSuccess;
-  dim3 grid(Hkv, B);
-  flash_decode_kernel<<<grid, NT, dyn_smem_bytes(G), (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_cache,
-      (const __nv_bfloat16*)v_cache, (const int*)kv_len,
-      (__nv_bfloat16*)out, Hkv, G, Sk, cap, scale);
-  return (int)cudaGetLastError();
+  return (int)dispatch_hd(hd, [&](auto hd_c) {
+    constexpr int HD = decltype(hd_c)::value;
+    cudaError_t err = prepare<HD>(flash_decode_kernel<HD>, G);
+    if (err != cudaSuccess || B == 0) return err;
+    dim3 grid(Hkv, B);
+    flash_decode_kernel<HD><<<grid, NT, dyn_smem_bytes<HD>(G),
+                              (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_cache,
+        (const __nv_bfloat16*)v_cache, (const int*)kv_len,
+        (__nv_bfloat16*)out, Hkv, G, Sk, cap, scale);
+    return cudaGetLastError();
+  });
 }

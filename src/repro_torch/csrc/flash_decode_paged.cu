@@ -28,6 +28,7 @@ namespace {
 
 using namespace decode_tile;
 
+template <int HD>
 __global__ void __launch_bounds__(NT)
 flash_decode_paged_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ kp,
@@ -38,15 +39,16 @@ flash_decode_paged_kernel(const __nv_bfloat16* __restrict__ q,
                           int nb, int bs, int mb, float cap, float scale) {
   const int hk = blockIdx.x, b = blockIdx.y;
   const long long row0 = ((long long)b * Hkv * G + (long long)hk * G) * HD;
-  const PagedRows rows{tab + (long long)b * mb, nb, Hkv, hk, bs};
-  attend_rows(q + row0, out + row0, kp, vp, rows, G, 1, kv_len[b], mb * bs,
-              cap, scale);
+  const PagedRows<HD> rows{tab + (long long)b * mb, nb, Hkv, hk, bs};
+  attend_rows<HD>(q + row0, out + row0, kp, vp, rows, G, 1, kv_len[b],
+                  mb * bs, cap, scale);
 }
 
 }  // namespace
 
-// q: (B,Hq,hd); pages: (nb,Hkv,bs,hd) bf16 contiguous; block_tab: (B,mb)
-// int32; kv_len: (B,) int32, all on the device; out: (B,Hq,hd) bf16.
+// q: (B,Hq,hd); pages: (nb,Hkv,bs,hd) bf16 contiguous, hd in {32, 64,
+// 128}; block_tab: (B,mb) int32; kv_len: (B,) int32, all on the device;
+// out: (B,Hq,hd) bf16.
 // Launches on `stream` and returns cudaGetLastError().
 extern "C" int flash_decode_paged_bf16(const void* q, const void* k_pages,
                                        const void* v_pages,
@@ -58,15 +60,17 @@ extern "C" int flash_decode_paged_bf16(const void* q, const void* k_pages,
   if (Hkv <= 0 || Hq % Hkv != 0 || nb <= 0 || bs <= 0)
     return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
-  cudaError_t err = prepare(flash_decode_paged_kernel, G, hd);
-  if (err != cudaSuccess) return (int)err;
-  if (B == 0) return (int)cudaSuccess;
-  dim3 grid(Hkv, B);
-  flash_decode_paged_kernel<<<grid, NT, dyn_smem_bytes(G),
-                              (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pages,
-      (const __nv_bfloat16*)v_pages, (const int*)block_tab,
-      (const int*)kv_len, (__nv_bfloat16*)out, Hkv, G, nb, bs, mb, cap,
-      scale);
-  return (int)cudaGetLastError();
+  return (int)dispatch_hd(hd, [&](auto hd_c) {
+    constexpr int HD = decltype(hd_c)::value;
+    cudaError_t err = prepare<HD>(flash_decode_paged_kernel<HD>, G);
+    if (err != cudaSuccess || B == 0) return err;
+    dim3 grid(Hkv, B);
+    flash_decode_paged_kernel<HD><<<grid, NT, dyn_smem_bytes<HD>(G),
+                                    (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pages,
+        (const __nv_bfloat16*)v_pages, (const int*)block_tab,
+        (const int*)kv_len, (__nv_bfloat16*)out, Hkv, G, nb, bs, mb, cap,
+        scale);
+    return cudaGetLastError();
+  });
 }

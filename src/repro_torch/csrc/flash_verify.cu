@@ -28,6 +28,7 @@ namespace {
 
 using namespace decode_tile;
 
+template <int HD>
 __global__ void __launch_bounds__(NT)
 flash_verify_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ kc,
@@ -38,11 +39,12 @@ flash_verify_kernel(const __nv_bfloat16* __restrict__ q,
   const int hk = blockIdx.x, b = blockIdx.y;
   const long long row0 =
       ((long long)b * Hkv * G + (long long)hk * G) * W * HD;
-  const DenseRows rows{((long long)b * Hkv + hk) * Sk * HD};
-  attend_rows(q + row0, out + row0, kc, vc, rows, G * W, W, kv_len[b], Sk,
-              cap, scale);
+  const DenseRows<HD> rows{((long long)b * Hkv + hk) * Sk * HD};
+  attend_rows<HD>(q + row0, out + row0, kc, vc, rows, G * W, W, kv_len[b],
+                  Sk, cap, scale);
 }
 
+template <int HD>
 __global__ void __launch_bounds__(NT)
 flash_verify_paged_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ kp,
@@ -55,16 +57,16 @@ flash_verify_paged_kernel(const __nv_bfloat16* __restrict__ q,
   const int hk = blockIdx.x, b = blockIdx.y;
   const long long row0 =
       ((long long)b * Hkv * G + (long long)hk * G) * W * HD;
-  const PagedRows rows{tab + (long long)b * mb, nb, Hkv, hk, bs};
-  attend_rows(q + row0, out + row0, kp, vp, rows, G * W, W, kv_len[b],
-              mb * bs, cap, scale);
+  const PagedRows<HD> rows{tab + (long long)b * mb, nb, Hkv, hk, bs};
+  attend_rows<HD>(q + row0, out + row0, kp, vp, rows, G * W, W, kv_len[b],
+                  mb * bs, cap, scale);
 }
 
 }  // namespace
 
-// q: (B,Hq,W,hd), caches: (B,Hkv,Sk,hd) bf16 contiguous; kv_len: (B,)
-// int32 on the device; out: (B,Hq,W,hd) bf16. Launches on `stream` and
-// returns cudaGetLastError().
+// q: (B,Hq,W,hd), caches: (B,Hkv,Sk,hd) bf16 contiguous, hd in {32, 64,
+// 128}; kv_len: (B,) int32 on the device; out: (B,Hq,W,hd) bf16.
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int flash_verify_bf16(const void* q, const void* k_cache,
                                  const void* v_cache, const void* kv_len,
                                  void* out, int B, int Hq, int Hkv, int W,
@@ -72,21 +74,24 @@ extern "C" int flash_verify_bf16(const void* q, const void* k_cache,
                                  void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || W <= 0) return (int)cudaErrorInvalidValue;
   const int rows = Hq / Hkv * W;
-  cudaError_t err = prepare(flash_verify_kernel, rows, hd);
-  if (err != cudaSuccess) return (int)err;
-  if (B == 0) return (int)cudaSuccess;
-  dim3 grid(Hkv, B);
-  flash_verify_kernel<<<grid, NT, dyn_smem_bytes(rows),
-                        (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_cache,
-      (const __nv_bfloat16*)v_cache, (const int*)kv_len,
-      (__nv_bfloat16*)out, Hkv, Hq / Hkv, W, Sk, cap, scale);
-  return (int)cudaGetLastError();
+  return (int)dispatch_hd(hd, [&](auto hd_c) {
+    constexpr int HD = decltype(hd_c)::value;
+    cudaError_t err = prepare<HD>(flash_verify_kernel<HD>, rows);
+    if (err != cudaSuccess || B == 0) return err;
+    dim3 grid(Hkv, B);
+    flash_verify_kernel<HD><<<grid, NT, dyn_smem_bytes<HD>(rows),
+                              (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_cache,
+        (const __nv_bfloat16*)v_cache, (const int*)kv_len,
+        (__nv_bfloat16*)out, Hkv, Hq / Hkv, W, Sk, cap, scale);
+    return cudaGetLastError();
+  });
 }
 
-// q: (B,Hq,W,hd); pages: (nb,Hkv,bs,hd) bf16 contiguous; block_tab:
-// (B,mb) int32; kv_len: (B,) int32, all on the device; out: (B,Hq,W,hd)
-// bf16. Launches on `stream` and returns cudaGetLastError().
+// q: (B,Hq,W,hd); pages: (nb,Hkv,bs,hd) bf16 contiguous, hd in {32, 64,
+// 128}; block_tab: (B,mb) int32; kv_len: (B,) int32, all on the device;
+// out: (B,Hq,W,hd) bf16. Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int flash_verify_paged_bf16(const void* q, const void* k_pages,
                                        const void* v_pages,
                                        const void* block_tab,
@@ -97,15 +102,17 @@ extern "C" int flash_verify_paged_bf16(const void* q, const void* k_pages,
   if (Hkv <= 0 || Hq % Hkv != 0 || W <= 0 || nb <= 0 || bs <= 0)
     return (int)cudaErrorInvalidValue;
   const int rows = Hq / Hkv * W;
-  cudaError_t err = prepare(flash_verify_paged_kernel, rows, hd);
-  if (err != cudaSuccess) return (int)err;
-  if (B == 0) return (int)cudaSuccess;
-  dim3 grid(Hkv, B);
-  flash_verify_paged_kernel<<<grid, NT, dyn_smem_bytes(rows),
-                              (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pages,
-      (const __nv_bfloat16*)v_pages, (const int*)block_tab,
-      (const int*)kv_len, (__nv_bfloat16*)out, Hkv, Hq / Hkv, W, nb, bs, mb,
-      cap, scale);
-  return (int)cudaGetLastError();
+  return (int)dispatch_hd(hd, [&](auto hd_c) {
+    constexpr int HD = decltype(hd_c)::value;
+    cudaError_t err = prepare<HD>(flash_verify_paged_kernel<HD>, rows);
+    if (err != cudaSuccess || B == 0) return err;
+    dim3 grid(Hkv, B);
+    flash_verify_paged_kernel<HD><<<grid, NT, dyn_smem_bytes<HD>(rows),
+                                    (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pages,
+        (const __nv_bfloat16*)v_pages, (const int*)block_tab,
+        (const int*)kv_len, (__nv_bfloat16*)out, Hkv, Hq / Hkv, W, nb, bs,
+        mb, cap, scale);
+    return cudaGetLastError();
+  });
 }

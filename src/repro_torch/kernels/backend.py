@@ -5,8 +5,8 @@ The op names and call signatures are those of the JAX package's
 names. There is no backend switch: every op dispatches by the device of
 its tensors. A CUDA tensor goes to the hand-written Hopper kernel, a CPU
 tensor to the kernel's plain PyTorch version. Ops whose kernels are not
-ported yet raise ``NotImplementedError`` naming their ROADMAP.md queue
-item; nothing falls back.
+ported yet (the SSM and mLSTM scans) raise ``NotImplementedError`` naming
+their ROADMAP.md queue item; nothing falls back.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from repro_torch.kernels.flash_decode_paged import flash_decode_paged
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.kernels.flash_verify import flash_verify, \
     flash_verify_paged
+from repro_torch.kernels.moe_router import moe_router_topk
 
 #: ``op -> (positional arg names, keyword-only arg names)``, as in the
 #: JAX package.
@@ -42,7 +43,7 @@ OPS: Tuple[str, ...] = tuple(OP_SURFACE)
 
 #: every ported kernel wrapper; each counts its launches in ``.launches``
 KERNELS = (flash_prefill, flash_decode, flash_decode_paged, flash_verify,
-           flash_verify_paged)
+           flash_verify_paged, moe_router_topk)
 
 
 def reset_launches() -> None:
@@ -86,7 +87,8 @@ def _not_ported(op: str, item: str):
 
 
 def router_topk(logits, k):
-    _not_ported("router_topk", "B6 moe_router_topk")
+    """logits: (T,E) fp32 -> (weights (T,k) fp32, ids (T,k) int32)."""
+    return moe_router_topk(logits, k)
 
 
 def selective_scan(dt, x, B_, C_, A, h0=None):

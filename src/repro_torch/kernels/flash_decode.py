@@ -7,7 +7,7 @@ Replaces the JAX package's Pallas TPU kernel ``flash_decode``
 (kv head, slot) holding all G q rows, a loop over 128-key tiles only up
 to the slot's ``kv_len``, fp32 m/l/acc, and 0 (not NaN) for
 ``kv_len == 0``. Its tile arithmetic is ``csrc/decode_tile.cuh``, which
-the paged and verify kernels share.
+the paged and verify kernels share; head dims 32, 64 and 128.
 
 On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
 tensor it runs the plain version, ``ref.decode_attention_ref``.
@@ -22,11 +22,30 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import decode_attention_ref
 
-HEAD_DIM = 64     # the head dim the kernels are built for
+HEAD_DIMS = (32, 64, 128)     # the head dims the kernels are built for
 MAX_ROWS = 64     # the most q rows one block holds (decode_tile.cuh)
 # q, k_cache, v_cache, kv_len, out; B, Hq, Hkv, Sk, hd; cap, scale; stream
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+
+
+def check_cache(kernel: str, q, k_cache, v_cache, W: int = 0):
+    """Shared checks of the dense decode-family kernels: contiguous bf16
+    q (B,Hq,hd) (decode: W = 0) or (B,Hq,W,hd) (verify), caches
+    (B,Hkv,Sk,hd) on q's device, hd in HEAD_DIMS, Hq a multiple of Hkv
+    and at most MAX_ROWS query rows per kv head. Raises ValueError."""
+    for name, t, nd in (("q", q, 4 if W else 3),
+                        ("k_cache", k_cache, 4), ("v_cache", v_cache, 4)):
+        _build.check_tensor(kernel, name, t, torch.bfloat16, nd, q.device)
+    B, Hq, hd = q.shape[0], q.shape[1], q.shape[-1]
+    Hkv = k_cache.shape[1]
+    if (hd not in HEAD_DIMS or k_cache.shape[0] != B
+            or k_cache.shape[3] != hd or v_cache.shape != k_cache.shape
+            or Hq % Hkv or Hq // Hkv * max(W, 1) > MAX_ROWS):
+        raise ValueError(f"{kernel}: unsupported shapes q {tuple(q.shape)} "
+                         f"caches {tuple(k_cache.shape)} (head dim in "
+                         f"{HEAD_DIMS}, Hq % Hkv == 0, rows per kv head "
+                         f"<= {MAX_ROWS})")
 
 
 def flash_decode(q, k_cache, v_cache, kv_len, *, cap: float = 0.0,
@@ -38,19 +57,9 @@ def flash_decode(q, k_cache, v_cache, kv_len, *, cap: float = 0.0,
                                     scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: no kernel for device {q.device}")
+    check_cache("flash_decode", q, k_cache, v_cache)
     B, Hq, hd = q.shape
-    for name, t, nd in (("q", q, 3), ("k_cache", k_cache, 4),
-                        ("v_cache", v_cache, 4)):
-        _build.check_tensor("flash_decode", name, t, torch.bfloat16, nd,
-                            q.device)
     Hkv, Sk = k_cache.shape[1], k_cache.shape[2]
-    if (hd != HEAD_DIM or k_cache.shape[0] != B or k_cache.shape[3] != hd
-            or v_cache.shape != k_cache.shape or Hq % Hkv
-            or Hq // Hkv > MAX_ROWS):
-        raise ValueError(f"flash_decode: unsupported shapes q "
-                         f"{tuple(q.shape)} caches {tuple(k_cache.shape)} "
-                         f"(head dim {HEAD_DIM}, Hq % Hkv == 0, "
-                         f"Hq // Hkv <= {MAX_ROWS})")
     kvl = _build.kv_len_i32(kv_len, B, q.device)
     scale = scale if scale else 1.0 / math.sqrt(hd)
     out = torch.empty_like(q)

@@ -19,7 +19,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_decode import HEAD_DIM, MAX_ROWS
+from repro_torch.kernels.flash_decode import HEAD_DIMS, MAX_ROWS
 from repro_torch.kernels.ref import paged_decode_attention_ref
 
 # q, k_pages, v_pages, block_tab, kv_len, out; B, Hq, Hkv, nb, bs, mb, hd;
@@ -37,13 +37,14 @@ def check_pages(kernel: str, q, k_pages, v_pages, block_tab, G_rows: int):
     _build.check_tensor(kernel, "block_tab", block_tab, torch.int32, 2, dev)
     B, Hq, hd = q.shape[0], q.shape[1], q.shape[-1]
     nb, Hkv, bs = k_pages.shape[:3]
-    if (hd != HEAD_DIM or k_pages.shape[3] != hd
+    if (hd not in HEAD_DIMS or k_pages.shape[3] != hd
             or v_pages.shape != k_pages.shape or block_tab.shape[0] != B
             or Hq % Hkv or G_rows > MAX_ROWS):
         raise ValueError(f"{kernel}: unsupported shapes q {tuple(q.shape)} "
                          f"pages {tuple(k_pages.shape)} table "
-                         f"{tuple(block_tab.shape)} (head dim {HEAD_DIM}, "
-                         f"Hq % Hkv == 0, rows per kv head <= {MAX_ROWS})")
+                         f"{tuple(block_tab.shape)} (head dim in "
+                         f"{HEAD_DIMS}, Hq % Hkv == 0, rows per kv head "
+                         f"<= {MAX_ROWS})")
 
 
 def flash_decode_paged(q, k_pages, v_pages, block_tab, kv_len, *,

@@ -24,7 +24,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_decode import HEAD_DIM, MAX_ROWS
+from repro_torch.kernels.flash_decode import check_cache
 from repro_torch.kernels.flash_decode_paged import check_pages
 from repro_torch.kernels.ref import paged_verify_rows_ref, verify_rows_ref
 
@@ -48,18 +48,9 @@ def flash_verify(q, k_cache, v_cache, kv_len, *, cap: float = 0.0,
                                scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_verify: no kernel for device {q.device}")
+    check_cache("flash_verify", q, k_cache, v_cache, q.shape[2])
     B, Hq, W, hd = q.shape
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        _build.check_tensor("flash_verify", name, t, torch.bfloat16, 4,
-                            q.device)
     Hkv, Sk = k_cache.shape[1], k_cache.shape[2]
-    if (hd != HEAD_DIM or k_cache.shape[0] != B or k_cache.shape[3] != hd
-            or v_cache.shape != k_cache.shape or Hq % Hkv
-            or Hq // Hkv * W > MAX_ROWS):
-        raise ValueError(f"flash_verify: unsupported shapes q "
-                         f"{tuple(q.shape)} caches {tuple(k_cache.shape)} "
-                         f"(head dim {HEAD_DIM}, Hq % Hkv == 0, "
-                         f"Hq // Hkv * W <= {MAX_ROWS})")
     kvl = _build.kv_len_i32(kv_len, B, q.device)
     scale = scale if scale else 1.0 / math.sqrt(hd)
     out = torch.empty_like(q)

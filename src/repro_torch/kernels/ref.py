@@ -1,11 +1,12 @@
-"""Plain PyTorch versions of the attention kernels (the allclose targets).
+"""Plain PyTorch versions of the kernels (the allclose targets).
 
-Ports of the attention oracles of the JAX package's ``kernels/ref.py``
-(dense, decode, paged decode, verify, paged verify): they materialise the
-full fp32 score matrix and are correctness references, not fast paths.
-On a CPU tensor the kernel wrappers run these; on the card they are what
+Ports of the oracles of the JAX package's ``kernels/ref.py`` for the
+attention kernels (dense, decode, paged decode, verify, paged verify) and
+the MoE router: they materialise the full fp32 score matrix (or
+probability row) and are correctness references, not fast paths. On a
+CPU tensor the kernel wrappers run these; on the card they are what
 ``chip_smoke.py`` holds the kernels against. The oracles of the unported
-kernels (router, scans) come with those kernels.
+kernels (the scans) come with those kernels.
 """
 from __future__ import annotations
 
@@ -144,3 +145,17 @@ def paged_verify_rows_ref(q, k_pages, v_pages, block_tab, kv_len, *,
     return verify_rows_ref(q, paged_gather_kv(k_pages, block_tab),
                            paged_gather_kv(v_pages, block_tab), kv_len,
                            cap=cap, scale=scale)
+
+
+def router_topk_ref(logits, k: int):
+    """logits: (T,E) -> (weights (T,k) fp32, idx (T,k) int32, probs (T,E)
+    fp32). The row softmax in fp32, the k largest probabilities in
+    descending order with ties to the lowest expert id (a stable
+    descending sort, as ``lax.top_k`` orders them; ``torch.topk``
+    promises no order for ties), renormalised by their sum clamped at
+    1e-9."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w = top[:, :k]
+    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    return w, idx[:, :k].to(torch.int32), probs

@@ -5,8 +5,10 @@ requests, on the card unless ``--device cpu`` is given.
       --requests 4 --max-new 8 [--kv-mode paged] [--spec-decode]
 
 The command line is the JAX launcher's (``repro.launch.serve``) plus
-``--device``. ``--backend`` is gone: the device decides which attention
-runs (Hopper kernels on CUDA tensors, their plain versions on the CPU).
+``--device``; ``--arch`` takes the port's ids (``configs.ALL_IDS``: the
+planner and the MoE families arctic-480b and kimi-k2-1t-a32b).
+``--backend`` is gone: the device decides which attention runs (Hopper
+kernels on CUDA tensors, their plain versions on the CPU).
 ``--kv-mode paged`` (with ``--kv-blocks``, ``--block-size``) serves from
 the paged block pool; ``--spec-decode`` drafts ``--draft-k`` tokens per
 slot with a self-draft (the target's own weights: the repo ships no
@@ -14,7 +16,12 @@ trained draft) and verifies them in one target forward. The cluster-only
 flags (``--router``, ``--profile``, ``--skew``, ``--turns``) come back
 with replicas; until then replicas, retrieval and SLA spill are refused
 as not ported yet. ``--checkpoint`` loads a JAX-package npz through the
-weight bridge. ``main`` returns the run's numbers as a dict.
+weight bridge. ``main`` is the command line: it builds the model and
+hands it to ``serve``, which runs the engine for any ``(cfg, model,
+args)`` (a depth-cut full-width config, say) and returns the run's
+numbers as a dict. Prompts are encoded into the model's vocabulary: the
+engine's tokenizer folded into the config's ``vocab_size`` where that is
+smaller than the tokenizer's (the MoE smoke configs' 512 ids).
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from repro_torch.serving.engine import InferenceEngine
 from repro_torch.serving.sampling import SamplerConfig
 from repro_torch.serving.sched import ADMISSION_POLICIES
 from repro_torch.serving.specdec import SpecConfig
+from repro_torch.serving.tokenizer import TOKENIZER, Tokenizer
 
 # flags of the JAX launcher this slice does not serve, with the ROADMAP.md
 # queue item that brings each
@@ -117,9 +125,14 @@ def validate_args(ap: argparse.ArgumentParser, args):
     return args
 
 
-def main(argv=None) -> dict:
+def parse_args(argv=None):
+    """The validated arguments of a command line (``argv``)."""
     ap = build_parser()
-    args = validate_args(ap, ap.parse_args(argv))
+    return validate_args(ap, ap.parse_args(argv))
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch))
@@ -128,15 +141,23 @@ def main(argv=None) -> dict:
                                   device)
     else:
         model = init_params(cfg, seed=0, device=device)
+    return serve(cfg, model, args)
 
+
+def serve(cfg, model, args) -> dict:
+    """Serve ``args.requests`` requests with ``model`` (built for ``cfg``)
+    under the engine settings of ``args``; returns the run's numbers."""
+    device = model.device
     # no trained draft checkpoint ships with the repo: self-draft (perfect
     # agreement) stands in for a distilled small model, as in the JAX
     # launcher
     spec = (SpecConfig(draft_cfg=cfg, draft_model=model, k=args.draft_k)
             if args.spec_decode else None)
-    prompts = [
+    tok = (TOKENIZER if cfg.vocab_size >= TOKENIZER.vocab_size
+           else Tokenizer(cfg.vocab_size))
+    prompts = [tok.encode_with_specials(
         f"Plot xview1 images around Tampa Bay with cloud cover below "
-        f"{10 + i}%" for i in range(args.requests)]
+        f"{10 + i}%") for i in range(args.requests)]
     tracer = Tracer() if args.trace_out else None
     engine = InferenceEngine(cfg, model, max_batch=args.max_batch,
                              cache_len=args.cache_len,

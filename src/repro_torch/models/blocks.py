@@ -1,7 +1,10 @@
 """Per-layer blocks of the port.
 
-Port of the JAX package's ``models/blocks.py`` for the ``"full"`` layer
-kind (full causal self-attention + SiLU-GLU MLP) in the modes the serving
+Port of the JAX package's ``models/blocks.py`` for the layer kinds of
+pure-attention stacks: ``"full"`` (full causal self-attention + SiLU-GLU
+MLP), ``"dense"`` (the same inside an MoE model, with a
+``top_k * d_expert`` wide MLP) and ``"moe"`` (full attention + the
+mixture-of-experts FFN of ``models/moe.py``), in the modes the serving
 engine runs:
 
   mode="prefill" full-sequence forward, returns a filled KV cache
@@ -28,12 +31,16 @@ device-assert on CUDA), and clamping the index would overwrite a block
 that may belong to a live request, so ``write_plan`` filters those rows
 out on the host before the write.
 
-Verify runs every row-wise operation (norms, projections, rope, MLP) per
-row at decode's (B, 1, d) shape, and the attention through a kernel
-whose rows are bitwise decode rows: a matmul or reduction may pick
-another kernel or blocking for (B*W, d) rows than for (B, d) rows and
-round the last bits differently, and the engine promises that verify
-logits ARE the decode logits. Train mode raises ``NotImplementedError``
+Verify runs every row-wise operation (norms, projections, rope, MLP or
+MoE FFN) per row at decode's (B, 1, d) shape, and the attention through
+a kernel whose rows are bitwise decode rows: a matmul or reduction may
+pick another kernel or blocking for (B*W, d) rows than for (B, d) rows
+and round the last bits differently, and the engine promises that
+verify logits ARE the decode logits. For an MoE layer this also gives
+decode's routing semantics: each row is a group of one token, whose
+capacity (8) never drops a choice. The JAX package's verify routes all W
+rows as one group with capacity(W), which can drop choices once W > 8;
+at W <= 8 the two agree. Train mode raises ``NotImplementedError``
 naming the slice that brings it.
 """
 from __future__ import annotations
@@ -46,16 +53,19 @@ from torch import nn
 from repro_torch.common.config import ModelConfig
 from repro_torch.kernels import backend as KB
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 MODES = ("prefill", "extend", "decode", "verify")
+KINDS = ("full", "dense", "moe")
 
 
 class Block(nn.Module):
-    """One transformer layer of kind ``"full"``."""
+    """One transformer layer of kind ``"full"``, ``"dense"`` or ``"moe"``
+    (the JAX package's ``block_init`` shapes)."""
 
     def __init__(self, kind: str, cfg: ModelConfig, gen, dtype, device):
         super().__init__()
-        if kind != "full":
+        if kind not in KINDS:
             raise NotImplementedError(
                 f"layer kind {kind!r} comes with its model family "
                 f"(ROADMAP.md queue A12)")
@@ -64,7 +74,12 @@ class Block(nn.Module):
         self.norm1 = L.RMSNorm(d, cfg.norm_eps, dtype, device)
         self.attn = L.Attention(cfg, gen, dtype, device)
         self.norm2 = L.RMSNorm(d, cfg.norm_eps, dtype, device)
-        self.mlp = L.MLP(d, cfg.d_ff, cfg.mlp_act, gen, dtype, device)
+        if kind == "moe":
+            self.moe = M.MoE(cfg, gen, dtype, device)
+        else:
+            dff = (cfg.moe.top_k * cfg.moe.d_expert
+                   if kind == "dense" and cfg.moe is not None else cfg.d_ff)
+            self.mlp = L.MLP(d, dff, cfg.mlp_act, gen, dtype, device)
 
 
 def block_cache_init(cfg: ModelConfig, batch: int, cache_len: int, device):
@@ -122,10 +137,11 @@ def _write_rows(cache, k, v, plan: WritePlan) -> None:
         cache["v"][plan[2], :, plan[3]] = v[bi, :, wi]
 
 
-def _rope_qkv(p: Block, h, cfg: ModelConfig, positions):
+def _rope_qkv(p: Block, h, cfg: ModelConfig, positions, fixed=False):
     """Projections and rope of (B, S, d) normed rows at (B, S)
-    positions: q (B,Hq,S,hd), bf16 k and v (B,Hkv,S,hd)."""
-    q, k, v = L.qkv_proj(p.attn, h, cfg)
+    positions: q (B,Hq,S,hd), bf16 k and v (B,Hkv,S,hd). ``fixed``:
+    products in fixed-size calls (prefill and extend)."""
+    q, k, v = L.qkv_proj(p.attn, h, cfg, fixed)
     if cfg.rope_kind != "rope":
         raise NotImplementedError(f"rope_kind {cfg.rope_kind!r} comes with "
                                   f"its model family (ROADMAP.md queue A12)")
@@ -138,7 +154,8 @@ def _attn_sublayer(p: Block, x, cfg: ModelConfig, mode: str, cache, pos,
                    positions, block_tab, plan):
     """Attention sub-layer of prefill, extend and decode. Returns
     (y, cache)."""
-    q, k, v = _rope_qkv(p, x, cfg, positions)
+    fixed = mode in ("prefill", "extend")
+    q, k, v = _rope_qkv(p, x, cfg, positions, fixed)
 
     if mode == "prefill":
         out = L.attention(q, k, v, causal=True, cap=cfg.attn_softcap,
@@ -147,7 +164,7 @@ def _attn_sublayer(p: Block, x, cfg: ModelConfig, mode: str, cache, pos,
         n = min(k.shape[2], Sc)
         cache["k"][:, :, :n] = k[:, :, :n]
         cache["v"][:, :, :n] = v[:, :, :n]
-        return L.out_proj(p.attn, out), cache
+        return L.out_proj(p.attn, out, fixed), cache
 
     if mode == "extend":
         # rows [pos, pos+S); a start past Sc-S clamps, as JAX's
@@ -160,7 +177,7 @@ def _attn_sublayer(p: Block, x, cfg: ModelConfig, mode: str, cache, pos,
         out = L.attention(q, cache["k"], cache["v"], causal=True,
                           q_offset=pos, cap=cfg.attn_softcap,
                           scale=cfg.attn_scale)
-        return L.out_proj(p.attn, out), cache
+        return L.out_proj(p.attn, out, fixed), cache
 
     if block_tab is not None:
         # paged decode: the row lands in block block_tab[b, pos // bs] at
@@ -197,9 +214,11 @@ def _attn_sublayer(p: Block, x, cfg: ModelConfig, mode: str, cache, pos,
     return L.out_proj(p.attn, out), cache
 
 
-def _mlp_tail(p: Block, x, cfg: ModelConfig):
+def _mlp_tail(p: Block, x, cfg: ModelConfig, fixed: bool = False):
     h2 = L.rmsnorm(p.norm2.scale, x, cfg.norm_eps)
-    return x + L.mlp(p.mlp, h2)
+    if p.kind == "moe":
+        return x + M.moe_ffn(p.moe, h2, cfg, fixed=fixed)[0]
+    return x + L.mlp(p.mlp, h2, fixed)
 
 
 def _verify_block(p: Block, x, cfg: ModelConfig, cache, pos, positions,
@@ -260,4 +279,5 @@ def block_apply(p: Block, x, cfg: ModelConfig, *, mode: str, cache,
     h = L.rmsnorm(p.norm1.scale, x, cfg.norm_eps)
     attn_y, cache = _attn_sublayer(p, h, cfg, mode, cache, pos, positions,
                                    block_tab, plan)
-    return _mlp_tail(p, x + attn_y, cfg), cache
+    return _mlp_tail(p, x + attn_y, cfg,
+                     fixed=mode in ("prefill", "extend")), cache

@@ -5,7 +5,12 @@ lists whose layer leaves carry a leading stacked axis R per segment:
 ``segments[si][ui][name...][r]`` is layer ``offset(si) + r * len(unit) +
 ui``. ``params_from_numpy`` takes that tree with numpy leaves (as
 ``jax.tree.map(np.asarray, params)`` gives it) and copies every leaf into
-the matching ``Model`` tensor, checking each shape.
+the matching ``Model`` tensor, checking each shape. A leaf's path is its
+tensor's name with '/' for '.': ``attn/wq``, ``mlp/w_gate``, the MoE
+leaves ``moe/router``, ``moe/w_gate`` (E, d, dff), ``moe/w_up``,
+``moe/w_down``, ``moe/dense_residual/*`` and ``moe/shared_expert/*``, and
+at the top ``embed``, ``final_norm/scale`` and, untied, ``lm_head``. A
+tree that lacks a model tensor or holds a leaf the model lacks raises.
 
 bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
 ``torch.from_numpy`` refuses; they go through fp32, which holds every

@@ -1,8 +1,10 @@
-"""The served planner model: init / prefill / extend / decode.
+"""The served model: init / prefill / extend / decode / verify.
 
-Port of the JAX package's ``models/model.py`` for dense stacks of
-``"full"`` layers. The JAX package scans stacked per-segment params; the
-port keeps one ``Block`` per layer and runs them in a Python loop.
+Port of the JAX package's ``models/model.py`` for pure-attention stacks:
+the dense planner (``"full"`` layers, tied head) and the MoE families
+(``"moe"`` and ``"dense"`` layers, untied ``lm_head``). The JAX package
+scans stacked per-segment params; the port keeps one ``Block`` per layer
+and runs them in a Python loop.
 Caches are ``{"layers": [{"k", "v"}, ...], "pos": ...}`` with the JAX
 per-layer layout (B, Hkv, cache_len, hd) bf16; ``pos`` is a Python int
 for a B=1 prefill/extend cache and a (B,) int tensor for the batched
@@ -13,10 +15,13 @@ pools (n_blocks, Hkv, bs, hd) and a (B, cache_len // bs) int32
 the host): they go to the device once per call, and the write plan of
 the step (``blocks.write_plan``) is computed from the host copies.
 
-The head is tied and computed in fp32 with full fp32 products, as the
-JAX package's head is: ``_logits`` sets
+The head (the tied embedding, or ``lm_head`` (d, V) when the config does
+not tie them) is computed in fp32 with full fp32 products, as the JAX
+package's head is: ``_logits`` sets
 ``torch.backends.cuda.matmul.allow_tf32 = False`` before its matmul, so
-no caller's TF32 setting can reach it.
+no caller's TF32 setting can reach it. At kimi-k2's vocab the fp32 copy
+of ``lm_head`` is a 4.7 GB temporary per call: keeping it would hold
+4.7 GB more, and a bf16 product would be another function.
 """
 from __future__ import annotations
 
@@ -42,15 +47,15 @@ def resolve_device(device=None) -> torch.device:
 
 
 class Model(nn.Module):
-    """Embedding, the layer stack and the final norm; the head is tied."""
+    """Embedding, the layer stack, the final norm and, untied, the head."""
 
     def __init__(self, cfg: ModelConfig, gen, dtype, device):
         super().__init__()
-        if not cfg.tie_embeddings or cfg.n_enc_layers or cfg.final_softcap \
-                or cfg.emb_scale_by_sqrt_d or cfg.family != "dense":
+        if cfg.n_enc_layers or cfg.final_softcap or cfg.emb_scale_by_sqrt_d \
+                or cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"{cfg.name}: only dense tied-head stacks are ported "
-                f"(ROADMAP.md queue A12)")
+                f"{cfg.name}: only dense and MoE pure-attention stacks are "
+                f"ported (ROADMAP.md queue A12)")
         self.cfg = cfg
         self.embed = L.normal_param((cfg.vocab_size, cfg.d_model), 0.02, gen,
                               dtype, device)
@@ -58,6 +63,9 @@ class Model(nn.Module):
         self.layers = nn.ModuleList(
             Block(kind, cfg, gen, dtype, device)
             for kind in cfg.layer_kinds())
+        self.lm_head = (None if cfg.tie_embeddings else
+                        L.dense_param((cfg.d_model, cfg.vocab_size), gen,
+                                      dtype, device))
 
     @property
     def device(self) -> torch.device:
@@ -69,9 +77,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     """Seeded random weights with the JAX package's shapes, std and zero
     init (``model.py:34-65``): embedding N(0, 0.02), projections
     N(0, 1/fan_in), norm scales 0. Drawn on the CPU from one
-    ``torch.Generator`` so a seed gives the same weights on any device.
-    They are not the JAX package's bits (threefry vs Philox): tests that
-    compare the two load JAX weights through ``models/convert.py``."""
+    ``torch.Generator`` so a seed gives the same weights on any device,
+    except the MoE expert stacks, which are drawn on ``device`` from a
+    generator seeded from it (``layers.expert_param``). They are not the
+    JAX package's bits (threefry vs Philox): tests that compare the two
+    load JAX weights through ``models/convert.py``."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     return Model(cfg, gen, dtype, dev).eval()
@@ -160,9 +170,11 @@ def _embed_inputs(model: Model, tokens, pos=None):
 
 
 def _logits(model: Model, x):
-    """Tied fp32 head: (…, d) -> (…, V) fp32, never in TF32."""
+    """fp32 head: (…, d) -> (…, V) fp32, never in TF32."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    return x.float() @ model.embed.float().T
+    if model.lm_head is None:
+        return x.float() @ model.embed.float().T
+    return x.float() @ model.lm_head.float()
 
 
 # ------------------------------------------------------------- public API ----

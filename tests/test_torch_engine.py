@@ -232,5 +232,6 @@ def test_engine_runs_no_kernel_on_cpu(pair):
            PROMPTS[:1], 2)
     assert KB.launch_counts() == {
         "flash_prefill": 0, "flash_decode": 0, "flash_decode_paged": 0,
-        "flash_verify": 0, "flash_verify_paged": 0}
+        "flash_verify": 0, "flash_verify_paged": 0,
+        "moe_router_topk": 0}
     assert model.device == torch.device("cpu")

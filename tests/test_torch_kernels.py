@@ -124,11 +124,17 @@ def _small_paged():
     ("paged_decode_attention", None),       # ported: runs on the CPU
     ("verify_attention", None),             # ported
     ("paged_verify_attention", None),       # ported
-    ("router_topk", (None, 2)),
+    ("router_topk", (None, 2)),             # ported: runs on the CPU
     ("selective_scan", (None,) * 5),
     ("mlstm_scan", (None,) * 5),
 ])
 def test_unported_ops_raise_naming_their_queue_item(op, args):
+    if op == "router_topk":
+        w, idx = KB.router_topk(torch.randn(6, 16) * 3, args[1])
+        assert tuple(w.shape) == tuple(idx.shape) == (6, 2)
+        assert idx.dtype == torch.int32
+        torch.testing.assert_close(w.sum(-1), torch.ones(6))
+        return
     if args is None:
         q, pages, tab = _small_paged()
         if op == "paged_decode_attention":
@@ -155,9 +161,10 @@ def test_cpu_wrappers_do_not_count_launches():
     KB.paged_decode_attention(qp[:, :, 0], pages, pages, tab, 20)
     KB.verify_attention(q, k, v, 8)
     KB.paged_verify_attention(qp, pages, pages, tab, 20)
+    KB.router_topk(torch.randn(4, 8), 2)
     assert KB.launch_counts() == {
         "flash_prefill": 0, "flash_decode": 0, "flash_decode_paged": 0,
-        "flash_verify": 0, "flash_verify_paged": 0}
+        "flash_verify": 0, "flash_verify_paged": 0, "moe_router_topk": 0}
 
 
 def test_wrappers_refuse_other_devices():
