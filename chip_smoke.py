@@ -2,7 +2,7 @@
 
   python3 chip_smoke.py [--kernels-only]
 
-Builds the port's six Hopper kernels from ``src/repro_torch/csrc/``,
+Builds the port's seven Hopper kernels from ``src/repro_torch/csrc/``,
 holds each against its plain PyTorch version on the card: the attention
 kernels at the served planner's shapes (head dim 64) and at head dims
 128 and 32 with the MoE families' heads (kimi-k2's 64/8 and arctic's
@@ -24,7 +24,20 @@ same functions: dense, paged and (kimi) speculative dense and paged,
 tokens equal to the dense run's and an accept rate of 1.0; budgeted ==
 monolithic and prefix hit == miss, printed at the config's capacity
 factor and asserted at 100; a profile of kimi's decode step; card vs
-CPU on both MoE smoke configs. It prints
+CPU on both MoE smoke configs. Then hymba-1.5b at full width and full
+depth (32 hybrid attention + SSM layers, 30 of them over 1,024-row
+sliding-window rings): the selective-scan kernel against its plain
+version at hymba's prefill and decode shapes, with its seam contract
+(a scan split at any seam, or run one step per launch, gives the bits
+of one scan); the window variant of the prefill kernel and the decode
+kernel over a ring at hymba's heads (25/5 of 64); two serve runs that
+must serve the same tokens, the recycled slots' requests against a
+fresh engine (bitwise); prefix hits on a 1,300-token prefix against
+misses (admission logits within HIT_MISS_TOL, tokens that agree
+printed); ~1,000-token prompts whose decode crosses every ring's wrap
+(decode logits against a windowed prefill within HIT_MISS_TOL); the
+refusals of paged KV, chunked prefill and speculative decoding; a
+profile of its decode step; card vs CPU on hymba-smoke. It prints
 one JSON line per phase. It fails (non-zero exit, no result line) when
 no card is present, when it does not run from a checkout of the
 repository, or when any phase fails. ``--kernels-only`` stops after the
@@ -32,7 +45,8 @@ kernel cases (a quick check of a kernel change; it prints no result
 line). Detail goes to ``chiprun_out/chip_smoke.json``, nvcc's
 register/shared-memory report to ``chip_smoke_build.log`` and profiler
 traces of full-width decode steps to ``decode_trace.json`` (planner)
-and ``moe_decode_trace.json`` (kimi-k2) (open them in Perfetto).
+, ``moe_decode_trace.json`` (kimi-k2) and ``hymba_decode_trace.json``
+(open them in Perfetto).
 
 Tolerances:
   * kernel vs plain version (both bf16 out, fp32 inside, different
@@ -46,7 +60,22 @@ Tolerances:
     layer (a near-tie may route a token to another expert on the other
     device; the count of such tokens is printed);
   * router kernel vs plain version: ids equal, weights within 1e-5 (fp32
-    softmax and renormalisation, summed in another order).
+    softmax and renormalisation, summed in another order);
+  * ssm_scan vs plain version (fp32 both; the kernel rounds the state
+    update as one fmaf and sums over n in its own fixed order, the plain
+    version with separate roundings and torch's reduction):
+    |kernel - plain| <= 1e-4 + 1e-4 * |plain|; within the kernel
+    (seams, one-step launches): bitwise;
+  * hymba prefix hit vs miss, and ring-crossing decode vs windowed
+    prefill (two computations of the same logits: token-by-token decode
+    against one prefill, other kernels and product shapes; equal bits on
+    the CPU at the smoke size): relative RMS |a - b| / |b| <=
+    HIT_MISS_REL = 0.1 and max |diff| <= HIT_MISS_TOL = 0.25. At full
+    width on an H100 the bf16 roundings of the two paths through 32
+    layers leave the 32,001 logits (magnitude up to ~3.4) 2.7-3.4% RMS
+    apart, and their largest difference, the tail of 32,001 entries, at
+    0.09-0.12. A ring row or a conv state out of place moves the smoke
+    config's logits by 19-31% and 78-106% RMS.
 """
 from __future__ import annotations
 
@@ -123,32 +152,33 @@ def _mk(gen, *shape):
         torch.bfloat16)
 
 
-def prefill_case(Sq, Sk, q_offset, gen, heads=(HQ, HKV, HD)):
+def prefill_case(Sq, Sk, q_offset, gen, heads=(HQ, HKV, HD), window=0):
     from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.ref import attention_ref
     import torch.nn.functional as F
     Hq, Hkv, hd = heads
     q, k, v = _mk(gen, 1, Hq, Sq, hd), _mk(gen, 1, Hkv, Sk, hd), \
         _mk(gen, 1, Hkv, Sk, hd)
-    out = flash_prefill(q, k, v, causal=True, q_offset=q_offset)
-    ref = attention_ref(q, k, v, causal=True, q_offset=q_offset)
+    kw = dict(causal=True, q_offset=q_offset, window=window)
+    out = flash_prefill(q, k, v, **kw)
+    ref = attention_ref(q, k, v, **kw)
     err = err_ok(out, ref)
     kpos = torch.arange(Sk, device="cuda")
     qpos = q_offset + torch.arange(Sq, device="cuda")
     mask = kpos[None, :] <= qpos[:, None]                      # (Sq,Sk)
-    ms = cuda_ms(lambda: flash_prefill(q, k, v, causal=True,
-                                       q_offset=q_offset))
-    plain = cuda_ms(lambda: attention_ref(q, k, v, causal=True,
-                                          q_offset=q_offset), iters=5)
+    if window:
+        mask &= qpos[:, None] - kpos[None, :] < window
+    ms = cuda_ms(lambda: flash_prefill(q, k, v, **kw))
+    plain = cuda_ms(lambda: attention_ref(q, k, v, **kw), iters=5)
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, enable_gqa=True))
     pairs = int(mask.sum())                       # this run's (q,k) pairs
     keys = min(Sk, q_offset + Sq)
     nbytes = 2 * hd * (2 * Hq * Sq + 2 * Hkv * keys)
     b_ms, b_by = bound(nbytes, 4 * hd * Hq * pairs)
-    return dict(Sq=Sq, Sk=Sk, q_offset=q_offset, heads=list(heads),
-                max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=b_ms, bound_by=b_by)
+    return dict(Sq=Sq, Sk=Sk, q_offset=q_offset, window=window,
+                heads=list(heads), max_abs_err=err, ms=ms, plain_ms=plain,
+                library_ms=lib, bound_ms=b_ms, bound_by=b_by)
 
 
 def decode_case(kv_len_list, Sk, gen, heads=(HQ, HKV, HD)):
@@ -360,6 +390,7 @@ def router_cases(gen, build_log: str):
     weights within ROUTER_WTOL; its time, bound and the softmax + topk +
     renormalisation yardstick (no one PyTorch call computes it)."""
     from repro_torch.kernels.moe_router import moe_router_topk
+    from repro_torch.kernels.ssm_scan import ssm_scan
     from repro_torch.kernels.ref import router_topk_ref
     out = []
     for T, E, k in ROUTER_CASES:
@@ -386,6 +417,102 @@ def router_cases(gen, build_log: str):
                         softmax_topk_ms=cuda_ms(yardstick),
                         bound_ms=b_ms, bound_by=b_by,
                         registers=_ptxas_registers(build_log, "moe_router")))
+    return out
+
+
+# ------------------------------------------- hymba slice: kernel cases ----
+
+# hymba's attention heads (Hq, Hkv, hd): G = 5
+HYMBA_HEADS = (25, 5, 64)
+HYMBA_WINDOW = 1024
+# the scan's (B, S, di, n): hymba-1.5b's prefill of a 1,024-token head and
+# of a ragged 1,300-token prompt, its decode over 8 slots, hymba-smoke
+SSM_CASES = [(1, 1024, 1600, 16), (1, 1300, 1600, 16), (8, 1, 1600, 16),
+             (1, 40, 128, 8)]
+SSM_ATOL = SSM_RTOL = 1e-4
+
+
+def _ssm_inputs(gen, B, S, di, n, random_h0=True):
+    """The JAX package's scan sweep distributions: dt = |N(0,1)| * 0.1;
+    x, B_, C_ ~ N(0,1); A = -exp(N(0,1)); h0 ~ N(0,1) or zeros."""
+    r = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    h0 = r(B, di, n) if random_h0 else torch.zeros(B, di, n, device="cuda")
+    return (r(B, S, di).abs() * 0.1, r(B, S, di), r(B, S, n), r(B, S, n),
+            -torch.exp(r(di, n)), h0)
+
+
+def ssm_err(out, ref) -> float:
+    diff = (out - ref).abs()
+    check(bool(torch.isfinite(out).all()), "non-finite ssm_scan out")
+    check(bool((diff <= SSM_ATOL + SSM_RTOL * ref.abs()).all()),
+          f"ssm_scan disagrees with its plain version: max err "
+          f"{float(diff.max())}")
+    return float(diff.max())
+
+
+def ssm_cases(gen, build_log: str):
+    """ssm_scan against its plain version at SSM_CASES (prefill shapes
+    from zero and from random h0), with its time, bound (the bytes of
+    every input read once and every output written once; ~7 fp32
+    operations per (b, t, d, n)) and registers; then its seam contract,
+    bitwise: the 1,300-step scan split at 1,024 and at 1, and 16 one-step
+    launches against one 16-step launch over 8 slots."""
+    from repro_torch.kernels.ref import selective_scan_ref
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    cases = []
+    for B, S, di, n in SSM_CASES:
+        for random_h0 in ((False, True) if S > 1 else (True,)):
+            args = _ssm_inputs(gen, B, S, di, n, random_h0)
+            y, h = ssm_scan(*args)
+            ry, rh = selective_scan_ref(*args)
+            torch.cuda.synchronize()
+            err = max(ssm_err(y, ry), ssm_err(h, rh))
+            nbytes = 4 * (3 * B * S * di + 2 * B * S * n + di * n
+                          + 2 * B * di * n)
+            b_ms, b_by = bound(nbytes, 7 * B * S * di * n, FP32_FLOP_S)
+            cases.append(dict(
+                B=B, S=S, di=di, n=n,
+                h0="random" if random_h0 else "zeros", max_abs_err=err,
+                ms=cuda_ms(lambda: ssm_scan(*args)),
+                plain_ms=cuda_ms(lambda: selective_scan_ref(*args),
+                                 iters=2, warmup=1),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                registers=_ptxas_registers(build_log, "ssm_scan")))
+    dt, x, Bm, Cm, A, h0 = _ssm_inputs(gen, 1, 1300, 1600, 16)
+    y, h = ssm_scan(dt, x, Bm, Cm, A, h0)
+    part = lambda a, lo, hi: a[:, lo:hi].contiguous()
+    for cut in (1024, 1):
+        y1, h1 = ssm_scan(*(part(a, 0, cut) for a in (dt, x, Bm, Cm)), A,
+                          h0)
+        y2, h2 = ssm_scan(*(part(a, cut, 1300) for a in (dt, x, Bm, Cm)),
+                          A, h1)
+        check(torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(h2, h),
+              f"ssm_scan split at {cut} differs from one scan")
+    dt, x, Bm, Cm, A, h0 = _ssm_inputs(gen, 8, 16, 1600, 16)
+    y, h = ssm_scan(dt, x, Bm, Cm, A, h0)
+    ys, hs = [], h0
+    for t in range(16):
+        yt, hs = ssm_scan(*(part(a, t, t + 1) for a in (dt, x, Bm, Cm)), A,
+                          hs)
+        ys.append(yt)
+    check(torch.equal(torch.cat(ys, 1), y) and torch.equal(hs, h),
+          "16 one-step ssm_scan launches differ from one 16-step launch")
+    return cases, dict(split_at=[1024, 1], one_step_launches=16,
+                       bitwise=True)
+
+
+def hymba_attention_cases(gen):
+    """The two attention kernels where hymba is the first to use them
+    this way: flash_prefill's window variant at hymba's heads (Sq = Sk =
+    1,300, window 1,024) and flash_decode at G = 5 over a 1,024-row ring,
+    full and partly filled."""
+    tag = dict(family="hymba", hd=HYMBA_HEADS[2])
+    out = [("kernel_prefill", dict(prefill_case(
+        1300, 1300, 0, gen, HYMBA_HEADS, window=HYMBA_WINDOW), **tag))]
+    for kvl in ([HYMBA_WINDOW] * B_SLOTS,
+                [1, 300, 1024, 777, 64, 1000, 2, 513]):
+        out.append(("kernel_decode", dict(decode_case(
+            kvl, HYMBA_WINDOW, gen, HYMBA_HEADS), ring=True, **tag)))
     return out
 
 
@@ -425,7 +552,8 @@ def serve_runs(arch, cfg, model, modes):
     ``max_new``), a spec run's self-draft accept rate must be exactly 1.0
     and a pool that preempts must resume as often. The planner's closing
     dense run brackets the others, so their times compare with a dense
-    run that is not the process's first serve."""
+    run that is not the process's first serve. Returns the runs and the
+    first mode's outputs by request id."""
     from repro_torch.kernels import backend as KB
     from repro_torch.launch.serve import parse_args, serve
     runs, ref = {}, None
@@ -467,7 +595,7 @@ def serve_runs(arch, cfg, model, modes):
                           preemptions=st["preemptions"],
                           resumes=st["resumes"],
                           kv_blocks_used_peak=st["kv_blocks_used_peak"])
-    return runs
+    return runs, ref
 
 
 def equality_runs(cfg, model, prefix_len: int, n: int, max_new: int):
@@ -575,6 +703,11 @@ def profile_decode(cfg, model, steps: int, trace: str):
             dev_t(e) for e in dev if "moe_router" in e.key) / 1e3 / steps
         res["expert_bmm_ms_per_step"] = sum(
             tot_t(e) for e in ev if e.key == "aten::bmm") / 1e3 / steps
+    if cfg.family == "hybrid":
+        for name in ("ssm_scan", "flash_decode"):
+            t = sum(dev_t(e) for e in dev if f"{name}_kernel" in e.key)
+            res[f"{name}_ms_per_step"] = t / 1e3 / steps
+            res[f"{name}_share_of_busy"] = t / max(busy_us, 1e-9)
     return res
 
 
@@ -684,7 +817,7 @@ def planner_phases():
     from repro_torch.models.model import init_params
     cfg = get_config(ARCH)
     model = init_params(cfg, seed=0, device="cuda")
-    runs = serve_runs(ARCH, cfg, model, PLANNER_MODES)
+    runs, _ = serve_runs(ARCH, cfg, model, PLANNER_MODES)
     for name, r in runs.items():
         emit(f"serve_{name}", **r)
     eq = equality_runs(cfg, model, 1300, 8, 32)
@@ -758,7 +891,7 @@ def moe_phases():
              vocab=cfg.vocab_size, params=count_params(model),
              init_seconds=time.time() - t0,
              weights_gb=torch.cuda.memory_allocated() / 1e9)
-        runs = serve_runs(arch, cfg, model, modes)
+        runs, _ = serve_runs(arch, cfg, model, modes)
         for name, r in runs.items():
             emit(f"moe_serve_{arch}_{name}", **r)
         t0 = time.time()
@@ -782,6 +915,216 @@ def moe_phases():
     return results
 
 
+# ------------------------------------------ hymba-1.5b at full width ----
+
+HYMBA = "hymba-1.5b"
+_HYMBA = ("flash_prefill", "flash_decode", "ssm_scan")
+HYMBA_MODES = [("dense", [], 64, _HYMBA), ("dense_again", [], 64, _HYMBA)]
+HIT_MISS_TOL = 0.25
+HIT_MISS_REL = 0.1
+
+
+def logit_gap(a, b):
+    """(max |a - b|, |a - b| / |b|) of two logits rows, checked against
+    HIT_MISS_TOL and HIT_MISS_REL by the caller."""
+    d = (a - b).float()
+    return float(d.abs().max()), float(d.norm() / b.float().norm())
+
+
+def _t0():
+    from repro_torch.serving.sampling import SamplerConfig
+    return SamplerConfig(temperature=0.0)
+
+
+def hymba_recycled(cfg, model, outputs):
+    """The 16-request serve's last wave (requests 8-15, served in slots
+    that served requests 0-7 first) against a fresh engine serving those
+    8 prompts alone: equal tokens (decode runs at B = max_batch either
+    way, so a slot's rows depend on its neighbours only if state
+    leaks)."""
+    from repro_torch.launch.serve import request_prompts
+    from repro_torch.serving.engine import InferenceEngine
+    eng = InferenceEngine(cfg, model, max_batch=8, cache_len=2048)
+    rids = [eng.add_request(p, max_new_tokens=64, sampler=_t0())
+            for p in request_prompts(cfg, 16)[8:]]
+    done = {r.request_id: r.output for r in eng.run_until_done()}
+    same = [done[r] == outputs[8 + i] for i, r in enumerate(rids)]
+    check(all(same), f"hymba: recycled slots' tokens differ from a fresh "
+                     f"engine's ({same})")
+    return dict(requests=len(rids), tokens_equal_fresh=True)
+
+
+def _recording_engine(cfg, model, rec: dict):
+    """An engine that records each request's admission logits."""
+    from repro_torch.serving.engine import InferenceEngine
+    eng = InferenceEngine(cfg, model, max_batch=8, cache_len=2048)
+    first = eng._first_token
+
+    def record(req, logits):
+        rec[req.request_id] = logits.float().cpu()
+        return first(req, logits)
+    eng._first_token = record
+    return eng
+
+
+def hymba_hit_miss(cfg, model, prefix_len=1300, n=8, max_new=16):
+    """8 prompts of a 1,300-token prefix plus 8-36 tokens, served as
+    prefix hits (``register_prefix``: the 1,024-token head prefilled, the
+    276-token tail decoded through the rings; each suffix decoded) and as
+    misses (one windowed prefill each). Admission logits within
+    HIT_MISS_TOL and HIT_MISS_REL; the count of equal tokens is printed
+    (two computations, in JAX too: not asserted)."""
+    from repro_torch.kernels import backend as KB
+    rng = np.random.default_rng(7)
+    prefix = [2] + rng.integers(6, cfg.vocab_size, prefix_len - 1).tolist()
+    prompts = [prefix + rng.integers(6, cfg.vocab_size, 8 + 4 * i).tolist()
+               for i in range(n)]
+    res, logits, toks = {}, {}, {}
+    for name in ("prefix_hit", "miss"):
+        rec: dict = {}
+        eng = _recording_engine(cfg, model, rec)
+        KB.reset_launches()
+        t0 = time.time()
+        hit = name == "prefix_hit"
+        if hit:
+            eng.register_prefix("p", prefix)
+            torch.cuda.synchronize()
+            res["register_prefix_seconds"] = time.time() - t0
+        rids = [eng.add_request(p, max_new_tokens=max_new, sampler=_t0(),
+                                prefix_key="p" if hit else None)
+                for p in prompts]
+        done = {r.request_id: r.output for r in eng.run_until_done()}
+        torch.cuda.synchronize()
+        logits[name] = [rec[r] for r in rids]
+        toks[name] = [done[r] for r in rids]
+        res[name] = dict(seconds=time.time() - t0,
+                         launches=KB.launch_counts(),
+                         prefix_hits=eng.throughput_stats()["prefix_hits"])
+    check(res["prefix_hit"]["prefix_hits"] == n,
+          f"hymba: {res['prefix_hit']['prefix_hits']} prefix hits of {n}")
+    gaps = [logit_gap(a, b)
+            for a, b in zip(logits["prefix_hit"], logits["miss"])]
+    diffs, rels = [g[0] for g in gaps], [g[1] for g in gaps]
+    check(all(np.isfinite(diffs)), "hymba: non-finite admission logits")
+    check(max(diffs) <= HIT_MISS_TOL and max(rels) <= HIT_MISS_REL,
+          f"hymba: prefix-hit admission logits differ from a miss's by "
+          f"{diffs} (relative {rels})")
+    res.update(admission_logit_diff=diffs, admission_logit_rel=rels,
+               tol=HIT_MISS_TOL, rel_tol=HIT_MISS_REL,
+               logit_absmax=float(logits["miss"][0].abs().max()),
+               tokens_equal=sum(x == y for u, v in zip(toks["prefix_hit"],
+                                                      toks["miss"])
+                                for x, y in zip(u, v)),
+               tokens=n * max_new)
+    return res
+
+
+def hymba_long(cfg, model):
+    """8 prompts of 980-1,022 tokens and 64 new tokens each, so every
+    slot's decode crosses position 1,024 in each hymba_w ring; the
+    logits of request 0's decode at position len + 62 (past the wrap)
+    against one windowed prefill of its prompt and its first 63 tokens,
+    within HIT_MISS_TOL and HIT_MISS_REL."""
+    from repro_torch.kernels import backend as KB
+    from repro_torch.models.model import prefill
+    from repro_torch.serving import engine as E
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(6, cfg.vocab_size, 980 + 6 * i).tolist()
+               for i in range(8)]
+    eng = E.InferenceEngine(cfg, model, max_batch=8, cache_len=2048)
+    step_logits, orig = [], E.decode_step
+
+    def record(*a, **kw):
+        lg, cache = orig(*a, **kw)
+        step_logits.append(lg[0].float().cpu())       # request 0's slot
+        return lg, cache
+    E.decode_step = record
+    KB.reset_launches()
+    t0 = time.time()
+    try:
+        rids = [eng.add_request(p, max_new_tokens=64, sampler=_t0())
+                for p in prompts]
+        done = {r.request_id: r for r in eng.run_until_done()}
+        torch.cuda.synchronize()
+    finally:
+        E.decode_step = orig
+    wall = time.time() - t0
+    out0 = done[rids[0]].output
+    check(len(out0) == 64, f"hymba long: request 0 stopped at {len(out0)}")
+    lg, _ = prefill(model, {"tokens": [prompts[0] + out0[:63]]}, 2048)
+    diff, rel = logit_gap(step_logits[62], lg[0].float().cpu())
+    check(diff <= HIT_MISS_TOL and rel <= HIT_MISS_REL,
+          f"hymba long: ring-crossing decode logits differ from a "
+          f"windowed prefill by {diff} (relative {rel})")
+    st = eng.throughput_stats()
+    return dict(prompt_tokens=[len(p) for p in prompts],
+                last_position=len(prompts[0]) + 62, seconds=wall,
+                tok_s=st["tokens_generated"] / wall,
+                step_ms=1e3 * wall / eng.step_no,
+                launches=KB.launch_counts(), decode_vs_prefill_diff=diff,
+                decode_vs_prefill_rel=rel, tol=HIT_MISS_TOL,
+                rel_tol=HIT_MISS_REL,
+                finish=sorted({r.finish_reason for r in done.values()}))
+
+
+def hymba_refusals(cfg, model):
+    """Paged KV, chunked prefill and speculative decoding raise on
+    hymba (recurrent state and rings: JAX's reasons)."""
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.specdec import SpecConfig
+    out = {}
+    for name, kw in (("paged", dict(kv_mode="paged")),
+                     ("prefill_budget", dict(prefill_budget=1024)),
+                     ("spec", dict(spec_decode=SpecConfig(cfg, model,
+                                                          k=4)))):
+        try:
+            InferenceEngine(cfg, model, max_batch=8, cache_len=2048, **kw)
+        except ValueError as e:
+            out[name] = str(e)[:100]
+        else:
+            check(False, f"hymba: {name} was not refused")
+    return out
+
+
+def hymba_phases():
+    """hymba-1.5b at full width and full depth: init, two serve runs,
+    recycled slots, prefix hit vs miss, ring-crossing prompts, the
+    refusals, a decode profile; then card vs CPU on hymba-smoke. Returns
+    the serve runs."""
+    import gc
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models.model import count_params, init_params
+    cfg = get_config(HYMBA)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    model = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    emit("hymba_init", layers=len(cfg.layer_kinds()),
+         windowed_layers=cfg.layer_kinds().count("hymba_w"),
+         d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads,
+                                     cfg.d_head],
+         window=cfg.window, d_state=cfg.ssm.d_state,
+         vocab=cfg.vocab_size, params=count_params(model),
+         init_seconds=time.time() - t0,
+         weights_gb=torch.cuda.memory_allocated() / 1e9)
+    runs, outputs = serve_runs(HYMBA, cfg, model, HYMBA_MODES)
+    for name, r in runs.items():
+        emit(f"hymba_serve_{name}", **r)
+    emit("hymba_recycled", **hymba_recycled(cfg, model, outputs))
+    emit("hymba_hit_miss", **hymba_hit_miss(cfg, model))
+    emit("hymba_long", **hymba_long(cfg, model))
+    emit("hymba_refusals", **hymba_refusals(cfg, model))
+    emit("hymba_decode_profile", **profile_decode(
+        cfg, model, 5, "hymba_decode_trace.json"))
+    emit("hymba_memory",
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(f"card_vs_cpu_{HYMBA}", **card_vs_cpu(get_smoke_config(HYMBA)))
+    return runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
@@ -798,6 +1141,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.flash_verify import flash_verify, \
         flash_verify_paged
     from repro_torch.kernels.moe_router import moe_router_topk
+    from repro_torch.kernels.ssm_scan import ssm_scan
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -837,6 +1181,14 @@ def main(argv=None) -> int:
     rout = router_cases(gen, build_log)
     for c in rout:
         emit("kernel_router", **c)
+    scan, seams = ssm_cases(gen, build_log)
+    for c in scan:
+        emit("kernel_ssm_scan", **c)
+    emit("kernel_ssm_scan_seams", **seams)
+    hymba_attn = hymba_attention_cases(gen)
+    for phase, c in hymba_attn:
+        emit(phase, **c)
+    hd_cases += hymba_attn
     if args.kernels_only:
         (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
             RESULTS, indent=1, default=str))
@@ -844,6 +1196,7 @@ def main(argv=None) -> int:
 
     runs = planner_phases()
     moe = moe_phases()
+    hymba = hymba_phases()
 
     # each kernel's launches come from the run of the path it serves;
     # its times from its case at the main path's widest shape (the
@@ -883,6 +1236,18 @@ def main(argv=None) -> int:
                  "launches": moe["kimi-k2-1t-a32b"]["runs"]["dense"][
                      "launches"]["moe_router_topk"],
                  "max_abs_err": max(x["max_abs_err"] for x in rout),
+                 "ms": c["ms"], "plain_ms": c["plain_ms"],
+                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                 "library_ms": None})
+    # the scan: launches of the hymba dense serve; times at its 1,024-token
+    # prefill from zero state (the decode case is in chip_smoke.json)
+    c = next(c for c in scan if (c["B"], c["S"], c["h0"]) == (1, 1024,
+                                                             "zeros"))
+    rows.append({"name": ssm_scan.__name__, "route": "cuda",
+                 "source": "src/repro_torch/csrc/ssm_scan.cu",
+                 "replaces": "src/repro/kernels/ssm_scan.py:52",
+                 "launches": hymba["dense"]["launches"]["ssm_scan"],
+                 "max_abs_err": max(x["max_abs_err"] for x in scan),
                  "ms": c["ms"], "plain_ms": c["plain_ms"],
                  "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                  "library_ms": None})

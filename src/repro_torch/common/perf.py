@@ -6,7 +6,12 @@ registration to it, exactly as the JAX engine does, so both split a
 prompt at the same seams) and the MoE capacity-factor override. The JAX
 package's MoE dispatch and sharding-constraint knobs are TPU/GSPMD
 choices that compute the same function without a mesh; the port has one
-dispatch (``models/moe.py``).
+dispatch (``models/moe.py``). The SSM knobs ``ssm_scan_chunk`` and
+``ssm_scan_dtype`` tune the JAX reference's chunked associative scan
+(its chunk length and the dtype of the in-chunk elements); the port's
+selective scan is sequential everywhere, in fp32 (the Hopper kernel and
+its plain version, ``kernels/ssm_scan.py``), so there is nothing for
+them to choose.
 """
 from __future__ import annotations
 

@@ -4,9 +4,9 @@ The op names and call signatures are those of the JAX package's
 ``kernels/backend.py:OP_SURFACE``, so each later slice fills in the same
 names. There is no backend switch: every op dispatches by the device of
 its tensors. A CUDA tensor goes to the hand-written Hopper kernel, a CPU
-tensor to the kernel's plain PyTorch version. Ops whose kernels are not
-ported yet (the SSM and mLSTM scans) raise ``NotImplementedError`` naming
-their ROADMAP.md queue item; nothing falls back.
+tensor to the kernel's plain PyTorch version. The op whose kernel is not
+ported yet (the mLSTM scan) raises ``NotImplementedError`` naming its
+ROADMAP.md queue item; nothing falls back.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.kernels.flash_verify import flash_verify, \
     flash_verify_paged
 from repro_torch.kernels.moe_router import moe_router_topk
+from repro_torch.kernels.ssm_scan import ssm_scan
 
 #: ``op -> (positional arg names, keyword-only arg names)``, as in the
 #: JAX package.
@@ -43,7 +44,7 @@ OPS: Tuple[str, ...] = tuple(OP_SURFACE)
 
 #: every ported kernel wrapper; each counts its launches in ``.launches``
 KERNELS = (flash_prefill, flash_decode, flash_decode_paged, flash_verify,
-           flash_verify_paged, moe_router_topk)
+           flash_verify_paged, moe_router_topk, ssm_scan)
 
 
 def reset_launches() -> None:
@@ -92,7 +93,9 @@ def router_topk(logits, k):
 
 
 def selective_scan(dt, x, B_, C_, A, h0=None):
-    _not_ported("selective_scan", "B7 ssm_scan")
+    """dt, x: (B,S,di); B_, C_: (B,S,n); A: (di,n); h0: (B,di,n) or None
+    (zeros); fp32 -> (y (B,S,di) fp32, h_last (B,di,n) fp32)."""
+    return ssm_scan(dt, x, B_, C_, A, h0)
 
 
 def mlstm_scan(q, k, v, i_pre, f_pre, state=None, *, scale=0.0):

@@ -1,12 +1,13 @@
 """Plain PyTorch versions of the kernels (the allclose targets).
 
 Ports of the oracles of the JAX package's ``kernels/ref.py`` for the
-attention kernels (dense, decode, paged decode, verify, paged verify) and
-the MoE router: they materialise the full fp32 score matrix (or
-probability row) and are correctness references, not fast paths. On a
-CPU tensor the kernel wrappers run these; on the card they are what
-``chip_smoke.py`` holds the kernels against. The oracles of the unported
-kernels (the scans) come with those kernels.
+attention kernels (dense, decode, paged decode, verify, paged verify),
+the MoE router and the selective scan: they materialise the full fp32
+score matrix (or probability row, or step the scan one timestep at a
+time) and are correctness references, not fast paths. On a CPU tensor
+the kernel wrappers run these; on the card they are what
+``chip_smoke.py`` holds the kernels against. The mLSTM scan's oracle
+comes with its kernel.
 """
 from __future__ import annotations
 
@@ -159,3 +160,27 @@ def router_topk_ref(logits, k: int):
     w = top[:, :k]
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
     return w, idx[:, :k].to(torch.int32), probs
+
+
+def selective_scan_ref(dt, x, B_, C_, A, h0=None):
+    """Sequential selective-scan oracle, in fp32.
+
+    dt, x: (B,S,di); B_, C_: (B,S,n); A: (di,n); h0: optional initial
+    state (B,di,n), zeros when None. Step t: ``a = exp(dt_t A)``, ``h =
+    a h + (dt_t x_t) B_t``, ``y_t = sum_n h C_t``. Returns (y (B,S,di),
+    h_last (B,di,n)), both fp32. The sum over n is an elementwise
+    product and a sum (not a matmul), so no TF32 setting reaches it."""
+    Bsz, S, di = x.shape
+    n = A.shape[-1]
+    dt, x, B_, C_, A = (t.float() for t in (dt, x, B_, C_, A))
+    h = (torch.zeros((Bsz, di, n), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(S):
+        dt_t = dt[:, t]                                         # (B, di)
+        a = torch.exp(dt_t[..., None] * A)                      # (B,di,n)
+        h = a * h + (dt_t * x[:, t])[..., None] * B_[:, t, None, :]
+        ys.append((h * C_[:, t, None, :]).sum(-1))
+    y = (torch.stack(ys, dim=1) if ys else
+         torch.zeros((Bsz, 0, di), dtype=torch.float32, device=x.device))
+    return y, h

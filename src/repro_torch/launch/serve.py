@@ -6,13 +6,17 @@ requests, on the card unless ``--device cpu`` is given.
 
 The command line is the JAX launcher's (``repro.launch.serve``) plus
 ``--device``; ``--arch`` takes the port's ids (``configs.ALL_IDS``: the
-planner and the MoE families arctic-480b and kimi-k2-1t-a32b).
+planner, the MoE families arctic-480b and kimi-k2-1t-a32b, and the
+hybrid attention + SSM hymba-1.5b).
 ``--backend`` is gone: the device decides which attention runs (Hopper
 kernels on CUDA tensors, their plain versions on the CPU).
 ``--kv-mode paged`` (with ``--kv-blocks``, ``--block-size``) serves from
 the paged block pool; ``--spec-decode`` drafts ``--draft-k`` tokens per
 slot with a self-draft (the target's own weights: the repo ships no
-trained draft) and verifies them in one target forward. The cluster-only
+trained draft) and verifies them in one target forward. hymba's
+sliding-window rings and SSM state take none of these three: for it
+``--kv-mode paged``, ``--prefill-budget`` and ``--spec-decode`` fail
+with the engine's ``ValueError``, as in the JAX launcher. The cluster-only
 flags (``--router``, ``--profile``, ``--skew``, ``--turns``) come back
 with replicas; until then replicas, retrieval and SLA spill are refused
 as not ported yet. ``--checkpoint`` loads a JAX-package npz through the
@@ -144,6 +148,16 @@ def main(argv=None) -> dict:
     return serve(cfg, model, args)
 
 
+def request_prompts(cfg, n: int):
+    """The launcher's ``n`` request prompts, encoded into ``cfg``'s
+    vocabulary."""
+    tok = (TOKENIZER if cfg.vocab_size >= TOKENIZER.vocab_size
+           else Tokenizer(cfg.vocab_size))
+    return [tok.encode_with_specials(
+        f"Plot xview1 images around Tampa Bay with cloud cover below "
+        f"{10 + i}%") for i in range(n)]
+
+
 def serve(cfg, model, args) -> dict:
     """Serve ``args.requests`` requests with ``model`` (built for ``cfg``)
     under the engine settings of ``args``; returns the run's numbers."""
@@ -153,11 +167,7 @@ def serve(cfg, model, args) -> dict:
     # launcher
     spec = (SpecConfig(draft_cfg=cfg, draft_model=model, k=args.draft_k)
             if args.spec_decode else None)
-    tok = (TOKENIZER if cfg.vocab_size >= TOKENIZER.vocab_size
-           else Tokenizer(cfg.vocab_size))
-    prompts = [tok.encode_with_specials(
-        f"Plot xview1 images around Tampa Bay with cloud cover below "
-        f"{10 + i}%") for i in range(args.requests)]
+    prompts = request_prompts(cfg, args.requests)
     tracer = Tracer() if args.trace_out else None
     engine = InferenceEngine(cfg, model, max_batch=args.max_batch,
                              cache_len=args.cache_len,

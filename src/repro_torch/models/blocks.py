@@ -1,11 +1,13 @@
 """Per-layer blocks of the port.
 
-Port of the JAX package's ``models/blocks.py`` for the layer kinds of
-pure-attention stacks: ``"full"`` (full causal self-attention + SiLU-GLU
-MLP), ``"dense"`` (the same inside an MoE model, with a
-``top_k * d_expert`` wide MLP) and ``"moe"`` (full attention + the
-mixture-of-experts FFN of ``models/moe.py``), in the modes the serving
-engine runs:
+Port of the JAX package's ``models/blocks.py`` for the layer kinds
+``"full"`` (full causal self-attention + SiLU-GLU MLP), ``"dense"`` (the
+same inside an MoE model, with a ``top_k * d_expert`` wide MLP),
+``"moe"`` (full attention + the mixture-of-experts FFN of
+``models/moe.py``) and hymba's ``"hymba_g"`` / ``"hymba_w"`` (attention,
+global or over a sliding window, in parallel with the mamba layer of
+``models/ssm.py``: ``x + 0.5 (norm_a(attn) + norm_s(ssm))``, then the
+MLP), in the modes the serving engine runs:
 
   mode="prefill" full-sequence forward, returns a filled KV cache
   mode="extend"  multi-token continuation against a pre-filled B=1 cache
@@ -42,26 +44,42 @@ capacity (8) never drops a choice. The JAX package's verify routes all W
 rows as one group with capacity(W), which can drop choices once W > 8;
 at W <= 8 the two agree. Train mode raises ``NotImplementedError``
 naming the slice that brings it.
+
+A sliding-window layer (``"hymba_w"``) keeps a ring of
+``Sc = min(window, cache_len)`` rows: prefill attends over the window
+and packs the last Sc K/V rows in ring order (``_ring_from_prefill``),
+decode writes position p at row ``p % Sc`` and reads ``min(p+1, Sc)``
+rows. Extend and verify over a ring raise, as in the JAX package (the
+engine decodes through prompt tails instead). A hymba layer's cache also
+holds its SSM state ``{"ssm": {"h", "conv"}}``; each mode replaces it
+with the state ``ssm_forward`` returns (prefill starts from zeros).
+Paged pools exist only for the pure-attention kinds.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.common.config import ModelConfig
+from repro_torch.common.config import ModelConfig, WINDOW_KINDS
 from repro_torch.kernels import backend as KB
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 
 MODES = ("prefill", "extend", "decode", "verify")
-KINDS = ("full", "dense", "moe")
+#: kinds without recurrent state or rings: the only ones with paged pools,
+#: bucket-padded extends and speculative verify
+PURE_ATTENTION_KINDS = ("full", "dense", "moe")
+HYMBA_KINDS = ("hymba_g", "hymba_w")
+KINDS = PURE_ATTENTION_KINDS + HYMBA_KINDS
 
 
 class Block(nn.Module):
-    """One transformer layer of kind ``"full"``, ``"dense"`` or ``"moe"``
-    (the JAX package's ``block_init`` shapes)."""
+    """One layer of a kind in ``KINDS`` (the JAX package's ``block_init``
+    shapes)."""
 
     def __init__(self, kind: str, cfg: ModelConfig, gen, dtype, device):
         super().__init__()
@@ -76,22 +94,40 @@ class Block(nn.Module):
         self.norm2 = L.RMSNorm(d, cfg.norm_eps, dtype, device)
         if kind == "moe":
             self.moe = M.MoE(cfg, gen, dtype, device)
+        elif kind in HYMBA_KINDS:
+            self.ssm = S.SSM(cfg, gen, dtype, device)
+            self.norm_a = L.RMSNorm(d, cfg.norm_eps, dtype, device)
+            self.norm_s = L.RMSNorm(d, cfg.norm_eps, dtype, device)
+            self.mlp = L.MLP(d, cfg.d_ff, cfg.mlp_act, gen, dtype, device)
         else:
             dff = (cfg.moe.top_k * cfg.moe.d_expert
                    if kind == "dense" and cfg.moe is not None else cfg.d_ff)
             self.mlp = L.MLP(d, dff, cfg.mlp_act, gen, dtype, device)
 
 
-def block_cache_init(cfg: ModelConfig, batch: int, cache_len: int, device):
-    """Zero-initialised dense KV cache for one full-attention layer."""
-    shape = (batch, cfg.n_kv_heads, cache_len, cfg.d_head)
-    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+def block_cache_init(cfg: ModelConfig, batch: int, cache_len: int, device,
+                     kind: str = "full"):
+    """Zero-initialised dense cache for one layer of ``kind``: K/V of
+    ``cache_len`` rows, or ``min(window, cache_len)`` ring rows for a
+    sliding-window kind, plus the SSM state for a hymba kind."""
+    Sc = min(cfg.window, cache_len) if kind in WINDOW_KINDS else cache_len
+    shape = (batch, cfg.n_kv_heads, Sc, cfg.d_head)
+    c = {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+         "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+    if kind in HYMBA_KINDS:
+        c["ssm"] = S.ssm_init_state(cfg, batch, device)
+    return c
 
 
 def block_paged_cache_init(cfg: ModelConfig, n_blocks: int, block_size: int,
-                           device):
-    """Zero-initialised paged block pool for one full-attention layer."""
+                           device, kind: str = "full"):
+    """Zero-initialised paged block pool for one layer. Paged caching
+    covers the pure-attention kinds only: recurrent state and ring
+    buffers have no block-table layout."""
+    if kind not in PURE_ATTENTION_KINDS:
+        raise NotImplementedError(
+            f"paged KV cache over {kind!r} layers (pure-attention stacks "
+            f"only)")
     shape = (n_blocks, cfg.n_kv_heads, block_size, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
@@ -150,20 +186,38 @@ def _rope_qkv(p: Block, h, cfg: ModelConfig, positions, fixed=False):
     return q, k.to(torch.bfloat16), v.to(torch.bfloat16)
 
 
+def _ring_from_prefill(k, Sc: int):
+    """The last Sc rows of k (B,H,S,hd) in ring order (position p at row
+    p % Sc), zero-padded to Sc rows when S < Sc."""
+    S = k.shape[2]
+    if S <= Sc:
+        return F.pad(k, (0, 0, 0, Sc - S))
+    return torch.roll(k[:, :, -Sc:], S % Sc, dims=2)
+
+
 def _attn_sublayer(p: Block, x, cfg: ModelConfig, mode: str, cache, pos,
                    positions, block_tab, plan):
     """Attention sub-layer of prefill, extend and decode. Returns
     (y, cache)."""
     fixed = mode in ("prefill", "extend")
+    window = cfg.window if p.kind in WINDOW_KINDS else 0
+    if window and mode == "extend":
+        raise NotImplementedError(
+            "extend over sliding-window ring buffers; decode "
+            "token-by-token instead")
     q, k, v = _rope_qkv(p, x, cfg, positions, fixed)
 
     if mode == "prefill":
-        out = L.attention(q, k, v, causal=True, cap=cfg.attn_softcap,
-                          scale=cfg.attn_scale)
+        out = L.attention(q, k, v, causal=True, window=window,
+                          cap=cfg.attn_softcap, scale=cfg.attn_scale)
         Sc = cache["k"].shape[2]
-        n = min(k.shape[2], Sc)
-        cache["k"][:, :, :n] = k[:, :, :n]
-        cache["v"][:, :, :n] = v[:, :, :n]
+        if window:
+            cache["k"].copy_(_ring_from_prefill(k, Sc))
+            cache["v"].copy_(_ring_from_prefill(v, Sc))
+        else:
+            n = min(k.shape[2], Sc)
+            cache["k"][:, :, :n] = k[:, :, :n]
+            cache["v"][:, :, :n] = v[:, :, :n]
         return L.out_proj(p.attn, out, fixed), cache
 
     if mode == "extend":
@@ -195,16 +249,17 @@ def _attn_sublayer(p: Block, x, cfg: ModelConfig, mode: str, cache, pos,
             kv_len, cap=cfg.attn_softcap, scale=cfg.attn_scale)
         return L.out_proj(p.attn, out[:, :, None]), cache
 
-    # dense decode: write this token's K/V row at min(pos, Sc-1)
+    # dense decode: write this token's K/V row at min(pos, Sc-1), or at
+    # pos % Sc in a ring
     Sc = cache["k"].shape[2]
     if isinstance(pos, torch.Tensor) and pos.ndim == 1:
-        slot = torch.clamp(pos, max=Sc - 1).long()
+        slot = (pos % Sc if window else torch.clamp(pos, max=Sc - 1)).long()
         rows = torch.arange(x.shape[0], device=slot.device)
         cache["k"][rows, :, slot] = k[:, :, 0]
         cache["v"][rows, :, slot] = v[:, :, 0]
         kv_len = torch.clamp(pos + 1, max=Sc)
     else:
-        slot = min(int(pos), Sc - 1)
+        slot = int(pos) % Sc if window else min(int(pos), Sc - 1)
         cache["k"][:, :, slot] = k[:, :, 0]
         cache["v"][:, :, slot] = v[:, :, 0]
         kv_len = min(int(pos) + 1, Sc)
@@ -274,10 +329,24 @@ def block_apply(p: Block, x, cfg: ModelConfig, *, mode: str, cache,
     if mode not in MODES:
         raise _mode_not_ported(mode)
     if mode == "verify":
+        if p.kind in WINDOW_KINDS:
+            raise NotImplementedError(
+                "verify over sliding-window ring buffers")
+        if p.kind in HYMBA_KINDS:
+            raise NotImplementedError(
+                "verify over recurrent SSM state (it cannot be rolled "
+                "back by KV-length truncation)")
         return _verify_block(p, x, cfg, cache, pos, positions, block_tab,
                              plan)
+    fixed = mode in ("prefill", "extend")
     h = L.rmsnorm(p.norm1.scale, x, cfg.norm_eps)
     attn_y, cache = _attn_sublayer(p, h, cfg, mode, cache, pos, positions,
                                    block_tab, plan)
-    return _mlp_tail(p, x + attn_y, cfg,
-                     fixed=mode in ("prefill", "extend")), cache
+    if p.kind in HYMBA_KINDS:
+        ssm_y, cache["ssm"] = S.ssm_forward(
+            p.ssm, h, cfg, None if mode == "prefill" else cache["ssm"],
+            fixed)
+        y = 0.5 * (L.rmsnorm(p.norm_a.scale, attn_y, cfg.norm_eps)
+                   + L.rmsnorm(p.norm_s.scale, ssm_y, cfg.norm_eps))
+        return _mlp_tail(p, x + y, cfg, fixed), cache
+    return _mlp_tail(p, x + attn_y, cfg, fixed), cache

@@ -8,15 +8,19 @@ ui``. ``params_from_numpy`` takes that tree with numpy leaves (as
 the matching ``Model`` tensor, checking each shape. A leaf's path is its
 tensor's name with '/' for '.': ``attn/wq``, ``mlp/w_gate``, the MoE
 leaves ``moe/router``, ``moe/w_gate`` (E, d, dff), ``moe/w_up``,
-``moe/w_down``, ``moe/dense_residual/*`` and ``moe/shared_expert/*``, and
-at the top ``embed``, ``final_norm/scale`` and, untied, ``lm_head``. A
-tree that lacks a model tensor or holds a leaf the model lacks raises.
+``moe/w_down``, ``moe/dense_residual/*`` and ``moe/shared_expert/*``,
+hymba's ``ssm/*`` (``in_proj``, ``conv_w``, ``conv_b``, ``w_bc``,
+``w_dt``, ``dt_proj``, ``out_proj`` in bf16; ``dt_bias``, ``A_log``, ``D``
+in fp32), ``norm_a/scale`` and ``norm_s/scale``, and at the top
+``embed``, ``final_norm/scale`` and, untied, ``lm_head``. A tree that
+lacks a model tensor or holds a leaf the model lacks raises.
 
 bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
 ``torch.from_numpy`` refuses; they go through fp32, which holds every
 bf16 value exactly, and are cast back. ``load_jax_checkpoint`` reads the
 path-keyed npz that the JAX package's ``training/checkpoint.py`` writes
-(bf16 stored as fp32) with numpy alone.
+(bf16 stored as fp32) with numpy alone. fp32 leaves are copied as they
+are, bit for bit.
 """
 from __future__ import annotations
 

@@ -1,12 +1,15 @@
 """The served model: init / prefill / extend / decode / verify.
 
-Port of the JAX package's ``models/model.py`` for pure-attention stacks:
-the dense planner (``"full"`` layers, tied head) and the MoE families
-(``"moe"`` and ``"dense"`` layers, untied ``lm_head``). The JAX package
-scans stacked per-segment params; the port keeps one ``Block`` per layer
-and runs them in a Python loop.
+Port of the JAX package's ``models/model.py`` for the dense planner
+(``"full"`` layers, tied head), the MoE families (``"moe"`` and
+``"dense"`` layers, untied ``lm_head``) and the hybrid hymba
+(``"hymba_g"`` / ``"hymba_w"`` layers: attention in parallel with a
+mamba SSM). The JAX package scans stacked per-segment params; the port
+keeps one ``Block`` per layer and runs them in a Python loop.
 Caches are ``{"layers": [{"k", "v"}, ...], "pos": ...}`` with the JAX
-per-layer layout (B, Hkv, cache_len, hd) bf16; ``pos`` is a Python int
+per-layer layout (B, Hkv, cache_len, hd) bf16 (``min(window,
+cache_len)`` ring rows for a sliding-window layer; a hymba layer also
+holds ``"ssm": {"h", "conv"}``); ``pos`` is a Python int
 for a B=1 prefill/extend cache and a (B,) int tensor for the batched
 decode cache. A paged cache (``init_paged_cache``) holds per-layer block
 pools (n_blocks, Hkv, bs, hd) and a (B, cache_len // bs) int32
@@ -52,10 +55,10 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, gen, dtype, device):
         super().__init__()
         if cfg.n_enc_layers or cfg.final_softcap or cfg.emb_scale_by_sqrt_d \
-                or cfg.family not in ("dense", "moe"):
+                or cfg.family not in ("dense", "moe", "hybrid"):
             raise NotImplementedError(
-                f"{cfg.name}: only dense and MoE pure-attention stacks are "
-                f"ported (ROADMAP.md queue A12)")
+                f"{cfg.name}: only the dense, MoE and hybrid (hymba) "
+                f"stacks are ported (ROADMAP.md queue A12)")
         self.cfg = cfg
         self.embed = L.normal_param((cfg.vocab_size, cfg.d_model), 0.02, gen,
                               dtype, device)
@@ -93,8 +96,9 @@ def count_params(model: Model) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device) -> dict:
-    return {"layers": [block_cache_init(cfg, batch, cache_len, device)
-                       for _ in cfg.layer_kinds()],
+    """Zero dense cache, each layer sized by its kind; ``pos`` 0."""
+    return {"layers": [block_cache_init(cfg, batch, cache_len, device, kind)
+                       for kind in cfg.layer_kinds()],
             "pos": 0}
 
 
@@ -105,13 +109,14 @@ def init_paged_cache(cfg: ModelConfig, batch: int, cache_len: int,
     ``block_tab`` filled with the sentinel ``n_blocks``, and a (batch,)
     ``pos``. ``cache_len`` stays each slot's LOGICAL capacity; the
     physical budget is n_blocks * block_size rows, independent of batch
-    (serving/kvpool.py assigns the block ids)."""
+    (serving/kvpool.py assigns the block ids). Pure-attention stacks
+    only: a hymba layer raises ``NotImplementedError``."""
     if cache_len % block_size:
         raise ValueError(f"cache_len {cache_len} must be a multiple of "
                          f"block_size {block_size}")
     return {"layers": [block_paged_cache_init(cfg, n_blocks, block_size,
-                                              device)
-                       for _ in cfg.layer_kinds()],
+                                              device, kind)
+                       for kind in cfg.layer_kinds()],
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
             "block_tab": torch.full((batch, cache_len // block_size),
                                     n_blocks, dtype=torch.int32,

@@ -36,10 +36,20 @@ slot and verifies them in ONE target ``verify_extend`` forward, emitting
 1..K+1 tokens per slot, bitwise the tokens of non-speculative decoding
 (T=0 always; any temperature for seeded requests), in both kv modes.
 
+A stack with sliding-window rings or recurrent state (hymba) cannot
+extend a cache by several tokens at once (the JAX engine's
+``_can_extend``): its prefix tails and prefix-hit suffixes advance token
+by token through ``decode_step``, and ``prefill_budget``, paged KV and
+speculative decoding are refused. Bucket-padded extends (``_pad_extend``)
+need a pure-attention stack: recurrent state would step through the
+pads.
+
 The port updates caches in place where the JAX package returns new
 arrays: an admission copies its B=1 cache into its slot (dense) or its
-blocks (paged), and a prefix hit clones the registered prefix cache
-before extending it, so the prefix stays intact for the next hit.
+blocks (paged), every leaf of it, a hymba layer's SSM state included, so
+a recycled slot never sees its last tenant's state; a prefix hit clones
+the registered prefix cache before extending it, so the prefix stays
+intact for the next hit.
 Host-side state (per-slot positions, last tokens, the block table) lives
 in numpy; positions and the table go to the device once per step.
 """
@@ -52,8 +62,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.common.config import ModelConfig
+from repro_torch.common.config import WINDOW_KINDS, ModelConfig
 from repro_torch.common.perf import get_flags
+from repro_torch.models.blocks import PURE_ATTENTION_KINDS
 from repro_torch.models.model import Model, decode_step, init_cache, \
     init_paged_cache, prefill, prefill_extend, verify_extend
 from repro_torch.obs import NULL_TRACER, MetricsRegistry, StatsView
@@ -133,18 +144,43 @@ class PendingPrefill:
     j0: int = 0                          # paged: shared prefix blocks
 
 
+def extend_support(cfg: ModelConfig) -> Tuple[bool, bool]:
+    """(can_extend, pad_extend) of a stack, the JAX engine's rule: a
+    multi-token ``prefill_extend`` needs no ring buffers and no encoder;
+    a bucket-padded one also needs a pure-attention stack."""
+    kinds = set(cfg.layer_kinds())
+    can = (not kinds & set(WINDOW_KINDS) and "encdec" not in kinds
+           and not cfg.n_enc_layers)
+    return can, can and kinds <= set(PURE_ATTENTION_KINDS)
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
+
+
 def _clone_cache(cache: dict) -> dict:
-    return {"layers": [{k: t.clone() for k, t in c.items()}
-                       for c in cache["layers"]],
+    """A copy of a B=1 cache's layers (every leaf, nested SSM state
+    included) with the same ``pos``."""
+    return {"layers": [_clone_tree(c) for c in cache["layers"]],
             "pos": cache["pos"]}
+
+
+def _insert_tree(b: dict, s: dict, slot: int) -> None:
+    for key, leaf in b.items():
+        if isinstance(leaf, dict):
+            _insert_tree(leaf, s[key], slot)
+        else:
+            leaf[slot:slot + 1].copy_(s[key])
 
 
 def _insert_slot(batched: dict, single: dict, slot: int) -> None:
     """Copy a B=1 cache into slot ``slot`` of the batched cache, in place
-    (the JAX package's ``_insert_slot``)."""
+    (the JAX package's ``_insert_slot``): every leaf, K/V rows and any
+    nested state (a hymba layer's ``ssm.h`` and ``ssm.conv``)."""
     for b, s in zip(batched["layers"], single["layers"]):
-        for key, leaf in b.items():
-            leaf[slot:slot + 1].copy_(s[key])
+        _insert_tree(b, s, slot)
 
 
 def _paged_scatter(paged: dict, layers, blocks: List[int],
@@ -170,12 +206,19 @@ def _paged_scatter(paged: dict, layers, blocks: List[int],
 
 def advance_cache_through(model: Model, logits, cache, tokens, *,
                           cache_len: int):
-    """Advance a B=1 cache through new tokens with ``prefill_extend``:
-    whole ``attn_chunk`` slabs, then one bucket-padded call for the rest
-    (pad width capped at the cache end). Returns (last-token logits
+    """Advance a B=1 cache through new tokens. With ``prefill_extend``
+    where the stack supports it (``extend_support``): whole
+    ``attn_chunk`` slabs, then one call for the rest, bucket-padded on a
+    pure-attention stack (pad width capped at the cache end); otherwise
+    token by token through ``decode_step``. Returns (last-token logits
     (1,V), the extended cache)."""
     toks = list(tokens)
     if not toks:
+        return logits, cache
+    can_extend, pad_extend = extend_support(model.cfg)
+    if not can_extend:
+        for t in toks:
+            logits, cache = decode_step(model, cache, {"tokens": [[t]]})
         return logits, cache
     align = get_flags().attn_chunk
     i = 0
@@ -187,7 +230,7 @@ def advance_cache_through(model: Model, logits, cache, tokens, *,
     if rest:
         n = len(rest)
         room = cache_len - int(cache["pos"])
-        if n < room:
+        if pad_extend and n < room:
             width = min(1 << (n - 1).bit_length(), room)
             rest = rest + [0] * (width - n)
         logits, cache = prefill_extend(model, cache, {"tokens": [rest]}, n)
@@ -195,9 +238,10 @@ def advance_cache_through(model: Model, logits, cache, tokens, *,
 
 
 def _kv_cache_bytes(cache: dict) -> int:
-    """Bytes of the K/V leaves of every layer (dense slabs or pools)."""
-    return sum(t.numel() * t.element_size()
-               for c in cache["layers"] for t in c.values())
+    """Bytes of the K/V leaves of every layer (dense slabs, rings or
+    pools; SSM state is not KV), as the JAX engine counts them."""
+    return sum(c[key].numel() * c[key].element_size()
+               for c in cache["layers"] for key in ("k", "v") if key in c)
 
 
 class InferenceEngine:
@@ -221,6 +265,17 @@ class InferenceEngine:
         if prefill_budget is not None and prefill_budget < 1:
             raise ValueError(f"prefill_budget must be >= 1 token per "
                              f"step, got {prefill_budget}")
+        kinds = set(cfg.layer_kinds())
+        if kv_mode == "paged" and not kinds <= set(PURE_ATTENTION_KINDS):
+            raise ValueError(
+                f"kv_mode='paged' needs a pure-attention stack "
+                f"(full/dense/moe), got kinds {sorted(kinds)}")
+        if prefill_budget is not None and not extend_support(cfg)[0]:
+            raise ValueError(
+                "prefill_budget (chunked prefill) needs a stack that "
+                "supports multi-token prefill_extend — no "
+                "windowed/recurrent kinds and no encoder; got kinds "
+                f"{sorted(kinds)}")
         self.cfg = cfg
         self.model = model
         self.device = model.device

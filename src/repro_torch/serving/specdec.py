@@ -39,9 +39,10 @@ import torch
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.perf import get_flags
+from repro_torch.models.blocks import PURE_ATTENTION_KINDS
 from repro_torch.models.model import Model, decode_step, init_cache, prefill
 
-_SPEC_KINDS = {"full", "dense", "moe"}
+_SPEC_KINDS = set(PURE_ATTENTION_KINDS)
 
 
 @dataclass(frozen=True)

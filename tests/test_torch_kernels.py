@@ -125,10 +125,21 @@ def _small_paged():
     ("verify_attention", None),             # ported
     ("paged_verify_attention", None),       # ported
     ("router_topk", (None, 2)),             # ported: runs on the CPU
-    ("selective_scan", (None,) * 5),
+    ("selective_scan", None),               # ported: runs on the CPU
     ("mlstm_scan", (None,) * 5),
 ])
 def test_unported_ops_raise_naming_their_queue_item(op, args):
+    if op == "selective_scan":
+        g = torch.Generator().manual_seed(0)
+        dt = torch.rand(1, 5, 16, generator=g) * 0.1
+        y, h = KB.selective_scan(dt, torch.randn(1, 5, 16, generator=g),
+                                 torch.randn(1, 5, 8, generator=g),
+                                 torch.randn(1, 5, 8, generator=g),
+                                 -torch.rand(16, 8, generator=g), None)
+        assert tuple(y.shape) == (1, 5, 16) and tuple(h.shape) == (1, 16, 8)
+        assert y.dtype == h.dtype == torch.float32
+        assert bool(torch.isfinite(y).all())
+        return
     if op == "router_topk":
         w, idx = KB.router_topk(torch.randn(6, 16) * 3, args[1])
         assert tuple(w.shape) == tuple(idx.shape) == (6, 2)
@@ -162,9 +173,13 @@ def test_cpu_wrappers_do_not_count_launches():
     KB.verify_attention(q, k, v, 8)
     KB.paged_verify_attention(qp, pages, pages, tab, 20)
     KB.router_topk(torch.randn(4, 8), 2)
+    KB.selective_scan(torch.rand(1, 3, 8), torch.randn(1, 3, 8),
+                      torch.randn(1, 3, 8), torch.randn(1, 3, 8),
+                      -torch.rand(8, 8), None)
     assert KB.launch_counts() == {
         "flash_prefill": 0, "flash_decode": 0, "flash_decode_paged": 0,
-        "flash_verify": 0, "flash_verify_paged": 0, "moe_router_topk": 0}
+        "flash_verify": 0, "flash_verify_paged": 0, "moe_router_topk": 0,
+        "ssm_scan": 0}
 
 
 def test_wrappers_refuse_other_devices():
