@@ -2,7 +2,7 @@
 
   python3 chip_smoke.py [--kernels-only]
 
-Builds the port's seven Hopper kernels from ``src/repro_torch/csrc/``,
+Builds the port's eight Hopper kernels from ``src/repro_torch/csrc/``,
 holds each against its plain PyTorch version on the card: the attention
 kernels at the served planner's shapes (head dim 64) and at head dims
 128 and 32 with the MoE families' heads (kimi-k2's 64/8 and arctic's
@@ -37,16 +37,29 @@ misses (admission logits within HIT_MISS_TOL, tokens that agree
 printed); ~1,000-token prompts whose decode crosses every ring's wrap
 (decode logits against a windowed prefill within HIT_MISS_TOL); the
 refusals of paged KV, chunked prefill and speculative decoding; a
-profile of its decode step; card vs CPU on hymba-smoke. It prints
-one JSON line per phase. It fails (non-zero exit, no result line) when
+profile of its decode step; card vs CPU on hymba-smoke. Then
+xlstm-125m at full width and full depth (12 layers: three units of
+three mLSTM layers, heads of 192, and one sLSTM layer): the mLSTM scan
+kernel against its plain version at xlstm's prefill and decode shapes,
+at head dims 32, 64 and 128, and on the full-width model's own scan
+inputs of a 1,024-token prefill, with its contracts (a scan split at
+any seam, or run one step per launch, gives the bits of one scan; every
+column tile steps the same n and m); two dense serve runs and a
+``--prefill-budget 1024`` run that must serve the same tokens, the
+recycled slots' requests against a fresh engine; budgeted prefill and 8
+prefix hits on a 1,300-token prefix against monolithic prefill
+(admission logits and tokens bitwise); the refusals of paged KV and
+speculative decoding; a profile of its decode step; card vs CPU on
+xlstm-smoke. It prints one JSON line per phase. It fails (non-zero exit, no result line) when
 no card is present, when it does not run from a checkout of the
 repository, or when any phase fails. ``--kernels-only`` stops after the
 kernel cases (a quick check of a kernel change; it prints no result
 line). Detail goes to ``chiprun_out/chip_smoke.json``, nvcc's
-register/shared-memory report to ``chip_smoke_build.log`` and profiler
-traces of full-width decode steps to ``decode_trace.json`` (planner)
-, ``moe_decode_trace.json`` (kimi-k2) and ``hymba_decode_trace.json``
-(open them in Perfetto).
+register/shared-memory report to ``chip_smoke_build.log`` and gzipped
+profiler traces of full-width decode steps to ``decode_trace.json.gz``
+(planner), ``moe_decode_trace.json.gz`` (kimi-k2),
+``hymba_decode_trace.json.gz`` and ``xlstm_decode_trace.json.gz`` (open
+them in Perfetto).
 
 Tolerances:
   * kernel vs plain version (both bf16 out, fp32 inside, different
@@ -75,7 +88,21 @@ Tolerances:
     layers leave the 32,001 logits (magnitude up to ~3.4) 2.7-3.4% RMS
     apart, and their largest difference, the tail of 32,001 entries, at
     0.09-0.12. A ring row or a conv state out of place moves the smoke
-    config's logits by 19-31% and 78-106% RMS.
+    config's logits by 19-31% and 78-106% RMS;
+  * mlstm_scan vs plain version (fp32 both; C and n take the plain
+    version's separate roundings, so they differ only through expf and
+    log1pf of the gates; the output divides two reductions over d, each
+    summed in another order, by max(|n.q|, exp(-m)), a cancelled dot):
+    every output within MLSTM_TOL = 1e-4 of its conditioning scale,
+    ``(sum_d |C q| + |h| sum_d |n q|) / den`` (a reordered fp32 sum of
+    hd terms errs by at most ~hd 2**-24 = 1.1e-5 of its absolute terms
+    at hd = 192, and the gates' rounding adds a few ulps a step to the
+    carried state), every state leaf within 1e-4 (1 + |x|); within the
+    kernel (seams, one-step launches, the column tiles' n and m):
+    bitwise;
+  * xlstm budgeted vs monolithic and prefix hit vs miss: bitwise (the
+    sequential recurrence, the kernel's seams and the fixed-size row
+    products give a row the same bits at any chunking).
 """
 from __future__ import annotations
 
@@ -516,6 +543,198 @@ def hymba_attention_cases(gen):
     return out
 
 
+# ------------------------------------------- xlstm slice: kernel cases ----
+
+XLSTM = "xlstm-125m"
+# the mLSTM scan's (B, H, S, hd): xlstm-125m's prefill of a 1,024-token
+# head and of a ragged 1,300-token prompt, its decode over 8 slots,
+# xlstm-smoke, and the two other head dims the kernel is built for
+MLSTM_CASES = [(1, 4, 1024, 192), (1, 4, 1300, 192), (8, 4, 1, 192),
+               (1, 4, 40, 32), (1, 4, 256, 64), (1, 4, 256, 128)]
+MLSTM_TOL = 1e-4
+
+
+def _mlstm_inputs(gen, B, H, S, hd, random_state=True):
+    """q, k, v, i ~ N(0,1) and f ~ N(3,1) (the forget-gate bias of +3);
+    the state C, n, m ~ N(0,1), or fresh (zeros, zeros, -1e30)."""
+    from repro_torch.kernels.ref import mlstm_zero_state
+    r = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    st = ((r(B, H, hd, hd), r(B, H, hd), r(B, H)) if random_state
+          else mlstm_zero_state(B, H, hd, "cuda"))
+    return [r(B, H, S, hd), r(B, H, S, hd), r(B, H, S, hd), r(B, H, S),
+            r(B, H, S) + 3.0], st
+
+
+@torch.no_grad()
+def mlstm_conditioning(q, k, v, i_pre, f_pre, state):
+    """What bounds the rounding of each output of the mLSTM scan: the
+    plain recurrence stepped again (fp32, scale 1/sqrt(hd)), giving per
+    (b, h, t, e) ``(sum_d |C[d,e] q_d| + |h_e| sum_d |n_d q_d|) / den``,
+    the sums of absolute terms of the two reductions over d (a reordered
+    fp32 sum errs by a few ulps of these) divided by the cancelled
+    denominator; and the smallest ``den / (|n| |q|)`` seen (1 or more
+    where exp(-m) wins over |n . q|)."""
+    import torch.nn.functional as F
+    B, H, S, hd = q.shape
+    C, n, m = (t.clone() for t in state)
+    ks = k / hd ** 0.5
+    scales, ratios = [], []
+    for t in range(S):
+        q_t, i_t = q[:, :, t], i_pre[:, :, t]
+        logf = F.logsigmoid(f_pre[:, :, t])
+        m_new = torch.maximum(logf + m, i_t)
+        fw = torch.exp(logf + m - m_new)[..., None]
+        iw = torch.exp(i_t - m_new)[..., None]
+        C = C * fw[..., None] + iw[..., None] * (ks[:, :, t, :, None]
+                                                 * v[:, :, t, None, :])
+        n = n * fw + iw * ks[:, :, t]
+        den = torch.maximum((n * q_t).sum(-1).abs(), torch.exp(-m_new))
+        num_abs = (C.abs() * q_t.abs()[..., None]).sum(-2)
+        h_abs = (C * q_t[..., None]).sum(-2).abs() / den[..., None]
+        nq_abs = (n.abs() * q_t.abs()).sum(-1)
+        scales.append((num_abs + h_abs * nq_abs[..., None])
+                      / den[..., None])
+        ratios.append((den / (n.norm(dim=-1) * q_t.norm(dim=-1))).min())
+        m = m_new
+    return torch.stack(scales, dim=2), float(torch.stack(ratios).min())
+
+
+def mlstm_err(out, ref, state, ref_state, scale):
+    """Kernel vs plain: every output within MLSTM_TOL of its
+    conditioning scale (``mlstm_conditioning``), every state leaf within
+    MLSTM_TOL (1 + |x|). Returns (max |diff| of h, its largest ratio to
+    the scale, max |diff| of the state)."""
+    check(bool(torch.isfinite(out).all()), "non-finite mlstm_scan out")
+    diff = (out - ref).abs()
+    over = diff / scale.clamp(min=1e-30)
+    check(float(over.max()) <= MLSTM_TOL,
+          f"mlstm_scan disagrees with its plain version: max err "
+          f"{float(diff.max())}, {float(over.max())} of its scale")
+    st_err = 0.0
+    for name, a, b in zip("Cnm", state, ref_state):
+        d = (a - b).abs()
+        check(bool((d <= MLSTM_TOL * (1 + b.abs())).all()),
+              f"mlstm_scan state {name} differs by {float(d.max())}")
+        st_err = max(st_err, float(d.max()))
+    return float(diff.max()), float(over.max()), st_err
+
+
+def mlstm_cases(gen, build_log: str):
+    """mlstm_scan against its plain version at MLSTM_CASES (prefill
+    shapes from a fresh and from a random state) with the
+    conditioning-scaled tolerance, its time, bound (every input read
+    once, every output written once; the function's 5 hd^2 + 7 hd + 10
+    fp32 operations per (b, h, t): C fw + (iw ks) v^T is a multiply and a
+    multiply-add per element of C, the readout C^T q a multiply-add; ks,
+    iw ks, the n update, n . q and the division are O(hd)) and registers;
+    then its contracts, bitwise: the 1,300-step scan split at 1,024 and
+    at 1, 16 one-step launches against one 16-step launch over 8 slots,
+    and every column tile's own n and m equal to the n and m written
+    out."""
+    from repro_torch.kernels.mlstm_scan import mlstm_scan, \
+        mlstm_scan_tile_states
+    from repro_torch.kernels.ref import mlstm_scan_ref
+    cases = []
+    for B, H, S, hd in MLSTM_CASES:
+        for random_state in ((False, True) if S > 1 else (True,)):
+            args, st = _mlstm_inputs(gen, B, H, S, hd, random_state)
+            h, s = mlstm_scan(*args, st)
+            rh, rs = mlstm_scan_ref(*args, st)
+            torch.cuda.synchronize()
+            scale, ratio = mlstm_conditioning(*args, st)
+            err, over, st_err = mlstm_err(h, rh, s, rs, scale)
+            nbytes = 4 * (4 * B * H * S * hd + 2 * B * H * S
+                          + 2 * B * H * (hd * hd + hd + 1))
+            b_ms, b_by = bound(nbytes, B * H * S * (5 * hd * hd + 7 * hd
+                                                    + 10), FP32_FLOP_S)
+            cases.append(dict(
+                B=B, H=H, S=S, hd=hd,
+                state="random" if random_state else "fresh",
+                max_abs_err=err, err_over_scale=over, state_err=st_err,
+                min_den_over_nq=ratio, h_absmax=float(rh.abs().max()),
+                ms=cuda_ms(lambda: mlstm_scan(*args, st)),
+                plain_ms=cuda_ms(lambda: mlstm_scan_ref(*args, st),
+                                 iters=2, warmup=1),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                registers=_ptxas_registers(build_log, "mlstm_scan")))
+    part = lambda a, lo, hi: a[:, :, lo:hi].contiguous()
+    same = lambda x, y: all(torch.equal(a, b) for a, b in zip(x, y))
+    args, st = _mlstm_inputs(gen, 1, 4, 1300, 192)
+    h, s = mlstm_scan(*args, st)
+    for cut in (1024, 1):
+        h1, s1 = mlstm_scan(*(part(a, 0, cut) for a in args), st)
+        h2, s2 = mlstm_scan(*(part(a, cut, 1300) for a in args), s1)
+        check(torch.equal(torch.cat([h1, h2], 2), h) and same(s2, s),
+              f"mlstm_scan split at {cut} differs from one scan")
+    tiles = []
+    (h2, s2), (nt, mt) = mlstm_scan_tile_states(*args, st)
+    tiles.append((h2, s2, nt, mt, h, s))
+    args, st = _mlstm_inputs(gen, 8, 4, 16, 192)
+    h, s = mlstm_scan(*args, st)
+    hs, cur = [], st
+    for t in range(16):
+        ht, cur = mlstm_scan(*(part(a, t, t + 1) for a in args), cur)
+        hs.append(ht)
+    check(torch.equal(torch.cat(hs, 2), h) and same(cur, s),
+          "16 one-step mlstm_scan launches differ from one 16-step launch")
+    (h2, s2), (nt, mt) = mlstm_scan_tile_states(*args, st)
+    tiles.append((h2, s2, nt, mt, h, s))
+    for h2, s2, nt, mt, h, s in tiles:
+        check(torch.equal(h2, h) and same(s2, s)
+              and all(torch.equal(nt[:, :, j], s[1])
+                      and torch.equal(mt[:, :, j], s[2])
+                      for j in range(nt.shape[2])),
+              "mlstm_scan: the column tiles' n and m differ")
+    return cases, dict(split_at=[1024, 1], one_step_launches=16,
+                       tiles=int(nt.shape[2]), tiles_n_m_equal=True,
+                       bitwise=True)
+
+
+def mlstm_model_cases():
+    """mlstm_scan against its plain version on xlstm-125m's own inputs:
+    the q, k, v, i and f that each of the 9 mLSTM layers of the
+    full-width model (seed-0 weights) gives the scan in a 1,024-token
+    prefill, with the conditioning-scaled tolerance."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import backend as KB
+    from repro_torch.kernels.mlstm_scan import mlstm_scan
+    from repro_torch.kernels.ref import mlstm_scan_ref
+    from repro_torch.models.model import init_params, prefill
+    cfg = get_config(XLSTM)
+    model = init_params(cfg, seed=0, device="cuda")
+    tokens = np.random.default_rng(11).integers(6, cfg.vocab_size,
+                                                (1, 1024))
+    rec, orig = [], KB.mlstm_scan
+
+    def record(q, k, v, i_pre, f_pre, state=None, *, scale=0.0):
+        rec.append((q, k, v, i_pre, f_pre, state))
+        return orig(q, k, v, i_pre, f_pre, state, scale=scale)
+    KB.mlstm_scan = record
+    try:
+        prefill(model, {"tokens": tokens}, 2048)
+    finally:
+        KB.mlstm_scan = orig
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(len(rec) == 9, f"recorded {len(rec)} mLSTM scans, not 9")
+    errs, overs, st_errs, ratios, absmax = [], [], [], [], []
+    for q, k, v, i_pre, f_pre, st in rec:
+        h, s = mlstm_scan(q, k, v, i_pre, f_pre, st)
+        rh, rs = mlstm_scan_ref(q, k, v, i_pre, f_pre, st)
+        scale, ratio = mlstm_conditioning(q, k, v, i_pre, f_pre, st)
+        err, over, st_err = mlstm_err(h, rh, s, rs, scale)
+        errs.append(err)
+        overs.append(over)
+        st_errs.append(st_err)
+        ratios.append(ratio)
+        absmax.append(float(rh.abs().max()))
+    return dict(layers=len(rec), S=1024, max_abs_err=errs,
+                err_over_scale=overs, state_err=st_errs,
+                min_den_over_nq=ratios, h_absmax=absmax, tol=MLSTM_TOL)
+
+
 # ------------------------------------ serving: the planner and MoE stacks ----
 
 PAGED = ["--kv-mode", "paged"]
@@ -652,8 +871,17 @@ def _profiled(eng, steps: int, trace: str):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     if trace:
+        # gzipped (Perfetto opens .json.gz): as plain JSON the four
+        # decode traces take ~70 MB, gzipped ~5 MB
+        import gzip
+        import os
         OUT_DIR.mkdir(exist_ok=True)
-        prof.export_chrome_trace(str(OUT_DIR / trace))
+        raw = OUT_DIR / f"{trace}.tmp"
+        prof.export_chrome_trace(str(raw))
+        with open(raw, "rb") as src, \
+                gzip.open(OUT_DIR / f"{trace}.gz", "wb") as dst:
+            dst.write(src.read())
+        os.remove(raw)
     ev = prof.key_averages()
     dev = [e for e in ev if "CUDA" in str(e.device_type)]
     dev_t = lambda e: getattr(e, "self_device_time_total",
@@ -703,8 +931,10 @@ def profile_decode(cfg, model, steps: int, trace: str):
             dev_t(e) for e in dev if "moe_router" in e.key) / 1e3 / steps
         res["expert_bmm_ms_per_step"] = sum(
             tot_t(e) for e in ev if e.key == "aten::bmm") / 1e3 / steps
-    if cfg.family == "hybrid":
-        for name in ("ssm_scan", "flash_decode"):
+    if cfg.family in ("hybrid", "ssm"):
+        names = (("ssm_scan", "flash_decode") if cfg.family == "hybrid"
+                 else ("mlstm_scan",))
+        for name in names:
             t = sum(dev_t(e) for e in dev if f"{name}_kernel" in e.key)
             res[f"{name}_ms_per_step"] = t / 1e3 / steps
             res[f"{name}_share_of_busy"] = t / max(busy_us, 1e-9)
@@ -936,7 +1166,7 @@ def _t0():
     return SamplerConfig(temperature=0.0)
 
 
-def hymba_recycled(cfg, model, outputs):
+def recycled_slots(cfg, model, outputs):
     """The 16-request serve's last wave (requests 8-15, served in slots
     that served requests 0-7 first) against a fresh engine serving those
     8 prompts alone: equal tokens (decode runs at B = max_batch either
@@ -949,15 +1179,15 @@ def hymba_recycled(cfg, model, outputs):
             for p in request_prompts(cfg, 16)[8:]]
     done = {r.request_id: r.output for r in eng.run_until_done()}
     same = [done[r] == outputs[8 + i] for i, r in enumerate(rids)]
-    check(all(same), f"hymba: recycled slots' tokens differ from a fresh "
-                     f"engine's ({same})")
+    check(all(same), f"{cfg.name}: recycled slots' tokens differ from a "
+                     f"fresh engine's ({same})")
     return dict(requests=len(rids), tokens_equal_fresh=True)
 
 
-def _recording_engine(cfg, model, rec: dict):
+def _recording_engine(cfg, model, rec: dict, **kw):
     """An engine that records each request's admission logits."""
     from repro_torch.serving.engine import InferenceEngine
-    eng = InferenceEngine(cfg, model, max_batch=8, cache_len=2048)
+    eng = InferenceEngine(cfg, model, max_batch=8, cache_len=2048, **kw)
     first = eng._first_token
 
     def record(req, logits):
@@ -1067,22 +1297,25 @@ def hymba_long(cfg, model):
                 finish=sorted({r.finish_reason for r in done.values()}))
 
 
-def hymba_refusals(cfg, model):
-    """Paged KV, chunked prefill and speculative decoding raise on
-    hymba (recurrent state and rings: JAX's reasons)."""
+def refusals(cfg, model, names=("paged", "prefill_budget", "spec")):
+    """The engine modes ``names`` raise on ``cfg``'s stack: paged KV,
+    chunked prefill and speculative decoding on hymba (recurrent state
+    and rings), paged KV and speculative decoding on xlstm (recurrent
+    state): JAX's reasons."""
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.serving.specdec import SpecConfig
+    modes = {"paged": lambda: dict(kv_mode="paged"),
+             "prefill_budget": lambda: dict(prefill_budget=1024),
+             "spec": lambda: dict(spec_decode=SpecConfig(cfg, model, k=4))}
     out = {}
-    for name, kw in (("paged", dict(kv_mode="paged")),
-                     ("prefill_budget", dict(prefill_budget=1024)),
-                     ("spec", dict(spec_decode=SpecConfig(cfg, model,
-                                                          k=4)))):
+    for name in names:
         try:
-            InferenceEngine(cfg, model, max_batch=8, cache_len=2048, **kw)
+            InferenceEngine(cfg, model, max_batch=8, cache_len=2048,
+                            **modes[name]())
         except ValueError as e:
             out[name] = str(e)[:100]
         else:
-            check(False, f"hymba: {name} was not refused")
+            check(False, f"{cfg.name}: {name} was not refused")
     return out
 
 
@@ -1110,10 +1343,10 @@ def hymba_phases():
     runs, outputs = serve_runs(HYMBA, cfg, model, HYMBA_MODES)
     for name, r in runs.items():
         emit(f"hymba_serve_{name}", **r)
-    emit("hymba_recycled", **hymba_recycled(cfg, model, outputs))
+    emit("hymba_recycled", **recycled_slots(cfg, model, outputs))
     emit("hymba_hit_miss", **hymba_hit_miss(cfg, model))
     emit("hymba_long", **hymba_long(cfg, model))
-    emit("hymba_refusals", **hymba_refusals(cfg, model))
+    emit("hymba_refusals", **refusals(cfg, model))
     emit("hymba_decode_profile", **profile_decode(
         cfg, model, 5, "hymba_decode_trace.json"))
     emit("hymba_memory",
@@ -1122,6 +1355,107 @@ def hymba_phases():
     gc.collect()
     torch.cuda.empty_cache()
     emit(f"card_vs_cpu_{HYMBA}", **card_vs_cpu(get_smoke_config(HYMBA)))
+    return runs
+
+
+# ------------------------------------------ xlstm-125m at full width ----
+
+XLSTM_MODES = [("dense", [], 64, ("mlstm_scan",)),
+               ("budget_1024", ["--prefill-budget", "1024"], 64,
+                ("mlstm_scan",)),
+               ("dense_again", [], 64, ("mlstm_scan",))]
+
+
+def xlstm_equalities(cfg, model, prefix_len=1300, n=8, max_new=16):
+    """8 prompts of a 1,300-token prefix plus 8-36 tokens, served with
+    monolithic prefill (one prefill each), under ``prefill_budget=1024``
+    (a 1,024-token head prefill, then the unpadded 284-312-token rest
+    extended) and as prefix hits (the 1,024-token head prefilled, the
+    276-token tail extended once, each suffix extended from a copy):
+    admission logits and tokens bitwise those of the monolithic run.
+    Returns each run's seconds, launches and prefix hits, and the prefix
+    registration's seconds."""
+    from repro_torch.kernels import backend as KB
+    rng = np.random.default_rng(7)
+    prefix = [2] + rng.integers(6, cfg.vocab_size, prefix_len - 1).tolist()
+    prompts = [prefix + rng.integers(6, cfg.vocab_size, 8 + 4 * i).tolist()
+               for i in range(n)]
+    res, logits, toks = {}, {}, {}
+    for name, kw in (("monolithic", {}),
+                     ("budget_1024", dict(prefill_budget=1024)),
+                     ("prefix_hit", {})):
+        rec: dict = {}
+        eng = _recording_engine(cfg, model, rec, **kw)
+        KB.reset_launches()
+        t0 = time.time()
+        hit = name == "prefix_hit"
+        if hit:
+            eng.register_prefix("p", prefix)
+            torch.cuda.synchronize()
+            res["register_prefix_seconds"] = time.time() - t0
+        rids = [eng.add_request(p, max_new_tokens=max_new, sampler=_t0(),
+                                prefix_key="p" if hit else None)
+                for p in prompts]
+        done = {r.request_id: r.output for r in eng.run_until_done()}
+        torch.cuda.synchronize()
+        logits[name] = [rec[r] for r in rids]
+        toks[name] = [done[r] for r in rids]
+        st = eng.throughput_stats()
+        res[name] = dict(seconds=time.time() - t0,
+                         launches=KB.launch_counts(),
+                         prefix_hits=st["prefix_hits"],
+                         prefill_chunks=st["prefill_chunks"])
+    check(res["prefix_hit"]["prefix_hits"] == n,
+          f"xlstm: {res['prefix_hit']['prefix_hits']} prefix hits of {n}")
+    for name in ("budget_1024", "prefix_hit"):
+        diffs = [float((a - b).abs().max())
+                 for a, b in zip(logits[name], logits["monolithic"])]
+        bitwise = all(torch.equal(a, b) for a, b in
+                      zip(logits[name], logits["monolithic"]))
+        res[name].update(admission_logits_bitwise=bitwise,
+                         admission_logit_diff=max(diffs),
+                         tokens_equal=toks[name] == toks["monolithic"])
+        check(bitwise and toks[name] == toks["monolithic"],
+              f"xlstm {name}: admission logits (max diff {max(diffs)}) "
+              f"or tokens differ from monolithic prefill")
+    res["tokens"] = n * max_new
+    return res
+
+
+def xlstm_phases():
+    """xlstm-125m at full width and full depth: init, three serve runs
+    (dense, budgeted, dense again: equal tokens), recycled slots, the
+    budgeted and prefix-hit equalities on 1,300-token prompts, the
+    refusals, a decode profile; then card vs CPU on xlstm-smoke. Returns
+    the serve runs."""
+    import gc
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models.model import count_params, init_params
+    cfg = get_config(XLSTM)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    model = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    emit("xlstm_init", layers=list(cfg.layer_kinds()), d_model=cfg.d_model,
+         heads=cfg.n_heads,
+         mlstm_head_dim=model.layers[0].mlstm.wq.shape[0] // cfg.n_heads,
+         vocab=cfg.vocab_size, params=count_params(model),
+         init_seconds=time.time() - t0,
+         weights_gb=torch.cuda.memory_allocated() / 1e9)
+    runs, outputs = serve_runs(XLSTM, cfg, model, XLSTM_MODES)
+    for name, r in runs.items():
+        emit(f"xlstm_serve_{name}", **r)
+    emit("xlstm_recycled", **recycled_slots(cfg, model, outputs))
+    emit("xlstm_equalities", **xlstm_equalities(cfg, model))
+    emit("xlstm_refusals", **refusals(cfg, model, ("paged", "spec")))
+    emit("xlstm_decode_profile", **profile_decode(
+        cfg, model, 5, "xlstm_decode_trace.json"))
+    emit("xlstm_memory",
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(f"card_vs_cpu_{XLSTM}", **card_vs_cpu(get_smoke_config(XLSTM)))
     return runs
 
 
@@ -1142,6 +1476,7 @@ def main(argv=None) -> int:
         flash_verify_paged
     from repro_torch.kernels.moe_router import moe_router_topk
     from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.kernels.mlstm_scan import mlstm_scan
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1189,6 +1524,12 @@ def main(argv=None) -> int:
     for phase, c in hymba_attn:
         emit(phase, **c)
     hd_cases += hymba_attn
+    mlstm, mlstm_seams = mlstm_cases(gen, build_log)
+    for c in mlstm:
+        emit("kernel_mlstm_scan", **c)
+    emit("kernel_mlstm_scan_seams", **mlstm_seams)
+    mlstm_model = mlstm_model_cases()
+    emit("kernel_mlstm_scan_model_inputs", **mlstm_model)
     if args.kernels_only:
         (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
             RESULTS, indent=1, default=str))
@@ -1197,6 +1538,7 @@ def main(argv=None) -> int:
     runs = planner_phases()
     moe = moe_phases()
     hymba = hymba_phases()
+    xlstm = xlstm_phases()
 
     # each kernel's launches come from the run of the path it serves;
     # its times from its case at the main path's widest shape (the
@@ -1248,6 +1590,21 @@ def main(argv=None) -> int:
                  "replaces": "src/repro/kernels/ssm_scan.py:52",
                  "launches": hymba["dense"]["launches"]["ssm_scan"],
                  "max_abs_err": max(x["max_abs_err"] for x in scan),
+                 "ms": c["ms"], "plain_ms": c["plain_ms"],
+                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                 "library_ms": None})
+    # the mLSTM scan: launches of the xlstm dense serve; times at its
+    # 1,024-token prefill from a fresh state (the decode case is in
+    # chip_smoke.json); its error over the seeded cases and the model's
+    # own inputs
+    c = next(c for c in mlstm if (c["B"], c["S"], c["state"]) == (
+        1, 1024, "fresh"))
+    rows.append({"name": mlstm_scan.__name__, "route": "cuda",
+                 "source": "src/repro_torch/csrc/mlstm_scan.cu",
+                 "replaces": "src/repro/kernels/mlstm_scan.py:68",
+                 "launches": xlstm["dense"]["launches"]["mlstm_scan"],
+                 "max_abs_err": max([x["max_abs_err"] for x in mlstm]
+                                    + mlstm_model["max_abs_err"]),
                  "ms": c["ms"], "plain_ms": c["plain_ms"],
                  "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                  "library_ms": None})

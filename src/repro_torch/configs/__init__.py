@@ -2,16 +2,16 @@
 
 ``get_config(name)`` returns the full config, ``get_smoke_config(name)``
 the reduced same-family variant the CPU tests use. The served planner,
-the two MoE families (arctic, kimi-k2) and the hybrid attention + SSM
-hymba are ported; the other architectures come with their model
-families (ROADMAP.md, queue A12).
+the two MoE families (arctic, kimi-k2), the hybrid attention + SSM
+hymba and the recurrent xlstm are ported; the other architectures come
+with their model families (ROADMAP.md, queue A12).
 """
 from __future__ import annotations
 
 import importlib
 
 ALL_IDS = ("planner-proxy-100m", "arctic-480b", "kimi-k2-1t-a32b",
-           "hymba-1.5b")
+           "hymba-1.5b", "xlstm-125m")
 
 
 def _module(name: str):

@@ -4,9 +4,7 @@ The op names and call signatures are those of the JAX package's
 ``kernels/backend.py:OP_SURFACE``, so each later slice fills in the same
 names. There is no backend switch: every op dispatches by the device of
 its tensors. A CUDA tensor goes to the hand-written Hopper kernel, a CPU
-tensor to the kernel's plain PyTorch version. The op whose kernel is not
-ported yet (the mLSTM scan) raises ``NotImplementedError`` naming its
-ROADMAP.md queue item; nothing falls back.
+tensor to the kernel's plain PyTorch version; nothing falls back.
 """
 from __future__ import annotations
 
@@ -17,6 +15,7 @@ from repro_torch.kernels.flash_decode_paged import flash_decode_paged
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.kernels.flash_verify import flash_verify, \
     flash_verify_paged
+from repro_torch.kernels.mlstm_scan import mlstm_scan as _mlstm_scan
 from repro_torch.kernels.moe_router import moe_router_topk
 from repro_torch.kernels.ssm_scan import ssm_scan
 
@@ -44,7 +43,7 @@ OPS: Tuple[str, ...] = tuple(OP_SURFACE)
 
 #: every ported kernel wrapper; each counts its launches in ``.launches``
 KERNELS = (flash_prefill, flash_decode, flash_decode_paged, flash_verify,
-           flash_verify_paged, moe_router_topk, ssm_scan)
+           flash_verify_paged, moe_router_topk, ssm_scan, _mlstm_scan)
 
 
 def reset_launches() -> None:
@@ -82,11 +81,6 @@ def paged_verify_attention(q, k_pages, v_pages, block_tab, kv_len, *,
                               cap=cap, scale=scale)
 
 
-def _not_ported(op: str, item: str):
-    raise NotImplementedError(
-        f"{op}: its kernel is not ported yet (ROADMAP.md queue {item})")
-
-
 def router_topk(logits, k):
     """logits: (T,E) fp32 -> (weights (T,k) fp32, ids (T,k) int32)."""
     return moe_router_topk(logits, k)
@@ -99,4 +93,7 @@ def selective_scan(dt, x, B_, C_, A, h0=None):
 
 
 def mlstm_scan(q, k, v, i_pre, f_pre, state=None, *, scale=0.0):
-    _not_ported("mlstm_scan", "B8 mlstm_scan")
+    """q, k, v: (B,H,S,hd); i_pre, f_pre: (B,H,S); state: (C (B,H,hd,hd),
+    n (B,H,hd), m (B,H)) or None (fresh); fp32 -> (h (B,H,S,hd) fp32,
+    the state after the last step)."""
+    return _mlstm_scan(q, k, v, i_pre, f_pre, state, scale=scale)

@@ -14,6 +14,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -184,3 +185,55 @@ def selective_scan_ref(dt, x, B_, C_, A, h0=None):
     y = (torch.stack(ys, dim=1) if ys else
          torch.zeros((Bsz, 0, di), dtype=torch.float32, device=x.device))
     return y, h
+
+
+def mlstm_scan_ref(q, k, v, i_pre, f_pre, state=None, *, scale=0.0):
+    """Sequential stabilized mLSTM oracle with state carry, in fp32.
+
+    q, k, v: (B,H,S,hd); i_pre, f_pre: (B,H,S); state: optional (C
+    (B,H,hd,hd), n (B,H,hd), m (B,H)), zeros / zeros / -1e30 when None;
+    scale: 0 -> 1/sqrt(hd). Step t, in this order: ``logf = logsigmoid
+    (f_t)`` (the stable form), ``m' = max(logf + m, i_t)``, ``fw =
+    exp(logf + m - m')``, ``iw = exp(i_t - m')``, ``ks = k_t scale``,
+    ``C = C fw + iw (ks v^T)``, ``n = n fw + iw ks``, ``h_t = C^T q_t /
+    max(|n . q_t|, exp(-m'))``. Returns (h (B,H,S,hd) fp32, (C, n, m)).
+    The output divides by a cancelled dot, so the step order is the
+    JAX oracle's exactly."""
+    B, H, S, hd = q.shape
+    scale = scale if scale else 1.0 / math.sqrt(hd)
+    q, k, v, i_pre, f_pre = (t.float() for t in (q, k, v, i_pre, f_pre))
+    if state is None:
+        state = mlstm_zero_state(B, H, hd, q.device)
+    C, n, m = (t.float() for t in state)
+    hs = []
+    for t in range(S):
+        q_t, i_t = q[:, :, t], i_pre[:, :, t]
+        logf = F.logsigmoid(f_pre[:, :, t])
+        m_new = torch.maximum(logf + m, i_t)
+        fw = torch.exp(logf + m - m_new)[..., None]
+        iw = torch.exp(i_t - m_new)[..., None]
+        ks = k[:, :, t] * scale
+        C = C * fw[..., None] + iw[..., None] * (ks[..., :, None]
+                                                 * v[:, :, t, None, :])
+        n = n * fw + iw * ks
+        num = torch.einsum("bhde,bhd->bhe", C, q_t)
+        den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", n, q_t)),
+                            torch.exp(-m_new))
+        hs.append(num / den[..., None])
+        m = m_new
+    h = (torch.stack(hs, dim=2) if hs else
+         torch.zeros((B, H, 0, hd), dtype=torch.float32, device=q.device))
+    return h, (C, n, m)
+
+
+def mlstm_zero_state(B: int, H: int, hd: int, device):
+    """The mLSTM's fresh state: C and n zeros, m -1e30, all fp32."""
+    return (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=device),
+            torch.zeros((B, H, hd), dtype=torch.float32, device=device),
+            torch.full((B, H), -1e30, dtype=torch.float32, device=device))
+
+
+def mlstm_ref(q, k, v, i_pre, f_pre):
+    """Sequential stabilized mLSTM oracle (fresh state, outputs only).
+    q, k, v: (B,H,S,hd); i_pre, f_pre: (B,H,S). Returns h (B,H,S,hd)."""
+    return mlstm_scan_ref(q, k, v, i_pre, f_pre)[0]

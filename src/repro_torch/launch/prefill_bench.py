@@ -1,17 +1,22 @@
-"""Time the served planner's prefill phases at full width on the card,
-and check that fixed-size row products give a row the same bits at any
-row count.
+"""Time a served model's prefill phases at full width on the card, and
+check that fixed-size row products give a row the same bits at any row
+count.
 
   PYTHONPATH=src python3 src/repro_torch/launch/prefill_bench.py \
-      [--rows tree|one|loop|batched] [--check-rows]
+      [--arch planner-proxy-100m|hymba-1.5b] \
+      [--rows tree|one|loop|batched] [--check-rows] [--norm-ab]
 
 The phases are those of a prefix-cached 1,312-token prompt (the prefix
 phase of ``chip_smoke.py``) on planner-proxy-100m at full width, random
 weights from seed 0, cache 2048: a 1,300-token monolithic prefill, the
 1,024-token head prefill, the 276-token tail extend at position 1,024
-and a 16-token suffix extend at position 1,300. Each is timed on the
+and a 16-token suffix extend at position 1,300. hymba-1.5b, which cannot
+extend, times the 1,024-token head prefill alone. Each is timed on the
 host clock around the call and a synchronize (median of REPS after two
-warm-up calls), so launch overhead counts.
+warm-up calls), so launch overhead counts. ``--norm-ab`` times each
+phase with the RMS norms in fixed-size calls (the tree's) and in one call
+of all rows (the plain norm), alternated call by call in one process: the
+cost of the fixed-size norm on each phase.
 
 The script imports ``repro_torch`` from the path, so one copy of it
 times two source trees in one session (``PYTHONPATH=<tree>/src``).
@@ -25,8 +30,14 @@ view against the weight expanded to n (no copy: batch stride 0).
 own fixed calls to the row contract at the planner's and the MoE families'
 product widths (bf16; the routers' fp32 with TF32 off): rows 0..M-1 of
 an M-row call equal the same rows of a 1,300-row call, bitwise, for M
-in ROW_COUNTS; and whether ``batched`` equals ``loop``. Prints one JSON
-line.
+in ROW_COUNTS; and whether ``batched`` equals ``loop``. It holds the
+RMS norm to the same contract (``norm_row_contract``) at the served
+widths, the last M of 1,300 rows for M in NORM_ROW_COUNTS over three
+seeded draws, in fp32 (so the mean's last bit reaches the output; a bf16
+output hides most of them): the row counts at which the plain norm (one
+call) gives rows other bits, and whether the fixed-size norm
+(``fixed=True``) gives every row its bits at every count. Prints one
+JSON line.
 """
 from __future__ import annotations
 
@@ -39,6 +50,8 @@ import time
 import torch
 
 ROW_COUNTS = (1, 16, 32, 128, 276, 1024, 1050)
+NORM_ROW_COUNTS = (1, 2, 4, 8, 12, 16, 36, 128, 276, 1024)
+NORM_WIDTHS = (768, 1600, 7168)     # planner and xlstm, hymba, MoE
 BLOCK = 128
 REPS = 20
 # (K, N, dtype) of the products prefill and extend issue: the planner
@@ -111,48 +124,103 @@ def check_rows(tree_rows) -> dict:
     return out
 
 
+def check_norm_rows() -> dict:
+    """The RMS norm's row contract at NORM_WIDTHS, in fp32: per width,
+    the counts M at which the plain norm's rows differ from the same rows
+    of a 1,300-row call in any of three draws, and whether the
+    fixed-size norm's rows are equal at every count in every draw."""
+    from repro_torch.models.layers import rmsnorm
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for d in NORM_WIDTHS:
+        scale = torch.zeros(d, device="cuda")
+        plain_differs, fixed_equal = set(), True
+        for _ in range(3):
+            x = torch.randn(1300, d, generator=gen, device="cuda")
+            full = {f: rmsnorm(scale, x, fixed=f) for f in (False, True)}
+            for M in NORM_ROW_COUNTS:
+                rows = x[1300 - M:].clone()
+                if not torch.equal(rmsnorm(scale, rows),
+                                   full[False][1300 - M:]):
+                    plain_differs.add(M)
+                fixed_equal &= torch.equal(rmsnorm(scale, rows, fixed=True),
+                                           full[True][1300 - M:])
+        out[str(d)] = dict(plain_rows_differ_at=sorted(plain_differs),
+                           fixed_rows_equal=fixed_equal)
+    return out
+
+
+def _time_once(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
 def _median_ms(fn, reps: int) -> float:
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    ts = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        ts.append(1e3 * (time.perf_counter() - t0))
-    return statistics.median(ts)
+    return statistics.median(_time_once(fn) for _ in range(reps))
+
+
+def _median_ab_ms(fn, reps: int) -> dict:
+    """fn with the tree's RMS norm (``fixed`` as the caller asks) and with
+    the plain norm (one call of all rows, ``fixed`` ignored), alternated
+    call by call so both see the same host: the medians of each."""
+    from repro_torch.models import layers as L
+    tree = L.rmsnorm
+    plain = lambda scale, x, eps=1e-6, fixed=False: tree(scale, x, eps)
+    ts: dict = {"fixed": [], "plain": []}
+    try:
+        for i in range(2 * (reps + 2)):
+            name = ("fixed", "plain")[i % 2]
+            L.rmsnorm = tree if name == "fixed" else plain
+            t = _time_once(fn)
+            if i >= 4:              # two warm-up calls of each
+                ts[name].append(t)
+    finally:
+        L.rmsnorm = tree
+    return {f"{k}_norm_ms": statistics.median(v) for k, v in ts.items()}
 
 
 @torch.no_grad()
-def time_phases(reps: int) -> dict:
+def time_phases(arch: str, reps: int, norm_ab: bool = False) -> dict:
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params, prefill, \
         prefill_extend
-    cfg = get_config("planner-proxy-100m")
+    cfg = get_config(arch)
     model = init_params(cfg, seed=0, device="cuda")
     rng = np.random.default_rng(0)
     toks = rng.integers(6, cfg.vocab_size, (1, 1316))
     head = {"tokens": toks[:, :1024]}
-    _, head_cache = prefill(model, head, 2048)
-    _, prefix_cache = prefill_extend(
-        model, dict(head_cache), {"tokens": toks[:, 1024:1300]})
-    return dict(
-        monolithic_1300_ms=_median_ms(
-            lambda: prefill(model, {"tokens": toks[:, :1300]}, 2048), reps),
-        head_1024_ms=_median_ms(lambda: prefill(model, head, 2048), reps),
-        tail_276_ms=_median_ms(lambda: prefill_extend(
-            model, head_cache, {"tokens": toks[:, 1024:1300]}), reps),
-        suffix_16_ms=_median_ms(lambda: prefill_extend(
-            model, prefix_cache, {"tokens": toks[:, 1300:1316]}), reps))
+    phases = dict(head_1024=lambda: prefill(model, head, 2048))
+    if arch != "hymba-1.5b":    # hymba cannot extend: the head alone
+        _, head_cache = prefill(model, head, 2048)
+        _, prefix_cache = prefill_extend(
+            model, dict(head_cache), {"tokens": toks[:, 1024:1300]})
+        phases = dict(
+            monolithic_1300=lambda: prefill(
+                model, {"tokens": toks[:, :1300]}, 2048),
+            **phases,
+            tail_276=lambda: prefill_extend(
+                model, head_cache, {"tokens": toks[:, 1024:1300]}),
+            suffix_16=lambda: prefill_extend(
+                model, prefix_cache, {"tokens": toks[:, 1300:1316]}))
+    if norm_ab:
+        return {k: _median_ab_ms(f, reps) for k, f in phases.items()}
+    return {f"{k}_ms": _median_ms(f, reps) for k, f in phases.items()}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", default="tree",
                     choices=("tree", "one", "loop", "batched"))
+    ap.add_argument("--arch", default="planner-proxy-100m",
+                    choices=("planner-proxy-100m", "hymba-1.5b"))
     ap.add_argument("--check-rows", action="store_true")
+    ap.add_argument("--norm-ab", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("prefill_bench: no CUDA device")
@@ -167,10 +235,12 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
-    res = dict(card=card, tree=repro_torch.__file__, rows=args.rows,
-               reps=REPS, **time_phases(REPS))
+    res = dict(card=card, tree=repro_torch.__file__, arch=args.arch,
+               rows=args.rows, reps=REPS,
+               **time_phases(args.arch, REPS, args.norm_ab))
     if args.check_rows:
         res["row_contract"] = check_rows(tree_rows)
+        res["norm_row_contract"] = check_norm_rows()
     print(json.dumps(res), flush=True)
     return 0
 

@@ -6,8 +6,8 @@ requests, on the card unless ``--device cpu`` is given.
 
 The command line is the JAX launcher's (``repro.launch.serve``) plus
 ``--device``; ``--arch`` takes the port's ids (``configs.ALL_IDS``: the
-planner, the MoE families arctic-480b and kimi-k2-1t-a32b, and the
-hybrid attention + SSM hymba-1.5b).
+planner, the MoE families arctic-480b and kimi-k2-1t-a32b, the hybrid
+attention + SSM hymba-1.5b and the recurrent xlstm-125m).
 ``--backend`` is gone: the device decides which attention runs (Hopper
 kernels on CUDA tensors, their plain versions on the CPU).
 ``--kv-mode paged`` (with ``--kv-blocks``, ``--block-size``) serves from
@@ -16,7 +16,9 @@ slot with a self-draft (the target's own weights: the repo ships no
 trained draft) and verifies them in one target forward. hymba's
 sliding-window rings and SSM state take none of these three: for it
 ``--kv-mode paged``, ``--prefill-budget`` and ``--spec-decode`` fail
-with the engine's ``ValueError``, as in the JAX launcher. The cluster-only
+with the engine's ``ValueError``, as in the JAX launcher. xlstm takes
+``--prefill-budget`` (its state extends without padding) and refuses
+the other two likewise. The cluster-only
 flags (``--router``, ``--profile``, ``--skew``, ``--turns``) come back
 with replicas; until then replicas, retrieval and SLA spill are refused
 as not ported yet. ``--checkpoint`` loads a JAX-package npz through the

@@ -7,7 +7,9 @@ same inside an MoE model, with a ``top_k * d_expert`` wide MLP),
 ``models/moe.py``) and hymba's ``"hymba_g"`` / ``"hymba_w"`` (attention,
 global or over a sliding window, in parallel with the mamba layer of
 ``models/ssm.py``: ``x + 0.5 (norm_a(attn) + norm_s(ssm))``, then the
-MLP), in the modes the serving engine runs:
+MLP), and xlstm's ``"mlstm"`` / ``"slstm"`` (``models/xlstm.py``:
+``x + block(norm1(x))``, no attention), in the modes the serving engine
+runs:
 
   mode="prefill" full-sequence forward, returns a filled KV cache
   mode="extend"  multi-token continuation against a pre-filled B=1 cache
@@ -53,7 +55,13 @@ rows. Extend and verify over a ring raise, as in the JAX package (the
 engine decodes through prompt tails instead). A hymba layer's cache also
 holds its SSM state ``{"ssm": {"h", "conv"}}``; each mode replaces it
 with the state ``ssm_forward`` returns (prefill starts from zeros).
-Paged pools exist only for the pure-attention kinds.
+An xLSTM layer's cache is its recurrent state alone, no K/V:
+``{"mlstm": (C, n, m)}`` or ``{"slstm": {c, n, h, m}}`` (the JAX
+layouts); prefill starts from a fresh state, extend and decode carry the
+cache's, and each mode replaces it with the state the block returns.
+Verify over recurrent state raises, as in the JAX package (it cannot be
+rolled back by KV-length truncation). Paged pools exist only for the
+pure-attention kinds.
 """
 from __future__ import annotations
 
@@ -68,13 +76,15 @@ from repro_torch.kernels import backend as KB
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
+from repro_torch.models import xlstm as X
 
 MODES = ("prefill", "extend", "decode", "verify")
 #: kinds without recurrent state or rings: the only ones with paged pools,
 #: bucket-padded extends and speculative verify
 PURE_ATTENTION_KINDS = ("full", "dense", "moe")
 HYMBA_KINDS = ("hymba_g", "hymba_w")
-KINDS = PURE_ATTENTION_KINDS + HYMBA_KINDS
+XLSTM_KINDS = ("mlstm", "slstm")
+KINDS = PURE_ATTENTION_KINDS + HYMBA_KINDS + XLSTM_KINDS
 
 
 class Block(nn.Module):
@@ -90,6 +100,12 @@ class Block(nn.Module):
         self.kind = kind
         d = cfg.d_model
         self.norm1 = L.RMSNorm(d, cfg.norm_eps, dtype, device)
+        if kind == "mlstm":
+            self.mlstm = X.MLSTM(cfg, gen, dtype, device)
+            return
+        if kind == "slstm":
+            self.slstm = X.SLSTM(cfg, gen, dtype, device)
+            return
         self.attn = L.Attention(cfg, gen, dtype, device)
         self.norm2 = L.RMSNorm(d, cfg.norm_eps, dtype, device)
         if kind == "moe":
@@ -109,7 +125,12 @@ def block_cache_init(cfg: ModelConfig, batch: int, cache_len: int, device,
                      kind: str = "full"):
     """Zero-initialised dense cache for one layer of ``kind``: K/V of
     ``cache_len`` rows, or ``min(window, cache_len)`` ring rows for a
-    sliding-window kind, plus the SSM state for a hymba kind."""
+    sliding-window kind, plus the SSM state for a hymba kind; an xLSTM
+    kind's fresh recurrent state alone."""
+    if kind == "mlstm":
+        return {"mlstm": X.mlstm_state_init(cfg, batch, device)}
+    if kind == "slstm":
+        return {"slstm": X.slstm_state_init(cfg, batch, device)}
     Sc = min(cfg.window, cache_len) if kind in WINDOW_KINDS else cache_len
     shape = (batch, cfg.n_kv_heads, Sc, cfg.d_head)
     c = {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
@@ -270,7 +291,7 @@ def _attn_sublayer(p: Block, x, cfg: ModelConfig, mode: str, cache, pos,
 
 
 def _mlp_tail(p: Block, x, cfg: ModelConfig, fixed: bool = False):
-    h2 = L.rmsnorm(p.norm2.scale, x, cfg.norm_eps)
+    h2 = L.rmsnorm(p.norm2.scale, x, cfg.norm_eps, fixed)
     if p.kind == "moe":
         return x + M.moe_ffn(p.moe, h2, cfg, fixed=fixed)[0]
     return x + L.mlp(p.mlp, h2, fixed)
@@ -319,6 +340,28 @@ def _mode_not_ported(mode: str) -> NotImplementedError:
         f"queue A11)")
 
 
+def _xlstm_block(p: Block, x, cfg: ModelConfig, mode: str, cache):
+    """An mLSTM or sLSTM layer: ``x + block(norm1(x))``, its state fresh
+    at prefill and carried at extend and decode."""
+    if mode == "verify":
+        raise NotImplementedError(
+            "verify over recurrent xLSTM state (it cannot be rolled back "
+            "by KV-length truncation)")
+    kind = p.kind
+    fixed = mode in ("prefill", "extend")
+    if mode == "prefill":
+        init = (X.mlstm_state_init if kind == "mlstm"
+                else X.slstm_state_init)
+        state = init(cfg, x.shape[0], x.device)
+    else:
+        state = cache[kind]
+    fn = X.mlstm_block if kind == "mlstm" else X.slstm_block
+    y, cache[kind] = fn(getattr(p, kind),
+                        L.rmsnorm(p.norm1.scale, x, cfg.norm_eps, fixed),
+                        cfg, state, fixed)
+    return x + y, cache
+
+
 def block_apply(p: Block, x, cfg: ModelConfig, *, mode: str, cache,
                 pos, positions, block_tab=None,
                 plan: Optional[WritePlan] = None):
@@ -328,6 +371,8 @@ def block_apply(p: Block, x, cfg: ModelConfig, *, mode: str, cache,
     (computed here when None)."""
     if mode not in MODES:
         raise _mode_not_ported(mode)
+    if p.kind in XLSTM_KINDS:
+        return _xlstm_block(p, x, cfg, mode, cache)
     if mode == "verify":
         if p.kind in WINDOW_KINDS:
             raise NotImplementedError(
@@ -339,14 +384,14 @@ def block_apply(p: Block, x, cfg: ModelConfig, *, mode: str, cache,
         return _verify_block(p, x, cfg, cache, pos, positions, block_tab,
                              plan)
     fixed = mode in ("prefill", "extend")
-    h = L.rmsnorm(p.norm1.scale, x, cfg.norm_eps)
+    h = L.rmsnorm(p.norm1.scale, x, cfg.norm_eps, fixed)
     attn_y, cache = _attn_sublayer(p, h, cfg, mode, cache, pos, positions,
                                    block_tab, plan)
     if p.kind in HYMBA_KINDS:
         ssm_y, cache["ssm"] = S.ssm_forward(
             p.ssm, h, cfg, None if mode == "prefill" else cache["ssm"],
             fixed)
-        y = 0.5 * (L.rmsnorm(p.norm_a.scale, attn_y, cfg.norm_eps)
-                   + L.rmsnorm(p.norm_s.scale, ssm_y, cfg.norm_eps))
+        y = 0.5 * (L.rmsnorm(p.norm_a.scale, attn_y, cfg.norm_eps, fixed)
+                   + L.rmsnorm(p.norm_s.scale, ssm_y, cfg.norm_eps, fixed))
         return _mlp_tail(p, x + y, cfg, fixed), cache
     return _mlp_tail(p, x + attn_y, cfg, fixed), cache

@@ -11,7 +11,12 @@ leaves ``moe/router``, ``moe/w_gate`` (E, d, dff), ``moe/w_up``,
 ``moe/w_down``, ``moe/dense_residual/*`` and ``moe/shared_expert/*``,
 hymba's ``ssm/*`` (``in_proj``, ``conv_w``, ``conv_b``, ``w_bc``,
 ``w_dt``, ``dt_proj``, ``out_proj`` in bf16; ``dt_bias``, ``A_log``, ``D``
-in fp32), ``norm_a/scale`` and ``norm_s/scale``, and at the top
+in fp32), ``norm_a/scale`` and ``norm_s/scale``, xlstm's ``mlstm/*``
+(``up``, ``wq``, ``wk``, ``wv``, ``down``, ``norm/scale`` in bf16;
+``w_if``, ``b_i``, ``b_f`` in fp32) and ``slstm/*`` (``w_gates``,
+``r_gates``, ``w_up``, ``w_down``, ``norm_ffn/scale`` in bf16;
+``b_gates`` in fp32), each under a unit of four kinds repeated R times
+at full width, and at the top
 ``embed``, ``final_norm/scale`` and, untied, ``lm_head``. A tree that
 lacks a model tensor or holds a leaf the model lacks raises.
 

@@ -20,8 +20,13 @@ prefill does, so only fixed-size calls keep chunked prefill and prefix
 hits bitwise monolithic. The rows of a call (``row_block``) shrink as
 the product widens, so the zero padding of the last call stays under
 ``ROW_CALL_MACS`` multiply-adds while a narrow model (the planner)
-makes few calls. Decode and verify keep their one call of the batch's
-rows (every step has the same shape).
+makes few calls. The RMS norms' mean over d follows the same rule
+(``rmsnorm(..., fixed=True)``: calls of exactly NORM_ROWS rows): on an
+H100 the mean of a few rows (4-12 of them at d=768) reduces in another
+order than the same rows inside a larger call, which broke an 8-token
+prefix-hit suffix's bits.
+Decode and verify keep their one call of the batch's rows (every step
+has the same shape).
 """
 from __future__ import annotations
 
@@ -37,6 +42,8 @@ from repro_torch.kernels import backend as KB
 
 #: multiply-adds of one fixed-size product call (``row_block``)
 ROW_CALL_MACS = 2 ** 31
+#: rows of each fixed-size call of an RMS norm's mean (``rmsnorm``)
+NORM_ROWS = 1024
 
 
 def row_block(K: int, N: int) -> int:
@@ -47,24 +54,28 @@ def row_block(K: int, N: int) -> int:
     return max(128, min(1024, 1 << (rows.bit_length() - 1)))
 
 
+def fixed_rows(x2, rows: int, fn):
+    """fn over the rows of x2 (M, K) in calls of exactly ``rows`` rows,
+    the last one zero-padded, joined and cut back to M rows: each row's
+    result does not depend on M (see the module note)."""
+    M = x2.shape[0]
+    n = -(-M // rows)
+    if n * rows != M:
+        x2 = F.pad(x2, (0, 0, 0, n * rows - M))
+    # one call (most prefill chunks) needs no cat
+    out = fn(x2) if n == 1 else torch.cat([fn(x2[i * rows:(i + 1) * rows])
+                                           for i in range(n)])
+    return out[:M]
+
+
 def matmul_rows(x, w, fixed: bool = False):
     """x (..., K) @ w (K, N). ``fixed``: in calls of exactly
-    ``row_block(K, N)`` rows, the last one zero-padded, so each row's
-    result does not depend on how many rows the caller passes (see the
-    module note)."""
+    ``row_block(K, N)`` rows (``fixed_rows``)."""
     if not fixed:
         return x @ w
     lead, (K, N) = x.shape[:-1], w.shape
-    rb = row_block(K, N)
-    x2 = x.reshape(-1, K)
-    M = x2.shape[0]
-    n = -(-M // rb)
-    if n * rb != M:
-        x2 = F.pad(x2, (0, 0, 0, n * rb - M))
-    # one call (most prefill chunks at narrow widths) needs no cat
-    out = x2 @ w if n == 1 else torch.cat([x2[i * rb:(i + 1) * rb] @ w
-                                           for i in range(n)])
-    return out[:M].reshape(*lead, N)
+    out = fixed_rows(x.reshape(-1, K), row_block(K, N), lambda c: c @ w)
+    return out.reshape(*lead, N)
 
 
 def normal_param(shape, std, gen, dtype, device):
@@ -112,11 +123,18 @@ class RMSNorm(nn.Module):
         return rmsnorm(self.scale, x, self.eps)
 
 
-def rmsnorm(scale, x, eps: float = 1e-6):
+def rmsnorm(scale, x, eps: float = 1e-6, fixed: bool = False):
     """fp32 RMS normalisation; the zero-initialised scale enters as
-    ``1 + scale``, as in the JAX package."""
+    ``1 + scale``, as in the JAX package. ``fixed``: the mean over d in
+    calls of exactly NORM_ROWS rows (``fixed_rows``)."""
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    sq = xf * xf
+    if fixed:
+        mean = lambda c: torch.mean(c, dim=-1, keepdim=True)
+        var = fixed_rows(sq.reshape(-1, sq.shape[-1]), NORM_ROWS,
+                         mean).reshape(*sq.shape[:-1], 1)
+    else:
+        var = torch.mean(sq, dim=-1, keepdim=True)
     normed = xf * torch.rsqrt(var + eps)
     return (normed * (1.0 + scale.float())).to(x.dtype)
 

@@ -4,12 +4,15 @@ Port of the JAX package's ``models/model.py`` for the dense planner
 (``"full"`` layers, tied head), the MoE families (``"moe"`` and
 ``"dense"`` layers, untied ``lm_head``) and the hybrid hymba
 (``"hymba_g"`` / ``"hymba_w"`` layers: attention in parallel with a
-mamba SSM). The JAX package scans stacked per-segment params; the port
-keeps one ``Block`` per layer and runs them in a Python loop.
+mamba SSM) and xlstm (``"mlstm"`` / ``"slstm"`` layers, attention-free).
+The JAX package scans stacked per-segment params; the port keeps one
+``Block`` per layer and runs them in a Python loop.
 Caches are ``{"layers": [{"k", "v"}, ...], "pos": ...}`` with the JAX
 per-layer layout (B, Hkv, cache_len, hd) bf16 (``min(window,
 cache_len)`` ring rows for a sliding-window layer; a hymba layer also
-holds ``"ssm": {"h", "conv"}``); ``pos`` is a Python int
+holds ``"ssm": {"h", "conv"}``; an xLSTM layer holds only its recurrent
+state, ``"mlstm": (C, n, m)`` or ``"slstm": {c, n, h, m}``, and no K/V,
+which a dense decode never reads); ``pos`` is a Python int
 for a B=1 prefill/extend cache and a (B,) int tensor for the batched
 decode cache. A paged cache (``init_paged_cache``) holds per-layer block
 pools (n_blocks, Hkv, bs, hd) and a (B, cache_len // bs) int32
@@ -55,10 +58,10 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, gen, dtype, device):
         super().__init__()
         if cfg.n_enc_layers or cfg.final_softcap or cfg.emb_scale_by_sqrt_d \
-                or cfg.family not in ("dense", "moe", "hybrid"):
+                or cfg.family not in ("dense", "moe", "hybrid", "ssm"):
             raise NotImplementedError(
-                f"{cfg.name}: only the dense, MoE and hybrid (hymba) "
-                f"stacks are ported (ROADMAP.md queue A12)")
+                f"{cfg.name}: only the dense, MoE, hybrid (hymba) and "
+                f"xLSTM stacks are ported (ROADMAP.md queue A12)")
         self.cfg = cfg
         self.embed = L.normal_param((cfg.vocab_size, cfg.d_model), 0.02, gen,
                               dtype, device)
@@ -163,7 +166,9 @@ def _tokens(model: Model, batch) -> torch.Tensor:
 
 def _embed_inputs(model: Model, tokens, pos=None):
     """Token embedding and absolute positions (B,S): from 0, from a scalar
-    ``pos``, or per slot from a (B,) ``pos``."""
+    ``pos``, or per slot from a (B,) ``pos``. A stack without rope (xlstm)
+    adds the sinusoidal embedding at those positions, as the JAX
+    package's ``_embed_inputs`` does."""
     B, S = tokens.shape
     x = model.embed[tokens]
     ar = torch.arange(S, device=tokens.device)
@@ -171,7 +176,19 @@ def _embed_inputs(model: Model, tokens, pos=None):
         positions = pos.to(tokens.device).long()[:, None] + ar[None, :]
     else:
         positions = (int(pos or 0) + ar)[None, :].expand(B, S)
+    if model.cfg.rope_kind == "none":
+        x = x + _sin_at(model.cfg.d_model, positions).to(x.dtype)
     return x, positions
+
+
+def _sin_at(d: int, positions):
+    """Sinusoidal embedding (B,S,d) fp32 at positions (B,S): sin then cos
+    of ``pos / 10000 ** (2i / d)``."""
+    pos = positions.float()[..., None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32,
+                       device=positions.device)
+    ang = pos / (10_000.0 ** (dim / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def _logits(model: Model, x):

@@ -36,20 +36,23 @@ slot and verifies them in ONE target ``verify_extend`` forward, emitting
 1..K+1 tokens per slot, bitwise the tokens of non-speculative decoding
 (T=0 always; any temperature for seeded requests), in both kv modes.
 
-A stack with sliding-window rings or recurrent state (hymba) cannot
-extend a cache by several tokens at once (the JAX engine's
-``_can_extend``): its prefix tails and prefix-hit suffixes advance token
-by token through ``decode_step``, and ``prefill_budget``, paged KV and
-speculative decoding are refused. Bucket-padded extends (``_pad_extend``)
-need a pure-attention stack: recurrent state would step through the
-pads.
+A stack with sliding-window rings (hymba) cannot extend a cache by
+several tokens at once (the JAX engine's ``_can_extend``): its prefix
+tails and prefix-hit suffixes advance token by token through
+``decode_step``, and ``prefill_budget`` is refused. A recurrent stack
+without rings (xlstm) extends in whole ``attn_chunk`` slabs plus one
+unpadded rest, and takes ``prefill_budget``: bucket-padded extends
+(``_pad_extend``) need a pure-attention stack, since recurrent state
+would step through the pads. Paged KV and speculative decoding need a
+pure-attention stack.
 
 The port updates caches in place where the JAX package returns new
 arrays: an admission copies its B=1 cache into its slot (dense) or its
-blocks (paged), every leaf of it, a hymba layer's SSM state included, so
-a recycled slot never sees its last tenant's state; a prefix hit clones
-the registered prefix cache before extending it, so the prefix stays
-intact for the next hit.
+blocks (paged), every leaf of it, a hymba layer's SSM state and an xLSTM
+layer's state tuple or dict included, so a recycled slot never sees its
+last tenant's state; a prefix hit clones the registered prefix cache
+(every leaf) before extending it, so the prefix stays intact for the
+next hit.
 Host-side state (per-slot positions, last tokens, the block table) lives
 in numpy; positions and the table go to the device once per step.
 """
@@ -155,8 +158,12 @@ def extend_support(cfg: ModelConfig) -> Tuple[bool, bool]:
 
 
 def _clone_tree(tree):
+    """A copy of every tensor of a cache layer's nested dicts and tuples
+    (the mLSTM state is a ``(C, n, m)`` tuple, the JAX layout)."""
     if isinstance(tree, dict):
         return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_clone_tree(v) for v in tree)
     return tree.clone()
 
 
@@ -167,9 +174,9 @@ def _clone_cache(cache: dict) -> dict:
             "pos": cache["pos"]}
 
 
-def _insert_tree(b: dict, s: dict, slot: int) -> None:
-    for key, leaf in b.items():
-        if isinstance(leaf, dict):
+def _insert_tree(b, s, slot: int) -> None:
+    for key, leaf in (b.items() if isinstance(b, dict) else enumerate(b)):
+        if isinstance(leaf, (dict, tuple)):
             _insert_tree(leaf, s[key], slot)
         else:
             leaf[slot:slot + 1].copy_(s[key])
@@ -178,7 +185,8 @@ def _insert_tree(b: dict, s: dict, slot: int) -> None:
 def _insert_slot(batched: dict, single: dict, slot: int) -> None:
     """Copy a B=1 cache into slot ``slot`` of the batched cache, in place
     (the JAX package's ``_insert_slot``): every leaf, K/V rows and any
-    nested state (a hymba layer's ``ssm.h`` and ``ssm.conv``)."""
+    nested state (a hymba layer's ``ssm.h`` and ``ssm.conv``, an xLSTM
+    layer's ``mlstm`` tuple or ``slstm`` dict)."""
     for b, s in zip(batched["layers"], single["layers"]):
         _insert_tree(b, s, slot)
 
@@ -270,15 +278,19 @@ class InferenceEngine:
             raise ValueError(
                 f"kv_mode='paged' needs a pure-attention stack "
                 f"(full/dense/moe), got kinds {sorted(kinds)}")
-        if prefill_budget is not None and not extend_support(cfg)[0]:
+        can_extend, pad_extend = extend_support(cfg)
+        if prefill_budget is not None and not can_extend:
             raise ValueError(
                 "prefill_budget (chunked prefill) needs a stack that "
                 "supports multi-token prefill_extend — no "
-                "windowed/recurrent kinds and no encoder; got kinds "
+                "sliding-window rings and no encoder; got kinds "
                 f"{sorted(kinds)}")
         self.cfg = cfg
         self.model = model
         self.device = model.device
+        # a chunked prefill's tail may be bucket-padded only where no
+        # recurrent state would step through the pads
+        self._pad_extend = pad_extend
         # latency stamps come from an injected clock (zero by default)
         self._clock: Callable[[], float] = clock or (lambda: 0.0)
         self.metrics = metrics if metrics is not None else MetricsRegistry()
@@ -945,9 +957,13 @@ class InferenceEngine:
                     {"tokens": [p.toks[p.i:p.i + align]]}, align)
                 p.i += align
             else:
+                # advance_cache_through's tail rule: bucket-padded (pad
+                # width capped at the cache end) only on a pure-attention
+                # stack, unpadded where recurrent state would step
+                # through the pads
                 rest = p.toks[p.i:]
                 room = self.cache_len - int(p.cache["pos"])
-                if rem < room:
+                if self._pad_extend and rem < room:
                     width = min(1 << (rem - 1).bit_length(), room)
                     rest = rest + [0] * (width - rem)
                 p.logits, p.cache = prefill_extend(

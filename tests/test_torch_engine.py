@@ -233,5 +233,5 @@ def test_engine_runs_no_kernel_on_cpu(pair):
     assert KB.launch_counts() == {
         "flash_prefill": 0, "flash_decode": 0, "flash_decode_paged": 0,
         "flash_verify": 0, "flash_verify_paged": 0,
-        "moe_router_topk": 0, "ssm_scan": 0}
+        "moe_router_topk": 0, "ssm_scan": 0, "mlstm_scan": 0}
     assert model.device == torch.device("cpu")

@@ -318,7 +318,7 @@ def test_engine_runs_no_kernel_on_cpu(pair):
     _serve(InferenceEngine(model.cfg, model, max_batch=2, cache_len=CACHE),
            [[5, 6, 7, 8]], [3])
     counts = KB.launch_counts()
-    assert len(counts) == 7 and set(counts.values()) == {0}
+    assert len(counts) == 8 and set(counts.values()) == {0}
     assert "ssm_scan" in counts
 
 

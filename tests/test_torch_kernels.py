@@ -126,7 +126,7 @@ def _small_paged():
     ("paged_verify_attention", None),       # ported
     ("router_topk", (None, 2)),             # ported: runs on the CPU
     ("selective_scan", None),               # ported: runs on the CPU
-    ("mlstm_scan", (None,) * 5),
+    ("mlstm_scan", None),                   # ported: runs on the CPU
 ])
 def test_unported_ops_raise_naming_their_queue_item(op, args):
     if op == "selective_scan":
@@ -139,6 +139,18 @@ def test_unported_ops_raise_naming_their_queue_item(op, args):
         assert tuple(y.shape) == (1, 5, 16) and tuple(h.shape) == (1, 16, 8)
         assert y.dtype == h.dtype == torch.float32
         assert bool(torch.isfinite(y).all())
+        return
+    if op == "mlstm_scan":
+        g = torch.Generator().manual_seed(0)
+        q, k, v = (torch.randn(1, 2, 5, 32, generator=g) for _ in range(3))
+        h, (C, n, m) = KB.mlstm_scan(q, k, v,
+                                     torch.randn(1, 2, 5, generator=g),
+                                     torch.randn(1, 2, 5, generator=g) + 3,
+                                     None)
+        assert tuple(h.shape) == (1, 2, 5, 32)
+        assert tuple(C.shape) == (1, 2, 32, 32) and tuple(m.shape) == (1, 2)
+        assert h.dtype == C.dtype == n.dtype == torch.float32
+        assert bool(torch.isfinite(h).all())
         return
     if op == "router_topk":
         w, idx = KB.router_topk(torch.randn(6, 16) * 3, args[1])
@@ -158,9 +170,6 @@ def test_unported_ops_raise_naming_their_queue_item(op, args):
         assert out.shape == (q[:, :, 0] if op.startswith("paged_d")
                              else q).shape
         assert bool(torch.isfinite(out).all())
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue B"):
-        getattr(KB, op)(*args)
 
 
 def test_cpu_wrappers_do_not_count_launches():
@@ -176,10 +185,13 @@ def test_cpu_wrappers_do_not_count_launches():
     KB.selective_scan(torch.rand(1, 3, 8), torch.randn(1, 3, 8),
                       torch.randn(1, 3, 8), torch.randn(1, 3, 8),
                       -torch.rand(8, 8), None)
+    KB.mlstm_scan(torch.randn(1, 1, 3, 32), torch.randn(1, 1, 3, 32),
+                  torch.randn(1, 1, 3, 32), torch.randn(1, 1, 3),
+                  torch.randn(1, 1, 3), None)
     assert KB.launch_counts() == {
         "flash_prefill": 0, "flash_decode": 0, "flash_decode_paged": 0,
         "flash_verify": 0, "flash_verify_paged": 0, "moe_router_topk": 0,
-        "ssm_scan": 0}
+        "ssm_scan": 0, "mlstm_scan": 0}
 
 
 def test_wrappers_refuse_other_devices():
