@@ -2,19 +2,27 @@
 
   python3 chip_smoke.py [--kernels-only]
 
-Builds the port's eight Hopper kernels from ``src/repro_torch/csrc/``,
-holds each against its plain PyTorch version on the card: the attention
+Builds the port's eight Hopper kernels from ``src/repro_torch/csrc/``
+and checks that flash_prefill's SASS runs on the tensor cores (HGMMA
+instructions at every head dim, ``cuobjdump -sass``), then holds each
+kernel against its plain PyTorch version on the card: the attention
 kernels at the served planner's shapes (head dim 64) and at head dims
 128 and 32 with the MoE families' heads (kimi-k2's 64/8 and arctic's
 56/8), each time with the decode family's bitwise contracts (paged
 decode == decode on the gathered view, each verify row == the decode row
-at its position, paged verify == verify on the gathered view); the MoE
-router at the MoE families' (tokens, experts, top-k). Then it serves
+at its position, paged verify == verify on the gathered view), also
+with more than 64 verify rows per (kv head, slot) (kimi's G = 8 at W =
+9, the planner's G = 3 at W = 22); flash_prefill's row contract, bitwise:
+a 1,300-token prefill's rows against extends at six offsets over a
+stale 2,048-row cache, at head dims 64, 128 and 32, causal, windowed and
+softcapped; the MoE router at the MoE families' (tokens, experts,
+top-k). Then it serves
 planner-proxy-100m at full width through the launcher's serving
 function (dense monolithic and chunked, paged, speculative dense and
-paged, and paged with a pool small enough to preempt), checks that every
-run emits the monolithic run's tokens with a self-draft accept rate of
-1.0, that chunked prefill and prefix hits of 1,312-token prompts do too,
+paged, ``--draft-k 21`` (66 verify rows per kv head), and paged with a
+pool small enough to preempt), checks that every run emits the
+monolithic run's tokens with a self-draft accept rate of 1.0, that
+chunked prefill and prefix hits of 1,312-token prompts do too,
 profiles a full-width decode step and a speculative round, and checks
 the card's logits against the CPU's on the same seeded weights. Then the
 MoE families at their published widths with the depth cut
@@ -64,7 +72,11 @@ them in Perfetto).
 Tolerances:
   * kernel vs plain version (both bf16 out, fp32 inside, different
     summation order): |kernel - plain| <= 1e-2 + 1e-2 * |plain|, i.e. at
-    most one bf16 rounding step (relative spacing 2**-7) plus slack;
+    most one bf16 rounding step (relative spacing 2**-7) plus slack.
+    flash_prefill rounds P to bf16 for its tensor-core P V product (the
+    plain version multiplies in fp32), about one bf16 rounding of each
+    p, inside the same tolerance;
+  * flash_prefill's rows in prefill and in extend: bitwise;
   * within the decode family (decode, paged decode, verify, paged
     verify): bitwise (``torch.equal``), by design of decode_tile.cuh;
   * card vs CPU logits (fp32 head over a 12-layer bf16 stack, matmuls
@@ -248,17 +260,18 @@ def paged_pool(gen, Hkv=HKV, hd=HD):
     return kp, vp, tab.cuda(), used
 
 
-def row_limits(kvl):
+def row_limits(kvl, W=WIN):
     """(B, W) key limit of each verify row, clamped at 0."""
-    w = torch.arange(WIN, device=kvl.device)
-    return torch.clamp(kvl.long()[:, None] - WIN + w[None, :] + 1, min=0)
+    w = torch.arange(W, device=kvl.device)
+    return torch.clamp(kvl.long()[:, None] - W + w[None, :] + 1, min=0)
 
 
 def verify_err(out, ref, kvl) -> float:
     """Kernel vs plain on rows with keys; rows with none must be 0 (the
     decode kernel's kv_len 0 rule; the oracle's softmax over an all-masked
     row is not defined the same way)."""
-    live = (row_limits(kvl) > 0)[:, None, :, None].expand_as(out)
+    live = (row_limits(kvl, out.shape[2]) > 0)[:, None, :, None].expand_as(
+        out)
     check(bool((out.float()[~live] == 0).all()), "keyless verify row "
                                                  "not 0")
     return err_ok(out.float()[live], ref.float()[live])
@@ -298,11 +311,11 @@ def paged_decode_case(gen, heads=(HQ, HKV, HD)):
                 bound_by=b_by)
 
 
-def verify_cases(gen, heads=(HQ, HKV, HD)):
-    """flash_verify and flash_verify_paged at W = 5 over the same slots:
-    against the fused oracle and the CPU path's row-wise plain version,
-    each row bitwise the decode row at its position, paged bitwise
-    dense on the gathered view."""
+def verify_cases(gen, heads=(HQ, HKV, HD), W=WIN):
+    """flash_verify and flash_verify_paged at W (5: --draft-k 4) over the
+    same slots: against the fused oracle and the CPU path's row-wise plain
+    version, each row bitwise the decode row at its position, paged
+    bitwise dense on the gathered view."""
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.flash_verify import flash_verify, \
         flash_verify_paged
@@ -311,15 +324,15 @@ def verify_cases(gen, heads=(HQ, HKV, HD)):
         verify_attention_ref, verify_rows_ref
     import torch.nn.functional as F
     Hq, Hkv, hd = heads
-    q = _mk(gen, B_SLOTS, Hq, WIN, hd)
+    q = _mk(gen, B_SLOTS, Hq, W, hd)
     kc, vc = _mk(gen, B_SLOTS, Hkv, CACHE, hd), _mk(gen, B_SLOTS, Hkv,
                                                     CACHE, hd)
     kp, vp, tab, used = paged_pool(gen, Hkv, hd)
     kvl = torch.tensor(KV_LENS, dtype=torch.int32, device="cuda")
-    lim = row_limits(kvl)
+    lim = row_limits(kvl, W)
     mask = (torch.arange(CACHE, device="cuda")[None, None, :]
             < lim[:, :, None])[:, None]                        # (B,1,W,Sk)
-    nbytes = 2 * hd * (2 * B_SLOTS * Hq * WIN + 2 * Hkv * sum(KV_LENS)) \
+    nbytes = 2 * hd * (2 * B_SLOTS * Hq * W + 2 * Hkv * sum(KV_LENS)) \
         + 4 * B_SLOTS
     flops = 4 * hd * Hq * int(lim.sum())
     cases = {}
@@ -327,7 +340,7 @@ def verify_cases(gen, heads=(HQ, HKV, HD)):
     out = flash_verify(q, kc, vc, kvl)
     err = max(verify_err(out, verify_attention_ref(q, kc, vc, kvl), kvl),
               verify_err(out, verify_rows_ref(q, kc, vc, kvl), kvl))
-    for w in range(WIN):
+    for w in range(W):
         row = flash_decode(q[:, :, w].contiguous(), kc, vc, lim[:, w])
         check(torch.equal(out[:, :, w], row),
               f"flash_verify row {w} != flash_decode at its position")
@@ -360,7 +373,8 @@ def verify_cases(gen, heads=(HQ, HKV, HD)):
                 q, kg, vg, attn_mask=mask, enable_gqa=True)),
         bound_ms=b_ms, bound_by=b_by)
     for c in cases.values():
-        c.update(B=B_SLOTS, W=WIN, kv_len=KV_LENS, heads=list(heads))
+        c.update(B=B_SLOTS, W=W, rows=Hq // Hkv * W, kv_len=KV_LENS,
+                 heads=list(heads))
     return cases
 
 
@@ -374,6 +388,69 @@ MOE_HEADS = {"kimi": (64, 8), "arctic": (56, 8)}
 ROUTER_CASES = [(8, 128, 2), (8, 384, 8), (1024, 128, 2), (1024, 384, 8),
                 (37, 384, 8)]
 ROUTER_WTOL = 1e-5
+
+
+# verify above 64 rows per (kv head, slot): the row-chunk grid axis at
+# kimi-k2's heads with --draft-k 8 (G = 8, W = 9: 72 rows) and the
+# planner's with --draft-k 21 (G = 3, W = 22: 66 rows)
+VERIFY_OVER_64 = [(("kimi", 64, 8, 128), 9), (("planner", HQ, HKV, HD), 22)]
+
+
+def verify_over_64_cases(gen):
+    """flash_verify and flash_verify_paged with G*W > 64 rows: each row
+    bitwise the decode row at its position, paged bitwise dense, both
+    within tolerance of the plain versions (verify_cases' checks)."""
+    out = []
+    for (fam, hq, hkv, hd), W in VERIFY_OVER_64:
+        for name, c in verify_cases(gen, (hq, hkv, hd), W).items():
+            out.append((f"kernel_{name[6:]}", dict(c, family=fam, hd=hd)))
+    return out
+
+
+# prefill == extend, bitwise: the rows of one 1,300-token prefill against
+# extends at these (q_offset, Sq) over a 2,048-row cache whose rows past
+# the extend hold stale finite values; head dims 64, 128 and 32 with the
+# planner's, kimi-k2's and arctic's heads; causal, window 1,024, softcap
+PREFILL_S = 1300
+EXTENDS = [(1, 276), (63, 1), (64, 64), (700, 276), (1024, 276), (1292, 8)]
+PREFILL_VARIANTS = {"causal": {}, "window": dict(window=1024),
+                    "softcap": dict(cap=30.0)}
+
+
+def prefill_extend_cases(gen):
+    """flash_prefill's row contract on the card: every extend's rows
+    equal the prefill's rows at the same positions (``torch.equal``),
+    and the prefill and every extend are within tolerance of the plain
+    version."""
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.ref import attention_ref
+    out = []
+    for hd, (hq, hkv) in ((HD, (HQ, HKV)), (128, MOE_HEADS["kimi"]),
+                          (32, MOE_HEADS["arctic"])):
+        for name, kw in PREFILL_VARIANTS.items():
+            q = _mk(gen, 1, hq, PREFILL_S, hd)
+            kc, vc = _mk(gen, 1, hkv, CACHE, hd), _mk(gen, 1, hkv, CACHE, hd)
+            k = kc[:, :, :PREFILL_S].contiguous()
+            v = vc[:, :, :PREFILL_S].contiguous()
+            full = flash_prefill(q, k, v, causal=True, **kw)
+            err = err_ok(full, attention_ref(q, k, v, causal=True, **kw))
+            for off, sq in EXTENDS:
+                kx, vx = kc.clone(), vc.clone()
+                stale = CACHE - off - sq
+                kx[:, :, off + sq:] = _mk(gen, 1, hkv, stale, hd)
+                vx[:, :, off + sq:] = _mk(gen, 1, hkv, stale, hd)
+                qx = q[:, :, off:off + sq].contiguous()
+                ext = flash_prefill(qx, kx, vx, causal=True, q_offset=off,
+                                    **kw)
+                check(torch.equal(ext, full[:, :, off:off + sq]),
+                      f"flash_prefill: extend rows differ from prefill rows "
+                      f"at hd {hd}, {name}, q_offset {off}, Sq {sq}")
+                err = max(err, err_ok(ext, attention_ref(
+                    qx, kx, vx, causal=True, q_offset=off, **kw)))
+            out.append(dict(hd=hd, heads=[hq, hkv, hd], variant=name,
+                            S=PREFILL_S, cache=CACHE, extends=EXTENDS,
+                            bitwise=True, max_abs_err=err))
+    return out
 
 
 def head_dim_cases(gen):
@@ -410,6 +487,34 @@ def _ptxas_registers(log: str, symbol: str) -> list:
         if current and "Used" in line and "registers" in line:
             regs.append(line.split("Used")[1].split("registers")[0].strip())
     return regs
+
+
+def prefill_sass(build: Path) -> dict:
+    """The HGMMA (wgmma) instructions in the SASS of each flash_prefill
+    kernel instance, by head dim (``cuobjdump -sass`` of the built
+    library); fails unless every instance has some."""
+    import os
+    import re
+    import shutil
+    tool = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda") / "bin" \
+        / "cuobjdump"
+    tool = str(tool) if tool.is_file() else shutil.which("cuobjdump")
+    check(tool is not None, "cuobjdump not found")
+    sass = subprocess.run([tool, "-sass", str(build / "libflash_prefill.so")],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"flash_prefill_kernelILi(\d+)E", line)
+            fn = f"hd{m.group(1)}" if m else None
+            if fn:
+                counts[fn] = 0
+        elif fn and "HGMMA" in line:
+            counts[fn] += 1
+    check(sorted(counts) == ["hd128", "hd32", "hd64"]
+          and all(counts.values()),
+          f"flash_prefill's SASS lacks HGMMA instructions: {counts}")
+    return counts
 
 
 def router_cases(gen, build_log: str):
@@ -748,6 +853,9 @@ PLANNER_MODES = [
     ("paged", PAGED, 64, ("flash_prefill", "flash_decode_paged")),
     ("spec", SPEC, 61, ("flash_prefill", "flash_verify")),
     ("paged_spec", PAGED + SPEC, 61, ("flash_prefill", "flash_verify_paged")),
+    # 66 verify rows per (kv head, slot): 1 + 2 windows of 22
+    ("spec_k21", ["--spec-decode", "--draft-k", "21"], 45,
+     ("flash_prefill", "flash_verify")),
     ("paged_tight", PAGED + ["--kv-blocks", "24"], 64,
      ("flash_prefill", "flash_decode_paged")),
     ("dense_again", [], 64, ("flash_prefill", "flash_decode"))]
@@ -1492,8 +1600,16 @@ def main(argv=None) -> int:
          sources=sorted(p.name for p in (ROOT / "src/repro_torch/csrc")
                         .glob("*.cu")))
     OUT_DIR.mkdir(exist_ok=True)
+    logs = _build.build_logs()
+    hgmma = prefill_sass(build)
     (OUT_DIR / "chip_smoke_build.log").write_text(
-        "\n".join(f"== {k}\n{v}" for k, v in _build.build_logs().items()))
+        "\n".join(f"== {k}\n{v}" for k, v in logs.items())
+        + f"\n== flash_prefill SASS: HGMMA instructions by head dim "
+          f"(cuobjdump -sass)\n{json.dumps(hgmma)}\n")
+    emit("build_prefill_sass", hgmma=hgmma,
+         registers=_ptxas_registers(logs["flash_prefill"], "flash_prefill"),
+         ptxas=[ln.strip() for ln in logs["flash_prefill"].splitlines()
+                if "Used" in ln or "smem" in ln or "spill" in ln])
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     pre = [prefill_case(s, s, 0, gen) for s in (37, 512, 1024)]
@@ -1510,8 +1626,13 @@ def main(argv=None) -> int:
     for name, c in ver.items():
         emit(f"kernel_{name[6:]}", **c)
     hd_cases = head_dim_cases(gen)
+    hd_cases += verify_over_64_cases(gen)
     for phase, c in hd_cases:
         emit(phase, **c)
+    pre_ext = prefill_extend_cases(gen)
+    for c in pre_ext:
+        emit("kernel_prefill_bitwise", **c)
+    hd_cases += [("kernel_prefill", c) for c in pre_ext]
     build_log = (OUT_DIR / "chip_smoke_build.log").read_text()
     rout = router_cases(gen, build_log)
     for c in rout:

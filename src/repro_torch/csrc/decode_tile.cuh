@@ -51,7 +51,8 @@ namespace decode_tile {
 
 constexpr int NT = 128;            // threads per block = keys per tile
 constexpr int MAX_R = 8;           // rows updated together (registers)
-constexpr int MAX_ROWS = 64;       // rows one block holds (G or G*W)
+constexpr int MAX_ROWS = 64;       // rows one block holds (G, or a
+                                   // chunk of G*W)
 constexpr int NWARP = NT / 32;
 constexpr float NEG_INF = -1e30f;
 
@@ -256,15 +257,17 @@ __device__ __forceinline__ void tile_update(
 }
 
 // The whole block: `nrows` query rows (q rows contiguous at qp, out rows
-// at op), row i = g * W + w at key limit kv_len - W + w + 1, clamped to
-// [0, Sk]. Decode is W = 1. Needs dyn_smem_bytes<HD>(nrows) of dynamic
-// shared memory.
+// at op), the rows row0 .. row0 + nrows - 1 of the kv head's G * W; row
+// i = g * W + w at key limit kv_len - W + w + 1, clamped to [0, Sk].
+// Decode is W = 1, row0 = 0. A verify block holds a chunk of at most
+// MAX_ROWS rows; which chunk does not change a row's arithmetic. Needs
+// dyn_smem_bytes<HD>(nrows) of dynamic shared memory.
 template <int HD, class Rows>
 __device__ __forceinline__ void attend_rows(
     const __nv_bfloat16* __restrict__ qp, __nv_bfloat16* __restrict__ op,
     const __nv_bfloat16* __restrict__ kc,
-    const __nv_bfloat16* __restrict__ vc, const Rows& rows, int nrows,
-    int W, int kv_len, int Sk, float cap, float scale) {
+    const __nv_bfloat16* __restrict__ vc, const Rows& rows, int row0,
+    int nrows, int W, int kv_len, int Sk, float cap, float scale) {
   __shared__ float sP[MAX_R * NT];
   __shared__ float sRed[MAX_R * NWARP];
   __shared__ float sM[MAX_ROWS], sL[MAX_ROWS];
@@ -293,7 +296,7 @@ __device__ __forceinline__ void attend_rows(
     sAcc[i] = 0.f;
   }
   for (int r = t; r < nrows; r += NT) {
-    const int lim = kv_len - W + r % W + 1;
+    const int lim = kv_len - W + (row0 + r) % W + 1;
     sLim[r] = lim < 0 ? 0 : (lim > Sk ? Sk : lim);
     sM[r] = NEG_INF;
     sL[r] = 0.f;
@@ -316,8 +319,8 @@ __device__ __forceinline__ void attend_rows(
 }
 
 // Host side: allow `rows` rows' dynamic shared memory for `kernel` (an
-// instance for head dim HD) and check the row limit. Returns a CUDA
-// error code.
+// instance for head dim HD) and check the row limit of one block (a
+// verify block's chunk). Returns a CUDA error code.
 template <int HD, class Kernel>
 inline cudaError_t prepare(Kernel kernel, int rows) {
   if (rows <= 0 || rows > MAX_ROWS) return cudaErrorInvalidValue;

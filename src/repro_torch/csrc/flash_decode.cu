@@ -40,8 +40,8 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
   const int hk = blockIdx.x, b = blockIdx.y;
   const long long row0 = ((long long)b * Hkv * G + (long long)hk * G) * HD;
   const DenseRows<HD> rows{((long long)b * Hkv + hk) * Sk * HD};
-  attend_rows<HD>(q + row0, out + row0, kc, vc, rows, G, 1, kv_len[b], Sk,
-                  cap, scale);
+  attend_rows<HD>(q + row0, out + row0, kc, vc, rows, 0, G, 1, kv_len[b],
+                  Sk, cap, scale);
 }
 
 }  // namespace

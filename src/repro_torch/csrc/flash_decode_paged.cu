@@ -40,7 +40,7 @@ flash_decode_paged_kernel(const __nv_bfloat16* __restrict__ q,
   const int hk = blockIdx.x, b = blockIdx.y;
   const long long row0 = ((long long)b * Hkv * G + (long long)hk * G) * HD;
   const PagedRows<HD> rows{tab + (long long)b * mb, nb, Hkv, hk, bs};
-  attend_rows<HD>(q + row0, out + row0, kp, vp, rows, G, 1, kv_len[b],
+  attend_rows<HD>(q + row0, out + row0, kp, vp, rows, 0, G, 1, kv_len[b],
                   mb * bs, cap, scale);
 }
 

@@ -12,10 +12,17 @@
 // all G*W rows of a kv head (15 at G = 3, K = 4); the operations grow
 // with W but stay far below the card's ~295 per byte.
 //
-// Design: one thread block per (kv head, slot) holds all G*W rows, so
-// each K/V tile is staged once for all of them (decode_tile.cuh's
-// routine, taking the rows in groups of 8 with m and l in shared
-// memory). Row (g, w) has the key limit kv_len[b] - W + w + 1; the block
+// Design: one thread block per (kv head, slot) holds its G*W rows when
+// they are at most MAX_ROWS = 64, else one block per chunk of at most 64
+// of them (a third grid axis; 72 rows at G = 8, W = 9 are chunks of 64
+// and 8), so any W works; each K/V tile is staged once for a block's
+// rows (decode_tile.cuh's routine, taking the rows in groups of 8 with m
+// and l in shared memory). The two cases are two instances of a kernel:
+// in one block the instance compiles as it did before chunks existed;
+// one chunked kernel for both took 22% longer at W = 5 and head dim 32
+// on an H100 80GB HBM3 at 700 W (72 registers and spills against 56).
+// Row (g, w) has the key limit kv_len[b] - W + w + 1 whichever chunk
+// holds it (the chunk passes its first row's index); the block
 // loops to the largest limit; a row takes part only in the tiles that
 // start below its own limit, and its P.V loop runs only to that limit.
 // Each row therefore repeats flash_decode's operations for one token at
@@ -28,7 +35,10 @@ namespace {
 
 using namespace decode_tile;
 
-template <int HD>
+// CHUNKED: blockIdx.z picks a chunk of at most MAX_ROWS of the kv head's
+// G*W rows; otherwise one block holds all G*W (<= MAX_ROWS) of them and
+// compiles to the code of a block without chunks.
+template <int HD, bool CHUNKED>
 __global__ void __launch_bounds__(NT)
 flash_verify_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ kc,
@@ -37,14 +47,16 @@ flash_verify_kernel(const __nv_bfloat16* __restrict__ q,
                     __nv_bfloat16* __restrict__ out, int Hkv, int G, int W,
                     int Sk, float cap, float scale) {
   const int hk = blockIdx.x, b = blockIdx.y;
+  const int r0 = CHUNKED ? blockIdx.z * MAX_ROWS : 0;
+  const int nrows = CHUNKED ? min(MAX_ROWS, G * W - r0) : G * W;
   const long long row0 =
-      ((long long)b * Hkv * G + (long long)hk * G) * W * HD;
+      (((long long)b * Hkv * G + (long long)hk * G) * W + r0) * HD;
   const DenseRows<HD> rows{((long long)b * Hkv + hk) * Sk * HD};
-  attend_rows<HD>(q + row0, out + row0, kc, vc, rows, G * W, W, kv_len[b],
-                  Sk, cap, scale);
+  attend_rows<HD>(q + row0, out + row0, kc, vc, rows, r0, nrows, W,
+                  kv_len[b], Sk, cap, scale);
 }
 
-template <int HD>
+template <int HD, bool CHUNKED>
 __global__ void __launch_bounds__(NT)
 flash_verify_paged_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ kp,
@@ -55,11 +67,26 @@ flash_verify_paged_kernel(const __nv_bfloat16* __restrict__ q,
                           int W, int nb, int bs, int mb, float cap,
                           float scale) {
   const int hk = blockIdx.x, b = blockIdx.y;
+  const int r0 = CHUNKED ? blockIdx.z * MAX_ROWS : 0;
+  const int nrows = CHUNKED ? min(MAX_ROWS, G * W - r0) : G * W;
   const long long row0 =
-      ((long long)b * Hkv * G + (long long)hk * G) * W * HD;
+      (((long long)b * Hkv * G + (long long)hk * G) * W + r0) * HD;
   const PagedRows<HD> rows{tab + (long long)b * mb, nb, Hkv, hk, bs};
-  attend_rows<HD>(q + row0, out + row0, kp, vp, rows, G * W, W, kv_len[b],
-                  mb * bs, cap, scale);
+  attend_rows<HD>(q + row0, out + row0, kp, vp, rows, r0, nrows, W,
+                  kv_len[b], mb * bs, cap, scale);
+}
+
+// Launch `kernel` (an instance for head dim HD) over (Hkv, B) and, where
+// CHUNKED, over the ceil(rows / MAX_ROWS) chunks of a kv head's rows.
+template <int HD, bool CHUNKED, class Kernel, class... Args>
+cudaError_t launch_rows(Kernel kernel, int rows, int Hkv, int B,
+                        cudaStream_t stream, Args... args) {
+  const int chunk = CHUNKED ? MAX_ROWS : rows;
+  cudaError_t err = prepare<HD>(kernel, chunk);
+  if (err != cudaSuccess || B == 0) return err;
+  dim3 grid(Hkv, B, CHUNKED ? (rows + MAX_ROWS - 1) / MAX_ROWS : 1);
+  kernel<<<grid, NT, dyn_smem_bytes<HD>(chunk), stream>>>(args...);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -76,15 +103,15 @@ extern "C" int flash_verify_bf16(const void* q, const void* k_cache,
   const int rows = Hq / Hkv * W;
   return (int)dispatch_hd(hd, [&](auto hd_c) {
     constexpr int HD = decltype(hd_c)::value;
-    cudaError_t err = prepare<HD>(flash_verify_kernel<HD>, rows);
-    if (err != cudaSuccess || B == 0) return err;
-    dim3 grid(Hkv, B);
-    flash_verify_kernel<HD><<<grid, NT, dyn_smem_bytes<HD>(rows),
-                              (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_cache,
-        (const __nv_bfloat16*)v_cache, (const int*)kv_len,
-        (__nv_bfloat16*)out, Hkv, Hq / Hkv, W, Sk, cap, scale);
-    return cudaGetLastError();
+    auto go = [&](auto chunked) {
+      constexpr bool C = decltype(chunked)::value;
+      return launch_rows<HD, C>(
+          flash_verify_kernel<HD, C>, rows, Hkv, B, (cudaStream_t)stream,
+          (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_cache,
+          (const __nv_bfloat16*)v_cache, (const int*)kv_len,
+          (__nv_bfloat16*)out, Hkv, Hq / Hkv, W, Sk, cap, scale);
+    };
+    return rows > MAX_ROWS ? go(std::true_type{}) : go(std::false_type{});
   });
 }
 
@@ -104,15 +131,15 @@ extern "C" int flash_verify_paged_bf16(const void* q, const void* k_pages,
   const int rows = Hq / Hkv * W;
   return (int)dispatch_hd(hd, [&](auto hd_c) {
     constexpr int HD = decltype(hd_c)::value;
-    cudaError_t err = prepare<HD>(flash_verify_paged_kernel<HD>, rows);
-    if (err != cudaSuccess || B == 0) return err;
-    dim3 grid(Hkv, B);
-    flash_verify_paged_kernel<HD><<<grid, NT, dyn_smem_bytes<HD>(rows),
-                                    (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pages,
-        (const __nv_bfloat16*)v_pages, (const int*)block_tab,
-        (const int*)kv_len, (__nv_bfloat16*)out, Hkv, Hq / Hkv, W, nb, bs,
-        mb, cap, scale);
-    return cudaGetLastError();
+    auto go = [&](auto chunked) {
+      constexpr bool C = decltype(chunked)::value;
+      return launch_rows<HD, C>(
+          flash_verify_paged_kernel<HD, C>, rows, Hkv, B,
+          (cudaStream_t)stream, (const __nv_bfloat16*)q,
+          (const __nv_bfloat16*)k_pages, (const __nv_bfloat16*)v_pages,
+          (const int*)block_tab, (const int*)kv_len, (__nv_bfloat16*)out,
+          Hkv, Hq / Hkv, W, nb, bs, mb, cap, scale);
+    };
+    return rows > MAX_ROWS ? go(std::true_type{}) : go(std::false_type{});
   });
 }

@@ -23,7 +23,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import decode_attention_ref
 
 HEAD_DIMS = (32, 64, 128)     # the head dims the kernels are built for
-MAX_ROWS = 64     # the most q rows one block holds (decode_tile.cuh)
+MAX_ROWS = 64     # the most q rows one block holds (decode_tile.cuh):
+                  # decode's G; verify takes its G*W rows in chunks of it
 # q, k_cache, v_cache, kv_len, out; B, Hq, Hkv, Sk, hd; cap, scale; stream
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_float] * 2 + [ctypes.c_void_p])
@@ -33,7 +34,8 @@ def check_cache(kernel: str, q, k_cache, v_cache, W: int = 0):
     """Shared checks of the dense decode-family kernels: contiguous bf16
     q (B,Hq,hd) (decode: W = 0) or (B,Hq,W,hd) (verify), caches
     (B,Hkv,Sk,hd) on q's device, hd in HEAD_DIMS, Hq a multiple of Hkv
-    and at most MAX_ROWS query rows per kv head. Raises ValueError."""
+    and, for decode, at most MAX_ROWS q heads per kv head (verify takes
+    any W). Raises ValueError."""
     for name, t, nd in (("q", q, 4 if W else 3),
                         ("k_cache", k_cache, 4), ("v_cache", v_cache, 4)):
         _build.check_tensor(kernel, name, t, torch.bfloat16, nd, q.device)
@@ -41,11 +43,11 @@ def check_cache(kernel: str, q, k_cache, v_cache, W: int = 0):
     Hkv = k_cache.shape[1]
     if (hd not in HEAD_DIMS or k_cache.shape[0] != B
             or k_cache.shape[3] != hd or v_cache.shape != k_cache.shape
-            or Hq % Hkv or Hq // Hkv * max(W, 1) > MAX_ROWS):
+            or Hq % Hkv or (not W and Hq // Hkv > MAX_ROWS)):
         raise ValueError(f"{kernel}: unsupported shapes q {tuple(q.shape)} "
                          f"caches {tuple(k_cache.shape)} (head dim in "
-                         f"{HEAD_DIMS}, Hq % Hkv == 0, rows per kv head "
-                         f"<= {MAX_ROWS})")
+                         f"{HEAD_DIMS}, Hq % Hkv == 0, decode rows per kv "
+                         f"head <= {MAX_ROWS})")
 
 
 def flash_decode(q, k_cache, v_cache, kv_len, *, cap: float = 0.0,

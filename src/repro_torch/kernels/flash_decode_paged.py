@@ -30,7 +30,8 @@ _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
 
 def check_pages(kernel: str, q, k_pages, v_pages, block_tab, G_rows: int):
     """Shared shape checks of the paged kernels: pools (nb,Hkv,bs,hd)
-    bf16, a (B,mb) int32 table, head dim and rows per block."""
+    bf16, a (B,mb) int32 table, head dim and the rows of one block
+    (``G_rows``: decode's G; 0 for verify, whose rows come in chunks)."""
     dev = q.device
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         _build.check_tensor(kernel, name, t, torch.bfloat16, 4, dev)
@@ -43,8 +44,8 @@ def check_pages(kernel: str, q, k_pages, v_pages, block_tab, G_rows: int):
         raise ValueError(f"{kernel}: unsupported shapes q {tuple(q.shape)} "
                          f"pages {tuple(k_pages.shape)} table "
                          f"{tuple(block_tab.shape)} (head dim in "
-                         f"{HEAD_DIMS}, Hq % Hkv == 0, rows per kv head "
-                         f"<= {MAX_ROWS})")
+                         f"{HEAD_DIMS}, Hq % Hkv == 0, decode rows per kv "
+                         f"head <= {MAX_ROWS})")
 
 
 def flash_decode_paged(q, k_pages, v_pages, block_tab, kv_len, *,

@@ -3,11 +3,12 @@ version.
 
 Replaces the JAX package's Pallas TPU kernel ``flash_prefill``
 (``src/repro/kernels/flash_prefill.py``). The CUDA source,
-``csrc/flash_prefill.cu``, carries the design note: one block per
-(64-row q tile, q head, batch), an in-block loop over 64-key tiles up to
-the tile's causal bound, fp32 m/l/acc, row-independent arithmetic so
-prefill and extend give the same bits for a row at the same position;
-head dims 32, 64 and 128.
+``csrc/flash_prefill.cu``, carries the design note: one warpgroup per
+(64-row q tile, q head, batch), both products on the tensor cores
+(``wgmma``; P rounded to bf16 for P V), Q and a ring of 64-key K/V tiles
+loaded by TMA, fp32 m/l/acc, and row arithmetic that does not depend on
+the row's place in its tile, so prefill and extend give the same bits
+for a row at the same position; head dims 32, 64 and 128.
 
 On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
 tensor it runs the plain version, ``ref.attention_ref``.

@@ -4,8 +4,9 @@ wrappers and their plain versions.
 Replaces the JAX package's Pallas TPU kernels ``flash_verify`` and
 ``flash_verify_paged`` (``src/repro/kernels/flash_verify.py``). The CUDA
 source, ``csrc/flash_verify.cu``, carries the design note: one block per
-(kv head, slot) holding all G*W query rows, each K/V tile staged once
-for all of them, and row w at key limit ``kv_len - W + w + 1`` running
+(kv head, slot, chunk of at most 64 of its G*W query rows), each K/V
+tile staged once for a chunk's rows, so any W works, and row w at key
+limit ``kv_len - W + w + 1`` running
 exactly flash_decode's operations for that limit, so every verify row is
 bitwise the decode row at its position.
 
@@ -81,8 +82,7 @@ def flash_verify_paged(q, k_pages, v_pages, block_tab, kv_len, *,
                         q.device)
     B, Hq, W, hd = q.shape
     nb, Hkv, bs = k_pages.shape[:3]
-    check_pages("flash_verify_paged", q, k_pages, v_pages, block_tab,
-                Hq // max(Hkv, 1) * W)
+    check_pages("flash_verify_paged", q, k_pages, v_pages, block_tab, 0)
     mb = block_tab.shape[1]
     kvl = _build.kv_len_i32(kv_len, B, q.device)
     scale = scale if scale else 1.0 / math.sqrt(hd)

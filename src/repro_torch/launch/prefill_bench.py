@@ -16,7 +16,12 @@ host clock around the call and a synchronize (median of REPS after two
 warm-up calls), so launch overhead counts. ``--norm-ab`` times each
 phase with the RMS norms in fixed-size calls (the tree's) and in one call
 of all rows (the plain norm), alternated call by call in one process: the
-cost of the fixed-size norm on each phase.
+cost of the fixed-size norm on each phase. Without ``--norm-ab`` each
+phase then runs PROFILE_REPS times under ``torch.profiler``: the
+device's busy time per call (the self device time of every kernel),
+flash_prefill's part of it, the kernels per call and the device's idle
+share of the profiled wall time, which says whether a phase waits on the
+device or on the host's launches.
 
 The script imports ``repro_torch`` from the path, so one copy of it
 times two source trees in one session (``PYTHONPATH=<tree>/src``).
@@ -54,6 +59,7 @@ NORM_ROW_COUNTS = (1, 2, 4, 8, 12, 16, 36, 128, 276, 1024)
 NORM_WIDTHS = (768, 1600, 7168)     # planner and xlstm, hymba, MoE
 BLOCK = 128
 REPS = 20
+PROFILE_REPS = 5
 # (K, N, dtype) of the products prefill and extend issue: the planner
 # (q, kv, out, MLP), kimi-k2 (q, kv, out, dense and shared MLP, router),
 # arctic (q and out, dense residual, router)
@@ -184,6 +190,33 @@ def _median_ab_ms(fn, reps: int) -> dict:
     return {f"{k}_norm_ms": statistics.median(v) for k, v in ts.items()}
 
 
+def _profile(fn, reps: int) -> dict:
+    """fn under torch.profiler, per call: the host clock around the calls
+    and a synchronize, the device's busy time and flash_prefill's part
+    of it, the kernel count, and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / reps
+    dev = [e for e in prof.key_averages() if "CUDA" in str(e.device_type)]
+    dev_t = lambda e: getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0.0))
+    busy = sum(dev_t(e) for e in dev) / 1e3 / reps
+    return dict(profiled_wall_ms=wall, device_busy_ms=busy,
+                flash_prefill_ms=sum(dev_t(e) for e in dev
+                                     if "flash_prefill" in e.key)
+                / 1e3 / reps,
+                kernels=sum(e.count for e in dev) / reps,
+                device_idle_share=1 - busy / wall)
+
+
 @torch.no_grad()
 def time_phases(arch: str, reps: int, norm_ab: bool = False) -> dict:
     import numpy as np
@@ -210,7 +243,9 @@ def time_phases(arch: str, reps: int, norm_ab: bool = False) -> dict:
                 model, prefix_cache, {"tokens": toks[:, 1300:1316]}))
     if norm_ab:
         return {k: _median_ab_ms(f, reps) for k, f in phases.items()}
-    return {f"{k}_ms": _median_ms(f, reps) for k, f in phases.items()}
+    out = {f"{k}_ms": _median_ms(f, reps) for k, f in phases.items()}
+    out["profile"] = {k: _profile(f, PROFILE_REPS) for k, f in phases.items()}
+    return out
 
 
 def main(argv=None) -> int:

@@ -268,13 +268,22 @@ def test_paged_decode_is_dense_decode_on_the_gathered_view():
     assert torch.equal(flash_decode_paged(q, kp, vp, tab, kvl), dense)
 
 
-@pytest.mark.parametrize("G", [2, 3])
-def test_verify_matches_oracle(G):
+# (G, W, hd): --draft-k 4 at G = 2, 3; and more than 64 rows per (kv
+# head, slot), which the card's verify kernels take in chunks of 64:
+# kimi-k2's G = 8 at --draft-k 8 (72 rows), the planner's G = 3 at
+# --draft-k 21 (66 rows), at a narrow head dim
+OVER_64_ROWS = [pytest.param(8, 9, 32, id="8-9-32"),
+                pytest.param(3, 22, 32, id="3-22-32")]
+VERIFY_SHAPES = [pytest.param(2, 5, 64, id="2"),
+                 pytest.param(3, 5, 64, id="3"), *OVER_64_ROWS]
+
+
+@pytest.mark.parametrize("G,W,hd", VERIFY_SHAPES)
+def test_verify_matches_oracle(G, W, hd):
     """Fused oracle and the CPU path's row-wise version vs the JAX
     oracle; every row has keys (kv_len >= W, as in the engine)."""
-    W = 5
-    q, k, v = _inputs(10 + G, 3, 2 * G, 2, W, 64)
-    kvl = np.array([7, 40, 64], np.int32)
+    q, k, v = _inputs(10 + G, 3, 2 * G, 2, W, 64, hd)
+    kvl = np.array([max(7, W), 40, 64], np.int32)
     want = JR.verify_attention_ref(*map(jnp.asarray, (q, k, v, kvl)))
     args = tuple(map(torch.from_numpy, (q, k, v, kvl)))
     _close(TR.verify_attention_ref(*args), want)
@@ -292,11 +301,21 @@ def test_verify_rows_are_decode_rows_bitwise():
 
 
 def test_paged_verify_matches_oracle_and_dense_view():
-    W = 4
-    kp, vp = _pool(13)
-    q = np.random.default_rng(14).standard_normal((3, 4, W, 64),
+    _paged_verify_case(2, 4, 64)
+
+
+@pytest.mark.parametrize("G,W,hd", OVER_64_ROWS)
+def test_paged_verify_matches_oracle_and_dense_view_over_64_rows(G, W, hd):
+    _paged_verify_case(G, W, hd)
+
+
+def _paged_verify_case(G, W, hd):
+    """Paged verify (fused oracle and the CPU path) vs the JAX oracle,
+    and bitwise dense verify on the gathered view."""
+    kp, vp = _pool(13, hd=hd)
+    q = np.random.default_rng(14).standard_normal((3, 2 * G, W, hd),
                                                   dtype=np.float32)
-    kvl = np.array([37, 19, 64], np.int32)
+    kvl = np.array([37, max(19, W), 64], np.int32)
     args = tuple(map(torch.from_numpy, (q, kp, vp, TABS, kvl)))
     want = JR.paged_verify_attention_ref(
         *map(jnp.asarray, (q, kp, vp, TABS, kvl)))
@@ -317,13 +336,14 @@ def _card():
     return torch.device("cuda")
 
 
+@pytest.mark.parametrize("hd", [64, 128, 32])
 @pytest.mark.parametrize("Sq,Sk,q_offset,cap,window", [
     (37, 37, 0, 0.0, 0), (16, 2048, 700, 0.0, 0), (130, 300, 170, 0.0, 0),
     (100, 100, 0, 20.0, 0), (100, 200, 90, 0.0, 33)])
-def test_flash_prefill_kernel_on_card(Sq, Sk, q_offset, cap, window):
+def test_flash_prefill_kernel_on_card(Sq, Sk, q_offset, cap, window, hd):
     dev = _card()
     q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16)
-               for a in _inputs(Sq, 1, 12, 4, Sq, Sk))
+               for a in _inputs(Sq, 1, 12, 4, Sq, Sk, hd))
     before = flash_prefill.launches
     out = flash_prefill(q, k, v, causal=True, q_offset=q_offset, cap=cap,
                         window=window)
@@ -333,6 +353,31 @@ def test_flash_prefill_kernel_on_card(Sq, Sk, q_offset, cap, window):
     assert flash_prefill.launches == before + 1
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-2,
                                rtol=1e-2)
+
+
+@pytest.mark.parametrize("hd", [64, 128, 32])
+@pytest.mark.parametrize("cap,window", [(0.0, 0), (30.0, 0), (0.0, 100)])
+def test_flash_prefill_extend_rows_are_prefill_rows_on_card(hd, cap, window):
+    """The kernel's row contract: a row has the same bits in one 300-row
+    prefill and in extends that hold it (any q_offset, any Sq, any place
+    in its 64-row tile) against a 512-row cache whose rows past the
+    extend are stale."""
+    dev = _card()
+    rng = np.random.default_rng(hd)
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(
+        s, dtype=np.float32)).to(dev, torch.bfloat16)
+    q, kc, vc = mk(1, 12, 300, hd), mk(1, 4, 512, hd), mk(1, 4, 512, hd)
+    kw = dict(causal=True, cap=cap, window=window)
+    full = flash_prefill(q, kc[:, :, :300].contiguous(),
+                         vc[:, :, :300].contiguous(), **kw)
+    for off, sq in ((1, 100), (63, 1), (64, 64), (200, 100), (292, 8)):
+        kx, vx = kc.clone(), vc.clone()
+        kx[:, :, off + sq:] = mk(1, 4, 512 - off - sq, hd)
+        vx[:, :, off + sq:] = mk(1, 4, 512 - off - sq, hd)
+        ext = flash_prefill(q[:, :, off:off + sq].contiguous(), kx, vx,
+                            q_offset=off, **kw)
+        assert torch.equal(ext, full[:, :, off:off + sq]), (off, sq)
+    torch.cuda.synchronize()
 
 
 def test_flash_decode_kernel_on_card():

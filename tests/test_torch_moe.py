@@ -241,7 +241,7 @@ def _checks(hd, G=2, W=5):
             _bf(1, 2, 8, hd), W),
         "flash_verify_paged": lambda: check_pages(
             "flash_verify_paged", _bf(1, 2 * G, W, hd), _bf(4, 2, 16, hd),
-            _bf(4, 2, 16, hd), tab, G * W)}
+            _bf(4, 2, 16, hd), tab, 0)}
 
 
 @pytest.mark.parametrize("hd", [16, 96, 256])
@@ -258,6 +258,20 @@ def test_attention_wrappers_take_the_moe_head_dims(hd, G):
     rows a block, inside MAX_ROWS."""
     for check in _checks(hd, G=G).values():
         check()
+
+
+@pytest.mark.parametrize("G,W", [(8, 9), (3, 22)])
+def test_verify_wrappers_take_more_than_64_rows(G, W):
+    """kimi's G = 8 at --draft-k 8 (72 rows) and the planner's G = 3 at
+    --draft-k 21 (66 rows): the verify kernels take a kv head's G*W rows
+    in chunks of 64, so their checks pass; decode's G stays capped."""
+    checks = _checks(64, G=G, W=W)
+    checks["flash_verify"]()
+    checks["flash_verify_paged"]()
+    from repro_torch.kernels.flash_decode import check_cache
+    with pytest.raises(ValueError, match="decode rows per kv head <= 64"):
+        check_cache("flash_decode", _bf(1, 130, 64), _bf(1, 2, 8, 64),
+                    _bf(1, 2, 8, 64))
 
 
 # ------------------------------------------------- on the card only ----
