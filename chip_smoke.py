@@ -10,9 +10,18 @@ kernels at the served planner's shapes (head dim 64) and at head dims
 128 and 32 with the MoE families' heads (kimi-k2's 64/8 and arctic's
 56/8), each time with the decode family's bitwise contracts (paged
 decode == decode on the gathered view, each verify row == the decode row
-at its position, paged verify == verify on the gathered view), also
-with more than 64 verify rows per (kv head, slot) (kimi's G = 8 at W =
-9, the planner's G = 3 at W = 22); flash_prefill's row contract, bitwise:
+at its position, paged verify == verify on the gathered view, every
+dense decode case == the paged twin over an identity table on its own
+cache), also with more than 64 verify rows per (kv head, slot) (kimi's
+G = 8 at W = 9, the planner's G = 3 at W = 22), and a sweep of the dense
+decode and verify kernels against their paged twins, bitwise, at G 3, 5,
+7, 8, W 1, 5, 9, 22, head dims 32, 64, 128, with and without a softcap
+(the twins keep the routine the dense kernels were redesigned from, so
+they are the oracle of the dense kernels' bits); the decode family's
+cases give the device time per call (``torch.profiler``) of the kernel
+and of SDPA beside the CUDA-event times, and the dense decode kernels'
+registers and spills per instance (``-Xptxas -v``); flash_prefill's row
+contract, bitwise:
 a 1,300-token prefill's rows against extends at six offsets over a
 stale 2,048-row cache, at head dims 64, 128 and 32, causal, windowed and
 softcapped; the MoE router at the MoE families' (tokens, experts,
@@ -78,7 +87,9 @@ Tolerances:
     p, inside the same tolerance;
   * flash_prefill's rows in prefill and in extend: bitwise;
   * within the decode family (decode, paged decode, verify, paged
-    verify): bitwise (``torch.equal``), by design of decode_tile.cuh;
+    verify): bitwise (``torch.equal``), by design: decode_warp.cuh (the
+    dense kernels) does each row's operations as decode_tile.cuh (the
+    paged twins) does, in the same order;
   * card vs CPU logits (fp32 head over a 12-layer bf16 stack, matmuls
     rounded differently on the two devices): max |diff| <= LOGIT_TOL;
     for the MoE smoke configs on the tokens whose routes agree in every
@@ -129,6 +140,10 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.launch.decode_bench import (  # noqa: E402
+    HYMBA_RINGS, KV_LENS, cuda_ms, device_ms)
+from repro_torch.kernels.ref import identity_pool  # noqa: E402
 OUT_DIR = ROOT / "chiprun_out"
 KERNEL_ATOL = KERNEL_RTOL = 1e-2
 LOGIT_TOL = 0.1
@@ -142,7 +157,6 @@ T_START = time.time()
 # slots of a 2048-row cache, 16-row blocks of a 1,024-block pool, and
 # the verify window of --draft-k 4
 B_SLOTS, HQ, HKV, HD, CACHE, BS, NB, WIN = 8, 12, 4, 64, 2048, 16, 1024, 5
-KV_LENS = [1, 2048, 300, 1025, 64, 777, 1300, 2]
 
 
 def emit(phase: str, **kw):
@@ -157,21 +171,13 @@ def check(ok: bool, msg: str):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound(bytes_moved: float, flops: float, flop_s: float = BF16_FLOP_S):
-    t_b, t_f = bytes_moved / HBM_BYTES_S, flops / flop_s
+def bound(bytes_moved: float, flops: float, flop_s: float = BF16_FLOP_S,
+          fp32_flops: float = 0.0):
+    """Least time (ms) and what sets it: the bytes over HBM's rate, or
+    ``flops`` at ``flop_s`` plus ``fp32_flops`` at the fp32 rate (the
+    decode family's Q K^T has bf16 operands, its P V an fp32 p)."""
+    t_b = bytes_moved / HBM_BYTES_S
+    t_f = flops / flop_s + fp32_flops / FP32_FLOP_S
     return (1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations")
 
 
@@ -221,7 +227,12 @@ def prefill_case(Sq, Sk, q_offset, gen, heads=(HQ, HKV, HD), window=0):
 
 
 def decode_case(kv_len_list, Sk, gen, heads=(HQ, HKV, HD)):
+    """flash_decode against its plain version and, bitwise, against
+    flash_decode_paged over an identity table on the same cache (the
+    paged twin keeps the routine the dense kernel was redesigned from);
+    its CUDA-event and device times beside SDPA's and the bound."""
     from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_decode_paged import flash_decode_paged
     from repro_torch.kernels.ref import decode_attention_ref
     import torch.nn.functional as F
     B, (Hq, Hkv, hd) = len(kv_len_list), heads
@@ -231,17 +242,27 @@ def decode_case(kv_len_list, Sk, gen, heads=(HQ, HKV, HD)):
     out = flash_decode(q, kc, vc, kvl)
     ref = decode_attention_ref(q, kc, vc, kvl)
     err = err_ok(out, ref)
+    (kp, tab), (vp, _) = identity_pool(kc, BS), identity_pool(vc, BS)
+    check(torch.equal(out, flash_decode_paged(q, kp, vp, tab, kvl)),
+          f"flash_decode != flash_decode_paged over an identity table at "
+          f"heads {heads}, Sk {Sk}")
     mask = (torch.arange(Sk, device="cuda")[None, :]
             < kvl[:, None].long())[:, None, None, :]           # (B,1,1,Sk)
-    ms = cuda_ms(lambda: flash_decode(q, kc, vc, kvl))
+    run = lambda: flash_decode(q, kc, vc, kvl)
+    sdpa = lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True)
+    ms = cuda_ms(run)
     plain = cuda_ms(lambda: decode_attention_ref(q, kc, vc, kvl), iters=5)
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True))
+    lib = cuda_ms(sdpa)
     n = int(sum(kv_len_list))
     nbytes = 2 * hd * (2 * B * Hq + 2 * Hkv * n) + 4 * B
-    b_ms, b_by = bound(nbytes, 4 * hd * Hq * n)
+    b_ms, b_by = bound(nbytes, 2 * hd * Hq * n,
+                       fp32_flops=2 * hd * Hq * n)
     return dict(B=B, Sk=Sk, kv_len=kv_len_list, heads=list(heads),
-                max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                max_abs_err=err, bitwise_vs_paged_identity=True, ms=ms,
+                device_ms=device_ms(run, "flash_decode_kernel"),
+                plain_ms=plain, library_ms=lib,
+                library_device_ms=device_ms(sdpa),
                 bound_ms=b_ms, bound_by=b_by)
 
 
@@ -294,21 +315,25 @@ def paged_decode_case(gen, heads=(HQ, HKV, HD)):
           "flash_decode_paged != flash_decode on the gathered view")
     mask = (torch.arange(CACHE, device="cuda")[None, :]
             < kvl[:, None].long())[:, None, None, :]
-    ms = cuda_ms(lambda: flash_decode_paged(q, kp, vp, tab, kvl))
+    run = lambda: flash_decode_paged(q, kp, vp, tab, kvl)
+    sdpa = lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kg, vg, attn_mask=mask, enable_gqa=True)
+    ms = cuda_ms(run)
     plain = cuda_ms(lambda: paged_decode_attention_ref(q, kp, vp, tab, kvl),
                     iters=5)
-    gathered = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None], kg, vg, attn_mask=mask, enable_gqa=True))
     n = int(sum(KV_LENS))
     nbytes = 2 * hd * (2 * B_SLOTS * Hq + 2 * Hkv * n) + 4 * B_SLOTS \
         + 4 * used
-    b_ms, b_by = bound(nbytes, 4 * hd * Hq * n)
+    b_ms, b_by = bound(nbytes, 2 * hd * Hq * n,
+                       fp32_flops=2 * hd * Hq * n)
     return dict(B=B_SLOTS, kv_len=KV_LENS, block_size=BS, n_blocks=NB,
                 heads=list(heads),
                 max_abs_err=err, bitwise_vs_decode=True, ms=ms,
-                plain_ms=plain, library_ms=None,
-                sdpa_on_pregathered_view_ms=gathered, bound_ms=b_ms,
-                bound_by=b_by)
+                device_ms=device_ms(run, "flash_decode_paged_kernel"),
+                plain_ms=plain, library_ms=None, library_device_ms=None,
+                sdpa_on_pregathered_view_ms=cuda_ms(sdpa),
+                sdpa_on_pregathered_view_device_ms=device_ms(sdpa),
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def verify_cases(gen, heads=(HQ, HKV, HD), W=WIN):
@@ -334,7 +359,7 @@ def verify_cases(gen, heads=(HQ, HKV, HD), W=WIN):
             < lim[:, :, None])[:, None]                        # (B,1,W,Sk)
     nbytes = 2 * hd * (2 * B_SLOTS * Hq * W + 2 * Hkv * sum(KV_LENS)) \
         + 4 * B_SLOTS
-    flops = 4 * hd * Hq * int(lim.sum())
+    flops = 2 * hd * Hq * int(lim.sum())      # each product
     cases = {}
 
     out = flash_verify(q, kc, vc, kvl)
@@ -344,13 +369,15 @@ def verify_cases(gen, heads=(HQ, HKV, HD), W=WIN):
         row = flash_decode(q[:, :, w].contiguous(), kc, vc, lim[:, w])
         check(torch.equal(out[:, :, w], row),
               f"flash_verify row {w} != flash_decode at its position")
-    b_ms, b_by = bound(nbytes, flops)
+    run = lambda: flash_verify(q, kc, vc, kvl)
+    sdpa = lambda: F.scaled_dot_product_attention(
+        q, kc, vc, attn_mask=mask, enable_gqa=True)
+    b_ms, b_by = bound(nbytes, flops, fp32_flops=flops)
     cases["flash_verify"] = dict(
         max_abs_err=err, bitwise_rows_vs_decode=True,
-        ms=cuda_ms(lambda: flash_verify(q, kc, vc, kvl)),
+        ms=cuda_ms(run), device_ms=device_ms(run, "flash_verify_kernel"),
         plain_ms=cuda_ms(lambda: verify_rows_ref(q, kc, vc, kvl), iters=5),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, kc, vc, attn_mask=mask, enable_gqa=True)),
+        library_ms=cuda_ms(sdpa), library_device_ms=device_ms(sdpa),
         bound_ms=b_ms, bound_by=b_by)
 
     pout = flash_verify_paged(q, kp, vp, tab, kvl)
@@ -361,16 +388,19 @@ def verify_cases(gen, heads=(HQ, HKV, HD), W=WIN):
                          kvl))
     check(torch.equal(pout, flash_verify(q, kg, vg, kvl)),
           "flash_verify_paged != flash_verify on the gathered view")
-    b_ms, b_by = bound(nbytes + 4 * used, flops)
+    run = lambda: flash_verify_paged(q, kp, vp, tab, kvl)
+    sdpa = lambda: F.scaled_dot_product_attention(
+        q, kg, vg, attn_mask=mask, enable_gqa=True)
+    b_ms, b_by = bound(nbytes + 4 * used, flops, fp32_flops=flops)
     cases["flash_verify_paged"] = dict(
         max_abs_err=err, bitwise_vs_verify_gathered=True,
-        ms=cuda_ms(lambda: flash_verify_paged(q, kp, vp, tab, kvl)),
+        ms=cuda_ms(run),
+        device_ms=device_ms(run, "flash_verify_paged_kernel"),
         plain_ms=cuda_ms(lambda: paged_verify_rows_ref(q, kp, vp, tab,
                                                        kvl), iters=5),
-        library_ms=None,
-        sdpa_on_pregathered_view_ms=cuda_ms(
-            lambda: F.scaled_dot_product_attention(
-                q, kg, vg, attn_mask=mask, enable_gqa=True)),
+        library_ms=None, library_device_ms=None,
+        sdpa_on_pregathered_view_ms=cuda_ms(sdpa),
+        sdpa_on_pregathered_view_device_ms=device_ms(sdpa),
         bound_ms=b_ms, bound_by=b_by)
     for c in cases.values():
         c.update(B=B_SLOTS, W=W, rows=Hq // Hkv * W, kv_len=KV_LENS,
@@ -388,6 +418,54 @@ MOE_HEADS = {"kimi": (64, 8), "arctic": (56, 8)}
 ROUTER_CASES = [(8, 128, 2), (8, 384, 8), (1024, 128, 2), (1024, 384, 8),
                 (37, 384, 8)]
 ROUTER_WTOL = 1e-5
+
+
+# the dense decode kernels against their paged twins, bitwise, over an
+# identity table on the same cache: every group size the served configs
+# have (the planner's 3, hymba's 5, arctic's 7, kimi's 8), verify windows
+# W 1, 5, 9, 22 (--draft-k 0, 4, 8, 21), head dims 32, 64, 128, plain and
+# softcapped, over ragged slots that include an empty one and ones shorter
+# than W
+SWEEP_G, SWEEP_W, SWEEP_HD, SWEEP_CAP = (3, 5, 7, 8), (1, 5, 9, 22), \
+    (32, 64, 128), (0.0, 30.0)
+SWEEP_KV = [0, 1, 2048, 300, 1025, 21, 777, 1300]
+
+
+def decode_family_sweep(gen):
+    """flash_decode == flash_decode_paged and flash_verify ==
+    flash_verify_paged (``torch.equal``) at every SWEEP_* case: the
+    untouched routine of the paged twins is the oracle of the dense
+    kernels' bits."""
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_decode_paged import flash_decode_paged
+    from repro_torch.kernels.flash_verify import flash_verify, \
+        flash_verify_paged
+    kvl = torch.tensor(SWEEP_KV, dtype=torch.int32, device="cuda")
+    n = 0
+    for hd in SWEEP_HD:
+        kc, vc = _mk(gen, len(SWEEP_KV), 4, CACHE, hd), \
+            _mk(gen, len(SWEEP_KV), 4, CACHE, hd)
+        (kp, tab), (vp, _) = identity_pool(kc, BS), identity_pool(vc, BS)
+        for G in SWEEP_G:
+            for cap in SWEEP_CAP:
+                q = _mk(gen, len(SWEEP_KV), 4 * G, hd)
+                check(torch.equal(
+                    flash_decode(q, kc, vc, kvl, cap=cap),
+                    flash_decode_paged(q, kp, vp, tab, kvl, cap=cap)),
+                    f"flash_decode != flash_decode_paged at hd {hd}, G {G}, "
+                    f"cap {cap}")
+                for W in SWEEP_W:
+                    q = _mk(gen, len(SWEEP_KV), 4 * G, W, hd)
+                    check(torch.equal(
+                        flash_verify(q, kc, vc, kvl, cap=cap),
+                        flash_verify_paged(q, kp, vp, tab, kvl, cap=cap)),
+                        f"flash_verify != flash_verify_paged at hd {hd}, "
+                        f"G {G}, W {W}, cap {cap}")
+                n += 1 + len(SWEEP_W)
+    torch.cuda.synchronize()
+    return dict(G=list(SWEEP_G), W=list(SWEEP_W), hd=list(SWEEP_HD),
+                cap=list(SWEEP_CAP), kv_len=SWEEP_KV, Hkv=4, cases=n,
+                bitwise=True)
 
 
 # verify above 64 rows per (kv head, slot): the row-chunk grid axis at
@@ -487,6 +565,28 @@ def _ptxas_registers(log: str, symbol: str) -> list:
         if current and "Used" in line and "registers" in line:
             regs.append(line.split("Used")[1].split("registers")[0].strip())
     return regs
+
+
+def ptxas_instances(log: str, symbol: str) -> list:
+    """Registers and spill bytes nvcc reports (``-Xptxas -v``) for each
+    instance of the kernel ``symbol``, by head dim (its template
+    argument, read from the mangled name)."""
+    import re
+    out, cur = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(symbol + r"ILi(\d+)EE", line)
+            cur = dict(hd=int(m.group(1))) if m else None
+            if cur:
+                out.append(cur)
+        elif cur and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        elif cur and "Used" in line and "registers" in line:
+            cur["registers"] = int(line.split("Used")[1].split(
+                "registers")[0])
+    return out
 
 
 def prefill_sass(build: Path) -> dict:
@@ -641,8 +741,7 @@ def hymba_attention_cases(gen):
     tag = dict(family="hymba", hd=HYMBA_HEADS[2])
     out = [("kernel_prefill", dict(prefill_case(
         1300, 1300, 0, gen, HYMBA_HEADS, window=HYMBA_WINDOW), **tag))]
-    for kvl in ([HYMBA_WINDOW] * B_SLOTS,
-                [1, 300, 1024, 777, 64, 1000, 2, 513]):
+    for kvl in HYMBA_RINGS:
         out.append(("kernel_decode", dict(decode_case(
             kvl, HYMBA_WINDOW, gen, HYMBA_HEADS), ring=True, **tag)))
     return out
@@ -1018,9 +1117,10 @@ def _busy_engine(cfg, model, max_new: int, warm: int, **kw):
 def profile_decode(cfg, model, steps: int, trace: str):
     """Where a full-width decode step's time goes: device kernel time by
     name over ``steps`` engine steps with 8 busy slots, against the host
-    clock around the same steps; for an MoE stack also the router
-    kernel's time and the expert products' (``aten::bmm``, which only the
-    expert FFN calls)."""
+    clock around the same steps; the decode attention kernel's time and
+    share (the scans' for the hybrid and recurrent stacks); for an MoE
+    stack also the router kernel's time and the expert products'
+    (``aten::bmm``, which only the expert FFN calls)."""
     eng = _busy_engine(cfg, model, steps + 8, 4)
     wall, ev, dev, dev_t = _profiled(eng, steps, trace)
     busy_us = sum(dev_t(e) for e in dev)
@@ -1039,13 +1139,12 @@ def profile_decode(cfg, model, steps: int, trace: str):
             dev_t(e) for e in dev if "moe_router" in e.key) / 1e3 / steps
         res["expert_bmm_ms_per_step"] = sum(
             tot_t(e) for e in ev if e.key == "aten::bmm") / 1e3 / steps
-    if cfg.family in ("hybrid", "ssm"):
-        names = (("ssm_scan", "flash_decode") if cfg.family == "hybrid"
-                 else ("mlstm_scan",))
-        for name in names:
-            t = sum(dev_t(e) for e in dev if f"{name}_kernel" in e.key)
-            res[f"{name}_ms_per_step"] = t / 1e3 / steps
-            res[f"{name}_share_of_busy"] = t / max(busy_us, 1e-9)
+    names = {"hybrid": ("ssm_scan", "flash_decode"),
+             "ssm": ("mlstm_scan",)}.get(cfg.family, ("flash_decode",))
+    for name in names:
+        t = sum(dev_t(e) for e in dev if f"{name}_kernel" in e.key)
+        res[f"{name}_ms_per_step"] = t / 1e3 / steps
+        res[f"{name}_share_of_busy"] = t / max(busy_us, 1e-9)
     return res
 
 
@@ -1575,7 +1674,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.flash_decode_paged import flash_decode_paged
@@ -1610,6 +1708,13 @@ def main(argv=None) -> int:
          registers=_ptxas_registers(logs["flash_prefill"], "flash_prefill"),
          ptxas=[ln.strip() for ln in logs["flash_prefill"].splitlines()
                 if "Used" in ln or "smem" in ln or "spill" in ln])
+    dense_ptxas = {k: ptxas_instances(logs[k], f"{k}_kernel")
+                   for k in ("flash_decode", "flash_verify")}
+    check(all(sorted(i["hd"] for i in v) == [32, 64, 128]
+              and all(i.get("registers") for i in v)
+              for v in dense_ptxas.values()),
+          f"ptxas report lacks the dense decode instances: {dense_ptxas}")
+    emit("build_decode_ptxas", **dense_ptxas)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     pre = [prefill_case(s, s, 0, gen) for s in (37, 512, 1024)]
@@ -1629,6 +1734,7 @@ def main(argv=None) -> int:
     hd_cases += verify_over_64_cases(gen)
     for phase, c in hd_cases:
         emit(phase, **c)
+    emit("kernel_decode_family_sweep", **decode_family_sweep(gen))
     pre_ext = prefill_extend_cases(gen)
     for c in pre_ext:
         emit("kernel_prefill_bitwise", **c)
@@ -1690,6 +1796,9 @@ def main(argv=None) -> int:
                      "ms": c["ms"], "plain_ms": c["plain_ms"],
                      "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                      "library_ms": c["library_ms"]})
+        if "device_ms" in c:       # the decode family: profiler times
+            rows[-1].update(device_ms=c["device_ms"],
+                            library_device_ms=c["library_device_ms"])
     # the router: launches of the kimi-k2 dense serve; times at its decode
     # shape there (8 slots, 384 experts, top-8)
     c = next(c for c in rout if (c["T"], c["E"], c["k"]) == (8, 384, 8))

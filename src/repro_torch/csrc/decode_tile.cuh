@@ -1,13 +1,18 @@
-// The decode family's shared attention routine for Hopper (sm_90a).
+// The paged decode kernels' attention routine for Hopper (sm_90a).
 //
 // flash_decode, flash_decode_paged, flash_verify and flash_verify_paged
 // all compute, for some query rows of one (kv head, batch slot), the
 // online-softmax attention over the first `lim` keys of that slot's K/V
-// rows, each row with its own key limit. They differ only in where a
-// key's K/V row lives (a dense (Sk, hd) slab or a block of a paged pool
-// named by a block table) and in how many rows a block holds (G for
-// decode, G*W for verify). Everything else is here, so the four kernels
-// do the same arithmetic per query row over the same key partition:
+// rows, each row with its own key limit. Only the paged twins,
+// flash_decode_paged and flash_verify_paged, still run attend_rows (and
+// tile_update) below, until they move to the dense kernels' routine,
+// decode_warp.cuh's attend_warps, which does each row's operations
+// exactly as this one does; this routine is then deleted. The shared
+// pieces (NT, NEG_INF, warp_sum, warp_max, dispatch_hd) stay here.
+// The two kernels of this routine read each key's K/V row from a block
+// of a paged pool named by a block table (PagedRows) and differ only in
+// how many rows a block holds (G for decode, G*W for verify), so they do
+// the same arithmetic per query row over the same key partition:
 //
 //   * keys are taken in tiles of NT = 128, staged through dynamic shared
 //     memory with 16-byte loads; K rows are padded to HD/2 + 1 words (an
@@ -90,15 +95,6 @@ __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
-
-// Where key `key` of a dense (Sk, HD) K/V slab starts, in elements.
-template <int HD>
-struct DenseRows {
-  long long base;
-  __device__ __forceinline__ long long operator()(int key) const {
-    return base + (long long)key * HD;
-  }
-};
 
 // Where logical key `key` of one slot lives in a paged pool
 // (n_blocks, Hkv, bs, HD): block tab[key / bs] (sentinels >= n_blocks

@@ -6,42 +6,54 @@
 // (continuous-batching decode of the served planner).
 //
 // What bounds it on an H100: each cache row is read once and used for G
-// q heads (~4*G operations per 4 bytes), far below the card's ~295
-// operations per byte, so it is bound by the bytes of K and V it must
-// read: 2 * kv_len[b] * Hkv * hd * 2 bytes per slot.
+// q heads, G operations a byte, half of them on bf16 operands (Q.K^T,
+// 989 TFLOP/s on the card) and half with an fp32 p (P.V, 67 TFLOP/s):
+// below the mix's ~125 TFLOP/s / 3.35 TB/s = 37 at every G served (<= 8),
+// so it is bound by the bytes of K and V it must read:
+// 2 * kv_len[b] * Hkv * hd * 2 bytes per slot.
 //
-// Design (the tile arithmetic is decode_tile.cuh's, shared with the
-// paged and verify kernels so their rows are bitwise these rows):
-//   * one thread block per (kv head, batch slot) holds all G q rows of
-//     that kv head, so each K/V row is read from device memory once and
-//     serves the G rows;
-//   * the block loops over 128-key tiles only up to kv_len[b]. The TPU
-//     kernel reads the whole cache and masks it; tiles past kv_len would
-//     change nothing (alpha = 1, p = 0), so stopping early gives the same
-//     result while moving only the bytes the slot holds;
+// Design: decode_warp.cuh's routine, shared with flash_verify (decode is
+// its W = 1), so a verify row is bitwise the decode row at its position;
+// the paged twin runs decode_tile.cuh's attend_rows, whose per-row
+// arithmetic this routine repeats exactly, so paged and dense decode
+// agree bit for bit too:
+//   * a warp owns a q row for the whole walk over the keys, with m, l
+//     and acc in registers; the grid is (kv head, slot, blocks of at
+//     most 4 of the kv head's G warps; 8 at head dim 128), so the rows
+//     of a (kv head, slot) walk their keys side by side on separate
+//     warp schedulers;
+//   * the warps of a block share the slot's 128-key K/V tiles, which
+//     the copy engine brings through a 4-entry ring (K and V alternate;
+//     K by swizzled TMA tensor copies, V by one bulk copy), one phase
+//     ahead of the arithmetic;
+//   * the block loops over tiles only up to kv_len[b]. The TPU kernel
+//     reads the whole cache and masks it; tiles past kv_len would
+//     change nothing (alpha = 1, p = 0), so stopping early gives the
+//     same result while moving only the bytes the slot holds;
 //   * m, l and acc stay fp32; a slot with kv_len 0 writes 0, not NaN;
-//   * no split over the key axis: with few slots the grid is small
-//     (B * Hkv blocks). A split-K version must come to all four kernels
-//     of decode_tile.cuh at once, or verify rows stop being decode rows.
-#include "decode_tile.cuh"
+//   * no split over the key axis: a split-K version must come to all
+//     four kernels of the decode family at once, or verify rows stop
+//     being decode rows and paged stops being dense.
+#include "decode_warp.cuh"
 
 namespace {
 
-using namespace decode_tile;
+using namespace decode_warp;
 
+// one resident block is enough (the ring bounds blocks per SM): ptxas
+// may then give each thread the registers that keep the loads in flight
 template <int HD>
-__global__ void __launch_bounds__(NT)
-flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ kc,
+__global__ void __launch_bounds__(decode_warp::block_warps<HD>() * 32, 1)
+flash_decode_kernel(const __grid_constant__ CUtensorMap tk,
+                    const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ vc,
                     const int* __restrict__ kv_len,
                     __nv_bfloat16* __restrict__ out,
                     int Hkv, int G, int Sk, float cap, float scale) {
   const int hk = blockIdx.x, b = blockIdx.y;
-  const long long row0 = ((long long)b * Hkv * G + (long long)hk * G) * HD;
-  const DenseRows<HD> rows{((long long)b * Hkv + hk) * Sk * HD};
-  attend_rows<HD>(q + row0, out + row0, kc, vc, rows, 0, G, 1, kv_len[b],
-                  Sk, cap, scale);
+  const long long pair = (long long)b * Hkv + hk;
+  attend_warps<HD>(q + pair * G * HD, out + pair * G * HD, &tk, (int)pair,
+                   vc + pair * Sk * HD, G, 1, kv_len[b], Sk, cap, scale);
 }
 
 }  // namespace
@@ -57,16 +69,11 @@ extern "C" int flash_decode_bf16(const void* q, const void* k_cache,
   if (Hkv <= 0 || Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
-  return (int)dispatch_hd(hd, [&](auto hd_c) {
+  return (int)decode_tile::dispatch_hd(hd, [&](auto hd_c) {
     constexpr int HD = decltype(hd_c)::value;
-    cudaError_t err = prepare<HD>(flash_decode_kernel<HD>, G);
-    if (err != cudaSuccess || B == 0) return err;
-    dim3 grid(Hkv, B);
-    flash_decode_kernel<HD><<<grid, NT, dyn_smem_bytes<HD>(G),
-                              (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_cache,
-        (const __nv_bfloat16*)v_cache, (const int*)kv_len,
-        (__nv_bfloat16*)out, Hkv, G, Sk, cap, scale);
-    return cudaGetLastError();
+    return launch<HD>(flash_decode_kernel<HD>, k_cache, B, Hkv, Sk, G, 1,
+                      (cudaStream_t)stream, (const __nv_bfloat16*)q,
+                      (const __nv_bfloat16*)v_cache, (const int*)kv_len,
+                      (__nv_bfloat16*)out, Hkv, G, Sk, cap, scale);
   });
 }

@@ -7,53 +7,62 @@
 // causal at absolute position kv_len[b] - W + w, where kv_len counts the
 // cache rows after the verify write.
 //
-// What bounds them on an H100: as flash_decode, the bytes of the K/V
-// rows the slot holds, 2 * kv_len[b] * Hkv * hd * 2 bytes, read once for
-// all G*W rows of a kv head (15 at G = 3, K = 4); the operations grow
-// with W but stay far below the card's ~295 per byte.
+// What bounds them on an H100: the bytes of the K/V rows the slot holds,
+// 2 * kv_len[b] * Hkv * hd * 2 bytes, read once for all G*W rows of a kv
+// head, and 2 * 2 * hd operations per row and key: 2 * hd in Q.K^T,
+// whose bf16 operands the card takes at 989 TFLOP/s, and 2 * hd in P.V,
+// whose fp32 p it takes at 67 TFLOP/s (~125 TFLOP/s for the mix). That
+// is G*W operations a byte against 125 TFLOP/s / 3.35 TB/s = 37, so the
+// operations bound it from ~38 rows a kv head (kimi-k2's 40 at W = 5;
+// the planner's 15 is bound by the bytes).
 //
-// Design: one thread block per (kv head, slot) holds its G*W rows when
-// they are at most MAX_ROWS = 64, else one block per chunk of at most 64
-// of them (a third grid axis; 72 rows at G = 8, W = 9 are chunks of 64
-// and 8), so any W works; each K/V tile is staged once for a block's
-// rows (decode_tile.cuh's routine, taking the rows in groups of 8 with m
-// and l in shared memory). The two cases are two instances of a kernel:
-// in one block the instance compiles as it did before chunks existed;
-// one chunked kernel for both took 22% longer at W = 5 and head dim 32
-// on an H100 80GB HBM3 at 700 W (72 registers and spills against 56).
-// Row (g, w) has the key limit kv_len[b] - W + w + 1 whichever chunk
-// holds it (the chunk passes its first row's index); the block
-// loops to the largest limit; a row takes part only in the tiles that
-// start below its own limit, and its P.V loop runs only to that limit.
-// Each row therefore repeats flash_decode's operations for one token at
-// its position and is bitwise that decode row, which is what makes
-// speculative decoding emit exactly the non-speculative tokens on the
-// card. flash_verify_paged stages its tiles as flash_decode_paged does.
+// flash_verify's design is decode_warp.cuh's routine, which flash_decode
+// runs too (as W = 1): a warp owns one row for the whole walk over the
+// keys, with m, l and acc in registers; the
+// warps of a block (at most 4; 8 at head dim 128) share the slot's
+// 128-key K/V tiles, which the copy engine brings through a 4-entry
+// ring; the grid is (kv head, slot, blocks of the kv head's warps), so
+// any G and W work (G*W past 64 too: kimi's 72 rows at W = 9 are 72
+// warps in 9 blocks) and the rows of
+// the longest slot are spread over several SMs. Row (g, w) has the key
+// limit kv_len[b] - W + w + 1; it takes part only in the tiles that
+// start below it and its P.V loop runs only to it, so it repeats
+// flash_decode's operations for one token at its position and is
+// bitwise that decode row, which is what makes speculative decoding emit
+// exactly the non-speculative tokens on the card.
+//
+// flash_verify_paged still runs decode_tile.cuh's attend_rows: one
+// thread block per (kv head, slot) holds its G*W rows when they are at
+// most MAX_ROWS = 64, else one block per chunk of at most 64 of them (a
+// third grid axis), and stages its tiles as flash_decode_paged does.
+// attend_rows does each row's operations as decode_warp.cuh does, so
+// paged verify is bitwise dense verify on the gathered view. The two
+// cases are two instances of a kernel: in one block the instance
+// compiles as it did before chunks existed; one chunked kernel for both
+// took 22% longer at W = 5 and head dim 32 on an H100 80GB HBM3 at 700 W
+// (72 registers and spills against 56).
 #include "decode_tile.cuh"
+#include "decode_warp.cuh"
 
 namespace {
 
 using namespace decode_tile;
 
-// CHUNKED: blockIdx.z picks a chunk of at most MAX_ROWS of the kv head's
-// G*W rows; otherwise one block holds all G*W (<= MAX_ROWS) of them and
-// compiles to the code of a block without chunks.
-template <int HD, bool CHUNKED>
-__global__ void __launch_bounds__(NT)
-flash_verify_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ kc,
+// one resident block is enough (the ring bounds blocks per SM): ptxas
+// may then give each thread the registers that keep the loads in flight
+template <int HD>
+__global__ void __launch_bounds__(decode_warp::block_warps<HD>() * 32, 1)
+flash_verify_kernel(const __grid_constant__ CUtensorMap tk,
+                    const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ vc,
                     const int* __restrict__ kv_len,
                     __nv_bfloat16* __restrict__ out, int Hkv, int G, int W,
                     int Sk, float cap, float scale) {
   const int hk = blockIdx.x, b = blockIdx.y;
-  const int r0 = CHUNKED ? blockIdx.z * MAX_ROWS : 0;
-  const int nrows = CHUNKED ? min(MAX_ROWS, G * W - r0) : G * W;
-  const long long row0 =
-      (((long long)b * Hkv * G + (long long)hk * G) * W + r0) * HD;
-  const DenseRows<HD> rows{((long long)b * Hkv + hk) * Sk * HD};
-  attend_rows<HD>(q + row0, out + row0, kc, vc, rows, r0, nrows, W,
-                  kv_len[b], Sk, cap, scale);
+  const long long pair = (long long)b * Hkv + hk;
+  decode_warp::attend_warps<HD>(
+      q + pair * G * W * HD, out + pair * G * W * HD, &tk, (int)pair,
+      vc + pair * Sk * HD, G, W, kv_len[b], Sk, cap, scale);
 }
 
 template <int HD, bool CHUNKED>
@@ -100,18 +109,14 @@ extern "C" int flash_verify_bf16(const void* q, const void* k_cache,
                                  int Sk, int hd, float cap, float scale,
                                  void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || W <= 0) return (int)cudaErrorInvalidValue;
-  const int rows = Hq / Hkv * W;
+  const int G = Hq / Hkv;
   return (int)dispatch_hd(hd, [&](auto hd_c) {
     constexpr int HD = decltype(hd_c)::value;
-    auto go = [&](auto chunked) {
-      constexpr bool C = decltype(chunked)::value;
-      return launch_rows<HD, C>(
-          flash_verify_kernel<HD, C>, rows, Hkv, B, (cudaStream_t)stream,
-          (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_cache,
-          (const __nv_bfloat16*)v_cache, (const int*)kv_len,
-          (__nv_bfloat16*)out, Hkv, Hq / Hkv, W, Sk, cap, scale);
-    };
-    return rows > MAX_ROWS ? go(std::true_type{}) : go(std::false_type{});
+    return decode_warp::launch<HD>(
+        flash_verify_kernel<HD>, k_cache, B, Hkv, Sk, G, W,
+        (cudaStream_t)stream, (const __nv_bfloat16*)q,
+        (const __nv_bfloat16*)v_cache, (const int*)kv_len,
+        (__nv_bfloat16*)out, Hkv, G, W, Sk, cap, scale);
   });
 }
 

@@ -3,11 +3,13 @@ version.
 
 Replaces the JAX package's Pallas TPU kernel ``flash_decode``
 (``src/repro/kernels/flash_decode.py``). The CUDA source,
-``csrc/flash_decode.cu``, carries the design note: one block per
-(kv head, slot) holding all G q rows, a loop over 128-key tiles only up
-to the slot's ``kv_len``, fp32 m/l/acc, and 0 (not NaN) for
-``kv_len == 0``. Its tile arithmetic is ``csrc/decode_tile.cuh``, which
-the paged and verify kernels share; head dims 32, 64 and 128.
+``csrc/flash_decode.cu``, carries the design note: a warp per q row with
+m/l/acc in registers, the warps of a block sharing the slot's 128-key
+K/V tiles through a ring the copy engine fills, a loop over tiles only
+up to the slot's ``kv_len``, and 0 (not NaN) for ``kv_len == 0``. Its routine,
+``csrc/decode_warp.cuh``, is flash_verify's too, and does each row's
+operations as the paged twin's ``csrc/decode_tile.cuh`` does, so the
+four kernels agree bit for bit; head dims 32, 64 and 128.
 
 On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
 tensor it runs the plain version, ``ref.decode_attention_ref``.
@@ -23,8 +25,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import decode_attention_ref
 
 HEAD_DIMS = (32, 64, 128)     # the head dims the kernels are built for
-MAX_ROWS = 64     # the most q rows one block holds (decode_tile.cuh):
-                  # decode's G; verify takes its G*W rows in chunks of it
+MAX_ROWS = 64     # the most q rows one block of the paged twins holds
+                  # (decode_tile.cuh): decode's G, here as there, so the
+                  # dense and paged kernels take the same shapes
 # q, k_cache, v_cache, kv_len, out; B, Hq, Hkv, Sk, hd; cap, scale; stream
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_float] * 2 + [ctypes.c_void_p])

@@ -90,6 +90,22 @@ def paged_gather_kv(pages, block_tab):
     return view.permute(0, 2, 1, 3, 4).reshape(B, Hkv, mb * bs, hd)
 
 
+def identity_pool(cache, bs):
+    """A dense cache as a paged pool of ``bs``-row blocks and its identity
+    table: the inverse of ``paged_gather_kv``.
+
+    cache: (B, Hkv, S, hd) with S a multiple of bs.
+    Returns ((B * S // bs, Hkv, bs, hd) contiguous pool, (B, S // bs)
+    int32 table numbering slot b's blocks b * S // bs onwards).
+    """
+    B, Hkv, S, hd = cache.shape
+    mb = S // bs
+    pool = cache.reshape(B, Hkv, mb, bs, hd).transpose(1, 2).reshape(
+        B * mb, Hkv, bs, hd).contiguous()
+    return pool, torch.arange(B * mb, dtype=torch.int32,
+                              device=cache.device).reshape(B, mb)
+
+
 def paged_decode_attention_ref(q, k_pages, v_pages, block_tab, kv_len, *,
                                cap=0.0, scale=0.0):
     """Decode attention against scattered KV blocks (gather oracle).

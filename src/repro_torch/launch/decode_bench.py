@@ -1,0 +1,167 @@
+"""Time the decode family's kernels on the card at chip_smoke.py's cases.
+
+  PYTHONPATH=<tree>/src python3 src/repro_torch/launch/decode_bench.py \
+      [--label NAME] [--iters N]
+
+For each case (8 ragged slots of a 2,048-row cache: the planner's heads
+12/4 of 64, kimi-k2's 64/8 of 128, arctic's 56/8 of 32; hymba's 25/5 of
+64 over full and partly filled 1,024-row rings) it times flash_decode
+(and flash_verify at W = 5, 9 and 22, where chip_smoke.py has them) and
+their paged twins over an identity block table on the same cache, by
+CUDA events over ``--iters`` back-to-back wrapper calls and by the
+kernel's own device time per call from ``torch.profiler``, beside one
+``F.scaled_dot_product_attention`` call on the same inputs. It prints
+one JSON line per case with the sha256 of each kernel's output bytes, so
+two trees timed in one call can also be held to the same bits.
+
+It imports ``repro_torch`` from ``PYTHONPATH``, so one copy of this
+script times the kernels of any tree that has the same wrapper
+signatures: run it for two trees in one chip call, in turns, to compare
+them on one card. Inputs come from a seeded generator on the card, the
+same in every process.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import subprocess
+import sys
+
+import torch
+import torch.nn.functional as F
+
+KV_LENS = [1, 2048, 300, 1025, 64, 777, 1300, 2]
+HYMBA_RINGS = ([1024] * 8, [1, 300, 1024, 777, 64, 1000, 2, 513])
+# (family, Hq, Hkv, hd, cache rows, kv lens, verify windows)
+CASES = [("planner", 12, 4, 64, 2048, KV_LENS, (5, 22)),
+         ("kimi", 64, 8, 128, 2048, KV_LENS, (5, 9)),
+         ("arctic", 56, 8, 32, 2048, KV_LENS, (5,)),
+         ("hymba_full", 25, 5, 64, 1024, HYMBA_RINGS[0], ()),
+         ("hymba_ragged", 25, 5, 64, 1024, HYMBA_RINGS[1], ())]
+BS = 16
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Time per call of ``fn`` by CUDA events over ``iters`` calls."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, kernel: str = "", iters: int = 20, tries: int = 3):
+    """Device time per call of ``fn``: the self CUDA time of the kernels
+    whose name contains ``kernel`` (all of them where it is empty), under
+    ``torch.profiler`` over ``iters`` calls. A profile now and then misses
+    some of its kernels' events, so a profile counts only if it saw
+    ``iters`` launches of the named kernel (a whole multiple of ``iters``
+    device events where none is named); the first such profile of
+    ``tries`` gives the time, and None stands where none did."""
+    from torch.profiler import ProfilerActivity, profile
+    dev_t = lambda e: getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0.0))
+    for _ in range(3):
+        fn()
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        seen = [e for e in prof.key_averages()
+                if "CUDA" in str(e.device_type) and kernel in e.key]
+        n = sum(e.count for e in seen)
+        if n == iters or (not kernel and n and n % iters == 0):
+            return sum(dev_t(e) for e in seen) / 1e3 / iters
+    return None
+
+
+def digest(t) -> str:
+    torch.cuda.synchronize()
+    return hashlib.sha256(t.view(torch.int16).cpu().numpy().tobytes()
+                          ).hexdigest()[:16]
+
+
+def timed(name, fn, kernel, iters):
+    return {f"{name}_ms": cuda_ms(fn, iters),
+            f"{name}_device_ms": device_ms(fn, kernel, iters)}
+
+
+def run(iters: int, label: str) -> list:
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_decode_paged import flash_decode_paged
+    from repro_torch.kernels.flash_verify import flash_verify, \
+        flash_verify_paged
+    from repro_torch.kernels.ref import identity_pool
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    mk = lambda *shape: torch.randn(*shape, generator=gen,
+                                    device="cuda").to(torch.bfloat16)
+    out = []
+    for fam, Hq, Hkv, hd, Sk, kv, windows in CASES:
+        B = len(kv)
+        kc, vc, q = mk(B, Hkv, Sk, hd), mk(B, Hkv, Sk, hd), mk(B, Hq, hd)
+        (kp, tab), (vp, _) = identity_pool(kc, BS), identity_pool(vc, BS)
+        kvl = torch.tensor(kv, dtype=torch.int32, device="cuda")
+        keys = torch.arange(Sk, device="cuda")
+        mask = (keys[None, :] < kvl[:, None].long())[:, None, None, :]
+        dense = lambda: flash_decode(q, kc, vc, kvl)
+        paged = lambda: flash_decode_paged(q, kp, vp, tab, kvl)
+        sdpa = lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True)
+        rec = dict(label=label, kernel="flash_decode", family=fam,
+                   heads=[Hq, Hkv, hd], Sk=Sk, kv_len=kv,
+                   bits=digest(dense()), paged_bits=digest(paged()))
+        rec.update(timed("dense", dense, "flash_decode_kernel", iters))
+        rec.update(timed("paged", paged, "flash_decode_paged_kernel",
+                         iters))
+        rec.update(timed("sdpa", sdpa, "", iters))
+        out.append(rec)
+        print(json.dumps(rec), flush=True)
+        for W in windows:
+            qv = mk(B, Hq, W, hd)
+            lim = torch.clamp(kvl.long()[:, None] - W
+                              + torch.arange(W, device="cuda")[None, :] + 1,
+                              min=0)
+            vmask = (keys[None, None, :] < lim[:, :, None])[:, None]
+            dense = lambda: flash_verify(qv, kc, vc, kvl)
+            paged = lambda: flash_verify_paged(qv, kp, vp, tab, kvl)
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qv, kc, vc, attn_mask=vmask, enable_gqa=True)
+            rec = dict(label=label, kernel="flash_verify", family=fam,
+                       heads=[Hq, Hkv, hd], W=W, Sk=Sk, kv_len=kv,
+                       bits=digest(dense()), paged_bits=digest(paged()))
+            rec.update(timed("dense", dense, "flash_verify_kernel", iters))
+            rec.update(timed("paged", paged, "flash_verify_paged_kernel",
+                             iters))
+            rec.update(timed("sdpa", sdpa, "", iters))
+            out.append(rec)
+            print(json.dumps(rec), flush=True)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--label", default="")
+    ap.add_argument("--iters", type=int, default=20)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("decode_bench: no CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(json.dumps({"label": args.label, "card": card}), flush=True)
+    run(args.iters, args.label)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -328,6 +328,35 @@ def _paged_verify_case(G, W, hd):
     assert torch.equal(got, dense)
 
 
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_identity_pool_is_the_cache(hd):
+    """ref.identity_pool (the card checks' identity-table oracle):
+    the pool gathered through its table is the cache, and the paged
+    decode and verify paths over it are the dense ones, bitwise."""
+    rng = np.random.default_rng(hd)
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+    kc, vc, q, qv = mk(3, 2, 64, hd), mk(3, 2, 64, hd), mk(3, 6, hd), \
+        mk(3, 6, 5, hd)
+    (kp, tab), (vp, _) = TR.identity_pool(kc, 16), TR.identity_pool(vc, 16)
+    assert kp.shape == (12, 2, 16, hd) and tab.dtype == torch.int32
+    assert torch.equal(TR.paged_gather_kv(kp, tab), kc)
+    kvl = torch.tensor([0, 37, 64])
+    assert torch.equal(flash_decode_paged(q, kp, vp, tab, kvl),
+                       flash_decode(q, kc, vc, kvl))
+    assert torch.equal(flash_verify_paged(qv, kp, vp, tab, kvl),
+                       flash_verify(qv, kc, vc, kvl))
+
+
+def test_decode_bench_refuses_without_a_card(capsys):
+    """The timing script measures the card only: without one it exits
+    non-zero and prints no result."""
+    from repro_torch.launch import decode_bench
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    assert decode_bench.main([]) == 1
+    assert capsys.readouterr().out == ""
+
+
 # ------------------------------------------------- on the card only ----
 
 def _card():
@@ -380,26 +409,35 @@ def test_flash_prefill_extend_rows_are_prefill_rows_on_card(hd, cap, window):
     torch.cuda.synchronize()
 
 
-def test_flash_decode_kernel_on_card():
+# the dense decode kernels (decode_warp.cuh) against their paged twins
+# (decode_tile.cuh's routine, which the dense kernels were redesigned
+# from): every group size the served configs have, verify windows of
+# --draft-k 0, 4, 8 and 21, every head dim the kernels are built for
+CARD_G, CARD_W, CARD_HD = [3, 5, 7, 8], [1, 5, 9, 22], [32, 64, 128]
+
+
+@pytest.mark.parametrize("hd", CARD_HD)
+@pytest.mark.parametrize("G", CARD_G)
+def test_flash_decode_kernel_on_card(G, hd):
     dev = _card()
-    q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16)
-               for a in _inputs(4, 4, 12, 4, 1, 512))
-    kvl = torch.tensor([0, 1, 300, 512], dtype=torch.int32, device=dev)
-    out = flash_decode(q[:, :, 0].contiguous(), k, v, kvl)
-    ref = TR.decode_attention_ref(q[:, :, 0], k, v, kvl)
+    q, kp, vp, tab, kvl = _card_paged(dev, [0, 1, 300, 512], G=G, hd=hd)
+    kc, vc = TR.paged_gather_kv(kp, tab), TR.paged_gather_kv(vp, tab)
+    out = flash_decode(q, kc, vc, kvl)
+    ref = TR.decode_attention_ref(q, kc, vc, kvl)
     torch.cuda.synchronize()
     assert float(out[0].float().abs().max()) == 0.0      # kv_len 0 -> 0
     torch.testing.assert_close(out[1:].float(), ref[1:].float(), atol=1e-2,
                                rtol=1e-2)
+    assert torch.equal(out, flash_decode_paged(q, kp, vp, tab, kvl))
 
 
-def _card_paged(dev, kv_len, W=None):
-    """Full-width heads over a shuffled 64-block pool of 16 rows."""
-    rng = np.random.default_rng(len(kv_len))
+def _card_paged(dev, kv_len, W=None, G=3, hd=64):
+    """Heads 4G/4 of hd over a shuffled 64-block pool of 16 rows."""
+    rng = np.random.default_rng(len(kv_len) + 10 * G + hd)
     B, nb, bs, mb = len(kv_len), 64, 16, 32
-    shape = (B, 12, 64) if W is None else (B, 12, W, 64)
+    shape = (B, 4 * G, hd) if W is None else (B, 4 * G, W, hd)
     q = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
-    kp, vp = (torch.from_numpy(rng.standard_normal((nb, 4, bs, 64),
+    kp, vp = (torch.from_numpy(rng.standard_normal((nb, 4, bs, hd),
                                                    dtype=np.float32))
               for _ in range(2))
     tab = np.full((B, mb), nb, np.int32)
@@ -429,15 +467,24 @@ def test_flash_decode_paged_kernel_on_card():
     assert torch.equal(out, dense)
 
 
-def test_flash_verify_kernels_on_card():
+@pytest.mark.parametrize("hd", CARD_HD)
+@pytest.mark.parametrize("W", CARD_W)
+@pytest.mark.parametrize("G", CARD_G)
+def test_flash_verify_kernels_on_card(G, W, hd):
     dev = _card()
-    W = 5
-    q, kp, vp, tab, kvl = _card_paged(dev, [5, 512, 300, 17], W=W)
+    q, kp, vp, tab, kvl = _card_paged(dev, [5, 512, 300, 17], W=W, G=G,
+                                      hd=hd)
     kc, vc = TR.paged_gather_kv(kp, tab), TR.paged_gather_kv(vp, tab)
     out = flash_verify(q, kc, vc, kvl)
+    # rows with keys against the oracle; a row before the slot's first
+    # key (W > kv_len) has none and writes 0, as decode at kv_len 0 does
+    lim = kvl[:, None] - W + torch.arange(W, device=dev)[None, :] + 1
+    live = (lim > 0)[:, None, :, None].expand_as(out)
     torch.testing.assert_close(
-        out.float(), TR.verify_attention_ref(q, kc, vc, kvl).float(),
+        out.float()[live],
+        TR.verify_attention_ref(q, kc, vc, kvl).float()[live],
         atol=1e-2, rtol=1e-2)
+    assert bool((out.float()[~live] == 0).all())
     for w in range(W):
         row = flash_decode(q[:, :, w].contiguous(), kc, vc, kvl - W + w + 1)
         assert torch.equal(out[:, :, w], row), w
