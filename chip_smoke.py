@@ -13,27 +13,31 @@ decode == decode on the gathered view, each verify row == the decode row
 at its position, paged verify == verify on the gathered view, every
 dense decode case == the paged twin over an identity table on its own
 cache), also with more than 64 verify rows per (kv head, slot) (kimi's
-G = 8 at W = 9, the planner's G = 3 at W = 22), and a sweep of the dense
-decode and verify kernels against their paged twins, bitwise, at G 3, 5,
-7, 8, W 1, 5, 9, 22, head dims 32, 64, 128, with and without a softcap
-(the twins keep the routine the dense kernels were redesigned from, so
-they are the oracle of the dense kernels' bits); the decode family's
+G = 8 at W = 9, the planner's G = 3 at W = 22) and with 65 q heads per
+kv head, the paged twins over shuffled block tables with sentinel tails
+at block sizes 16, 8, 12, 24 and 256 (paged == dense on the gathered
+view, bitwise), and a sweep of the dense decode and verify kernels
+against their paged twins, bitwise, at G 3, 5, 7, 8, W 1, 5, 9, 22,
+head dims 32, 64, 128, with and without a softcap, at each of those
+block sizes (the four kernels run one routine with a dense or a paged
+source: any difference is a fault of a source); the decode family's
 cases give the device time per call (``torch.profiler``) of the kernel
-and of SDPA beside the CUDA-event times, and the dense decode kernels'
-registers and spills per instance (``-Xptxas -v``); flash_prefill's row
-contract, bitwise:
+and of SDPA beside the CUDA-event times, and the decode kernels'
+registers and spills per instance (``-Xptxas -v``, no spills);
+flash_prefill's row contract, bitwise:
 a 1,300-token prefill's rows against extends at six offsets over a
 stale 2,048-row cache, at head dims 64, 128 and 32, causal, windowed and
 softcapped; the MoE router at the MoE families' (tokens, experts,
 top-k). Then it serves
 planner-proxy-100m at full width through the launcher's serving
 function (dense monolithic and chunked, paged, speculative dense and
-paged, ``--draft-k 21`` (66 verify rows per kv head), and paged with a
-pool small enough to preempt), checks that every run emits the
-monolithic run's tokens with a self-draft accept rate of 1.0, that
-chunked prefill and prefix hits of 1,312-token prompts do too,
-profiles a full-width decode step and a speculative round, and checks
-the card's logits against the CPU's on the same seeded weights. Then the
+paged, ``--draft-k 21`` (66 verify rows per kv head), paged with a pool
+small enough to preempt, and paged with 8-row blocks), checks that
+every run emits the monolithic run's tokens with a self-draft accept
+rate of 1.0, that chunked prefill and prefix hits of 1,312-token prompts
+do too, profiles a full-width decode step and a speculative round, dense
+and paged (each decode kernel's device time a launch), and checks the
+card's logits against the CPU's on the same seeded weights. Then the
 MoE families at their published widths with the depth cut
 (kimi-k2-1t-a32b: its dense first layer and one MoE layer of 384 experts
 top-8; arctic-480b: one MoE layer of 128 experts top-2), through the
@@ -87,9 +91,10 @@ Tolerances:
     p, inside the same tolerance;
   * flash_prefill's rows in prefill and in extend: bitwise;
   * within the decode family (decode, paged decode, verify, paged
-    verify): bitwise (``torch.equal``), by design: decode_warp.cuh (the
-    dense kernels) does each row's operations as decode_tile.cuh (the
-    paged twins) does, in the same order;
+    verify): bitwise (``torch.equal``), by design: the four kernels run
+    one routine (decode_warp.cuh), whose per-row arithmetic does not
+    depend on the source that fills its ring (dense or paged, any block
+    size);
   * card vs CPU logits (fp32 head over a 12-layer bf16 stack, matmuls
     rounded differently on the two devices): max |diff| <= LOGIT_TOL;
     for the MoE smoke configs on the tokens whose routes agree in every
@@ -142,7 +147,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.launch.decode_bench import (  # noqa: E402
-    HYMBA_RINGS, KV_LENS, cuda_ms, device_ms)
+    HYMBA_RINGS, KV_LENS, cuda_ms, device_ms, shuffled_pools)
 from repro_torch.kernels.ref import identity_pool  # noqa: E402
 OUT_DIR = ROOT / "chiprun_out"
 KERNEL_ATOL = KERNEL_RTOL = 1e-2
@@ -154,9 +159,13 @@ ARCH = "planner-proxy-100m"
 RESULTS: dict = {}
 T_START = time.time()
 # the decode family's cases: the full-width planner's heads, 8 ragged
-# slots of a 2048-row cache, 16-row blocks of a 1,024-block pool, and
-# the verify window of --draft-k 4
-B_SLOTS, HQ, HKV, HD, CACHE, BS, NB, WIN = 8, 12, 4, 64, 2048, 16, 1024, 5
+# slots of a 2048-row cache, 16-row blocks, and the verify window of
+# --draft-k 4
+B_SLOTS, HQ, HKV, HD, CACHE, BS, WIN = 8, 12, 4, 64, 2048, 16, 5
+# the other block sizes the paged twins are held to: 8, 12 (no multiple
+# of 8: K copied by the block's threads), 24 (a multiple of 8 that does
+# not divide a tile; its tables cover 2,064 rows) and 256 (past a tile)
+OTHER_BS = (8, 12, 24, 256)
 
 
 def emit(phase: str, **kw):
@@ -228,8 +237,8 @@ def prefill_case(Sq, Sk, q_offset, gen, heads=(HQ, HKV, HD), window=0):
 
 def decode_case(kv_len_list, Sk, gen, heads=(HQ, HKV, HD)):
     """flash_decode against its plain version and, bitwise, against
-    flash_decode_paged over an identity table on the same cache (the
-    paged twin keeps the routine the dense kernel was redesigned from);
+    flash_decode_paged over an identity table on the same cache (one
+    routine, two sources: the copies land in the same places);
     its CUDA-event and device times beside SDPA's and the bound."""
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.flash_decode_paged import flash_decode_paged
@@ -266,19 +275,15 @@ def decode_case(kv_len_list, Sk, gen, heads=(HQ, HKV, HD)):
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def paged_pool(gen, Hkv=HKV, hd=HD):
-    """K/V pools of NB blocks holding the KV_LENS slots' rows through a
-    table of shuffled block ids with sentinel tails."""
-    mb = CACHE // BS
-    kp, vp = _mk(gen, NB, Hkv, BS, hd), _mk(gen, NB, Hkv, BS, hd)
-    perm = torch.randperm(NB, generator=torch.Generator().manual_seed(3))
-    tab = torch.full((B_SLOTS, mb), NB, dtype=torch.int32)
-    used = 0
-    for b, n in enumerate(KV_LENS):
-        need = -(-n // BS)
-        tab[b, :need] = perm[used:used + need].to(torch.int32)
-        used += need
-    return kp, vp, tab.cuda(), used
+def paged_pool(gen, Hkv=HKV, hd=HD, bs=BS, kv_lens=KV_LENS):
+    """The slots' rows of a seeded CACHE-row K/V cache as pools of
+    ``bs``-row blocks through a table of shuffled block ids with sentinel
+    tails (``decode_bench.shuffled_pools``); also the live blocks'
+    count."""
+    kc = _mk(gen, len(kv_lens), Hkv, CACHE, hd)
+    vc = _mk(gen, len(kv_lens), Hkv, CACHE, hd)
+    kp, vp, tab = shuffled_pools(kc, vc, kv_lens, bs)
+    return kp, vp, tab, sum(-(-n // bs) for n in kv_lens)
 
 
 def row_limits(kvl, W=WIN):
@@ -298,7 +303,11 @@ def verify_err(out, ref, kvl) -> float:
     return err_ok(out.float()[live], ref.float()[live])
 
 
-def paged_decode_case(gen, heads=(HQ, HKV, HD)):
+def paged_decode_case(gen, heads=(HQ, HKV, HD), bs=BS, timed=True):
+    """flash_decode_paged over a shuffled table of ``bs``-row blocks
+    against its plain version and, bitwise, flash_decode on the gathered
+    view; with ``timed``, its CUDA-event and device times beside SDPA's on
+    the gathered view and the bound."""
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.flash_decode_paged import flash_decode_paged
     from repro_torch.kernels.ref import paged_decode_attention_ref, \
@@ -306,14 +315,20 @@ def paged_decode_case(gen, heads=(HQ, HKV, HD)):
     import torch.nn.functional as F
     Hq, Hkv, hd = heads
     q = _mk(gen, B_SLOTS, Hq, hd)
-    kp, vp, tab, used = paged_pool(gen, Hkv, hd)
+    kp, vp, tab, used = paged_pool(gen, Hkv, hd, bs)
     kvl = torch.tensor(KV_LENS, dtype=torch.int32, device="cuda")
     out = flash_decode_paged(q, kp, vp, tab, kvl)
     err = err_ok(out, paged_decode_attention_ref(q, kp, vp, tab, kvl))
     kg, vg = paged_gather_kv(kp, tab), paged_gather_kv(vp, tab)
     check(torch.equal(out, flash_decode(q, kg, vg, kvl)),
-          "flash_decode_paged != flash_decode on the gathered view")
-    mask = (torch.arange(CACHE, device="cuda")[None, :]
+          f"flash_decode_paged != flash_decode on the gathered view at "
+          f"heads {heads}, block size {bs}")
+    case = dict(B=B_SLOTS, kv_len=KV_LENS, block_size=bs,
+                n_blocks=kp.shape[0], heads=list(heads), max_abs_err=err,
+                bitwise_vs_decode=True)
+    if not timed:
+        return case
+    mask = (torch.arange(kg.shape[2], device="cuda")[None, :]
             < kvl[:, None].long())[:, None, None, :]
     run = lambda: flash_decode_paged(q, kp, vp, tab, kvl)
     sdpa = lambda: F.scaled_dot_product_attention(
@@ -326,9 +341,7 @@ def paged_decode_case(gen, heads=(HQ, HKV, HD)):
         + 4 * used
     b_ms, b_by = bound(nbytes, 2 * hd * Hq * n,
                        fp32_flops=2 * hd * Hq * n)
-    return dict(B=B_SLOTS, kv_len=KV_LENS, block_size=BS, n_blocks=NB,
-                heads=list(heads),
-                max_abs_err=err, bitwise_vs_decode=True, ms=ms,
+    return dict(case, ms=ms,
                 device_ms=device_ms(run, "flash_decode_paged_kernel"),
                 plain_ms=plain, library_ms=None, library_device_ms=None,
                 sdpa_on_pregathered_view_ms=cuda_ms(sdpa),
@@ -342,17 +355,14 @@ def verify_cases(gen, heads=(HQ, HKV, HD), W=WIN):
     version, each row bitwise the decode row at its position, paged
     bitwise dense on the gathered view."""
     from repro_torch.kernels.flash_decode import flash_decode
-    from repro_torch.kernels.flash_verify import flash_verify, \
-        flash_verify_paged
-    from repro_torch.kernels.ref import paged_gather_kv, \
-        paged_verify_attention_ref, paged_verify_rows_ref, \
-        verify_attention_ref, verify_rows_ref
+    from repro_torch.kernels.flash_verify import flash_verify
+    from repro_torch.kernels.ref import verify_attention_ref, \
+        verify_rows_ref
     import torch.nn.functional as F
     Hq, Hkv, hd = heads
     q = _mk(gen, B_SLOTS, Hq, W, hd)
     kc, vc = _mk(gen, B_SLOTS, Hkv, CACHE, hd), _mk(gen, B_SLOTS, Hkv,
                                                     CACHE, hd)
-    kp, vp, tab, used = paged_pool(gen, Hkv, hd)
     kvl = torch.tensor(KV_LENS, dtype=torch.int32, device="cuda")
     lim = row_limits(kvl, W)
     mask = (torch.arange(CACHE, device="cuda")[None, None, :]
@@ -379,7 +389,27 @@ def verify_cases(gen, heads=(HQ, HKV, HD), W=WIN):
         plain_ms=cuda_ms(lambda: verify_rows_ref(q, kc, vc, kvl), iters=5),
         library_ms=cuda_ms(sdpa), library_device_ms=device_ms(sdpa),
         bound_ms=b_ms, bound_by=b_by)
+    cases["flash_verify_paged"] = paged_verify_case(gen, heads, W)
+    for c in cases.values():
+        c.update(B=B_SLOTS, W=W, rows=Hq // Hkv * W, kv_len=KV_LENS,
+                 heads=list(heads))
+    return cases
 
+
+def paged_verify_case(gen, heads=(HQ, HKV, HD), W=WIN, bs=BS, timed=True):
+    """flash_verify_paged at W over a shuffled table of ``bs``-row blocks:
+    against the fused oracle and the CPU path's row-wise plain version,
+    bitwise flash_verify on the gathered view; with ``timed``, its times
+    beside SDPA's on the gathered view and the bound."""
+    from repro_torch.kernels.flash_verify import flash_verify, \
+        flash_verify_paged
+    from repro_torch.kernels.ref import paged_gather_kv, \
+        paged_verify_attention_ref, paged_verify_rows_ref
+    import torch.nn.functional as F
+    Hq, Hkv, hd = heads
+    q = _mk(gen, B_SLOTS, Hq, W, hd)
+    kp, vp, tab, used = paged_pool(gen, Hkv, hd, bs)
+    kvl = torch.tensor(KV_LENS, dtype=torch.int32, device="cuda")
     pout = flash_verify_paged(q, kp, vp, tab, kvl)
     kg, vg = paged_gather_kv(kp, tab), paged_gather_kv(vp, tab)
     err = max(verify_err(pout, paged_verify_attention_ref(q, kp, vp, tab,
@@ -387,14 +417,24 @@ def verify_cases(gen, heads=(HQ, HKV, HD), W=WIN):
               verify_err(pout, paged_verify_rows_ref(q, kp, vp, tab, kvl),
                          kvl))
     check(torch.equal(pout, flash_verify(q, kg, vg, kvl)),
-          "flash_verify_paged != flash_verify on the gathered view")
+          f"flash_verify_paged != flash_verify on the gathered view at "
+          f"heads {heads}, W {W}, block size {bs}")
+    case = dict(max_abs_err=err, bitwise_vs_verify_gathered=True,
+                block_size=bs, n_blocks=kp.shape[0])
+    if not timed:
+        return case
+    lim = row_limits(kvl, W)
+    mask = (torch.arange(kg.shape[2], device="cuda")[None, None, :]
+            < lim[:, :, None])[:, None]                        # (B,1,W,Sk)
+    nbytes = 2 * hd * (2 * B_SLOTS * Hq * W + 2 * Hkv * sum(KV_LENS)) \
+        + 4 * B_SLOTS + 4 * used
+    flops = 2 * hd * Hq * int(lim.sum())      # each product
     run = lambda: flash_verify_paged(q, kp, vp, tab, kvl)
     sdpa = lambda: F.scaled_dot_product_attention(
         q, kg, vg, attn_mask=mask, enable_gqa=True)
-    b_ms, b_by = bound(nbytes + 4 * used, flops, fp32_flops=flops)
-    cases["flash_verify_paged"] = dict(
-        max_abs_err=err, bitwise_vs_verify_gathered=True,
-        ms=cuda_ms(run),
+    b_ms, b_by = bound(nbytes, flops, fp32_flops=flops)
+    return dict(
+        case, ms=cuda_ms(run),
         device_ms=device_ms(run, "flash_verify_paged_kernel"),
         plain_ms=cuda_ms(lambda: paged_verify_rows_ref(q, kp, vp, tab,
                                                        kvl), iters=5),
@@ -402,10 +442,47 @@ def verify_cases(gen, heads=(HQ, HKV, HD), W=WIN):
         sdpa_on_pregathered_view_ms=cuda_ms(sdpa),
         sdpa_on_pregathered_view_device_ms=device_ms(sdpa),
         bound_ms=b_ms, bound_by=b_by)
-    for c in cases.values():
-        c.update(B=B_SLOTS, W=W, rows=Hq // Hkv * W, kv_len=KV_LENS,
-                 heads=list(heads))
-    return cases
+
+
+def block_size_cases(gen):
+    """The paged twins at OTHER_BS with the planner's, kimi-k2's and
+    arctic's heads (head dims 64, 128, 32): paged decode and paged verify
+    at W = 5, each bitwise the dense kernel on the gathered view and
+    within tolerance of its plain version."""
+    out = []
+    for fam, heads in (("planner", (HQ, HKV, HD)),
+                       ("kimi", (*MOE_HEADS["kimi"], 128)),
+                       ("arctic", (*MOE_HEADS["arctic"], 32))):
+        for bs in OTHER_BS:
+            tag = dict(family=fam, hd=heads[2])
+            out.append(("kernel_decode_paged", dict(paged_decode_case(
+                gen, heads, bs, timed=False), **tag)))
+            out.append(("kernel_verify_paged", dict(paged_verify_case(
+                gen, heads, WIN, bs, timed=False), W=WIN, **tag)))
+    return out
+
+
+# more q heads per kv head than 64 (the JAX kernels take any G): 130/2
+# of 64, dense and paged decode against the plain version, paged bitwise
+# dense on the gathered view
+WIDE_HEADS = (130, 2, 64)
+
+
+def wide_group_case(gen):
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.ref import decode_attention_ref
+    Hq, Hkv, hd = WIDE_HEADS
+    kc, vc = _mk(gen, B_SLOTS, Hkv, CACHE, hd), _mk(gen, B_SLOTS, Hkv,
+                                                    CACHE, hd)
+    q = _mk(gen, B_SLOTS, Hq, hd)
+    kvl = torch.tensor(KV_LENS, dtype=torch.int32, device="cuda")
+    err = err_ok(flash_decode(q, kc, vc, kvl),
+                 decode_attention_ref(q, kc, vc, kvl))
+    paged = paged_decode_case(gen, WIDE_HEADS, timed=False)
+    return dict(family="wide_group", heads=list(WIDE_HEADS), G=Hq // Hkv,
+                kv_len=KV_LENS,
+                max_abs_err=max(err, paged["max_abs_err"]),
+                paged_bitwise_vs_decode=True)
 
 
 # ---------------------------------------- MoE slice: kernels at hd 32/128 ----
@@ -420,12 +497,13 @@ ROUTER_CASES = [(8, 128, 2), (8, 384, 8), (1024, 128, 2), (1024, 384, 8),
 ROUTER_WTOL = 1e-5
 
 
-# the dense decode kernels against their paged twins, bitwise, over an
-# identity table on the same cache: every group size the served configs
-# have (the planner's 3, hymba's 5, arctic's 7, kimi's 8), verify windows
-# W 1, 5, 9, 22 (--draft-k 0, 4, 8, 21), head dims 32, 64, 128, plain and
-# softcapped, over ragged slots that include an empty one and ones shorter
-# than W
+# the dense decode kernels against their paged twins, bitwise, over
+# shuffled tables with sentinel tails at every block size (BS and
+# OTHER_BS), the dense kernels on the gathered view: every group size the
+# served configs have (the planner's 3, hymba's 5, arctic's 7, kimi's 8),
+# verify windows W 1, 5, 9, 22 (--draft-k 0, 4, 8, 21), head dims 32, 64,
+# 128, plain and softcapped, over ragged slots that include an empty one
+# and ones shorter than W
 SWEEP_G, SWEEP_W, SWEEP_HD, SWEEP_CAP = (3, 5, 7, 8), (1, 5, 9, 22), \
     (32, 64, 128), (0.0, 30.0)
 SWEEP_KV = [0, 1, 2048, 300, 1025, 21, 777, 1300]
@@ -433,42 +511,44 @@ SWEEP_KV = [0, 1, 2048, 300, 1025, 21, 777, 1300]
 
 def decode_family_sweep(gen):
     """flash_decode == flash_decode_paged and flash_verify ==
-    flash_verify_paged (``torch.equal``) at every SWEEP_* case: the
-    untouched routine of the paged twins is the oracle of the dense
-    kernels' bits."""
+    flash_verify_paged (``torch.equal``) at every SWEEP_* case and block
+    size: one routine with two sources, so any difference is a source's
+    fault (a row staged in the wrong place, a table entry misread)."""
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.flash_decode_paged import flash_decode_paged
     from repro_torch.kernels.flash_verify import flash_verify, \
         flash_verify_paged
+    from repro_torch.kernels.ref import paged_gather_kv
     kvl = torch.tensor(SWEEP_KV, dtype=torch.int32, device="cuda")
     n = 0
     for hd in SWEEP_HD:
-        kc, vc = _mk(gen, len(SWEEP_KV), 4, CACHE, hd), \
-            _mk(gen, len(SWEEP_KV), 4, CACHE, hd)
-        (kp, tab), (vp, _) = identity_pool(kc, BS), identity_pool(vc, BS)
-        for G in SWEEP_G:
-            for cap in SWEEP_CAP:
-                q = _mk(gen, len(SWEEP_KV), 4 * G, hd)
-                check(torch.equal(
-                    flash_decode(q, kc, vc, kvl, cap=cap),
-                    flash_decode_paged(q, kp, vp, tab, kvl, cap=cap)),
-                    f"flash_decode != flash_decode_paged at hd {hd}, G {G}, "
-                    f"cap {cap}")
-                for W in SWEEP_W:
-                    q = _mk(gen, len(SWEEP_KV), 4 * G, W, hd)
+        for bs in (BS,) + OTHER_BS:
+            kp, vp, tab, _ = paged_pool(gen, 4, hd, bs, SWEEP_KV)
+            kg, vg = paged_gather_kv(kp, tab), paged_gather_kv(vp, tab)
+            for G in SWEEP_G:
+                for cap in SWEEP_CAP:
+                    q = _mk(gen, len(SWEEP_KV), 4 * G, hd)
                     check(torch.equal(
-                        flash_verify(q, kc, vc, kvl, cap=cap),
-                        flash_verify_paged(q, kp, vp, tab, kvl, cap=cap)),
-                        f"flash_verify != flash_verify_paged at hd {hd}, "
-                        f"G {G}, W {W}, cap {cap}")
-                n += 1 + len(SWEEP_W)
+                        flash_decode(q, kg, vg, kvl, cap=cap),
+                        flash_decode_paged(q, kp, vp, tab, kvl, cap=cap)),
+                        f"flash_decode != flash_decode_paged at hd {hd}, "
+                        f"bs {bs}, G {G}, cap {cap}")
+                    for W in SWEEP_W:
+                        q = _mk(gen, len(SWEEP_KV), 4 * G, W, hd)
+                        check(torch.equal(
+                            flash_verify(q, kg, vg, kvl, cap=cap),
+                            flash_verify_paged(q, kp, vp, tab, kvl,
+                                               cap=cap)),
+                            f"flash_verify != flash_verify_paged at hd "
+                            f"{hd}, bs {bs}, G {G}, W {W}, cap {cap}")
+                    n += 1 + len(SWEEP_W)
     torch.cuda.synchronize()
     return dict(G=list(SWEEP_G), W=list(SWEEP_W), hd=list(SWEEP_HD),
-                cap=list(SWEEP_CAP), kv_len=SWEEP_KV, Hkv=4, cases=n,
-                bitwise=True)
+                cap=list(SWEEP_CAP), block_sizes=[BS, *OTHER_BS],
+                kv_len=SWEEP_KV, Hkv=4, cases=n, bitwise=True)
 
 
-# verify above 64 rows per (kv head, slot): the row-chunk grid axis at
+# verify above 64 rows per (kv head, slot): 9 and 17 blocks of warps at
 # kimi-k2's heads with --draft-k 8 (G = 8, W = 9: 72 rows) and the
 # planner's with --draft-k 21 (G = 3, W = 22: 66 rows)
 VERIFY_OVER_64 = [(("kimi", 64, 8, 128), 9), (("planner", HQ, HKV, HD), 22)]
@@ -658,9 +738,10 @@ def router_cases(gen, build_log: str):
 HYMBA_HEADS = (25, 5, 64)
 HYMBA_WINDOW = 1024
 # the scan's (B, S, di, n): hymba-1.5b's prefill of a 1,024-token head and
-# of a ragged 1,300-token prompt, its decode over 8 slots, hymba-smoke
+# of a ragged 1,300-token prompt, its decode over 8 slots, hymba-smoke,
+# and the serve runs' 14-token prompts
 SSM_CASES = [(1, 1024, 1600, 16), (1, 1300, 1600, 16), (8, 1, 1600, 16),
-             (1, 40, 128, 8)]
+             (1, 40, 128, 8), (1, 14, 1600, 16)]
 SSM_ATOL = SSM_RTOL = 1e-4
 
 
@@ -706,6 +787,8 @@ def ssm_cases(gen, build_log: str):
                 B=B, S=S, di=di, n=n,
                 h0="random" if random_h0 else "zeros", max_abs_err=err,
                 ms=cuda_ms(lambda: ssm_scan(*args)),
+                device_ms=device_ms(lambda: ssm_scan(*args),
+                                    "ssm_scan_kernel"),
                 plain_ms=cuda_ms(lambda: selective_scan_ref(*args),
                                  iters=2, warmup=1),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by,
@@ -752,9 +835,11 @@ def hymba_attention_cases(gen):
 XLSTM = "xlstm-125m"
 # the mLSTM scan's (B, H, S, hd): xlstm-125m's prefill of a 1,024-token
 # head and of a ragged 1,300-token prompt, its decode over 8 slots,
-# xlstm-smoke, and the two other head dims the kernel is built for
+# xlstm-smoke, the two other head dims the kernel is built for, and the
+# serve runs' 14-token prompts
 MLSTM_CASES = [(1, 4, 1024, 192), (1, 4, 1300, 192), (8, 4, 1, 192),
-               (1, 4, 40, 32), (1, 4, 256, 64), (1, 4, 256, 128)]
+               (1, 4, 40, 32), (1, 4, 256, 64), (1, 4, 256, 128),
+               (1, 4, 14, 192)]
 MLSTM_TOL = 1e-4
 
 
@@ -857,6 +942,8 @@ def mlstm_cases(gen, build_log: str):
                 max_abs_err=err, err_over_scale=over, state_err=st_err,
                 min_den_over_nq=ratio, h_absmax=float(rh.abs().max()),
                 ms=cuda_ms(lambda: mlstm_scan(*args, st)),
+                device_ms=device_ms(lambda: mlstm_scan(*args, st),
+                                    "mlstm_scan_kernel"),
                 plain_ms=cuda_ms(lambda: mlstm_scan_ref(*args, st),
                                  iters=2, warmup=1),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by,
@@ -956,6 +1043,8 @@ PLANNER_MODES = [
     ("spec_k21", ["--spec-decode", "--draft-k", "21"], 45,
      ("flash_prefill", "flash_verify")),
     ("paged_tight", PAGED + ["--kv-blocks", "24"], 64,
+     ("flash_prefill", "flash_decode_paged")),
+    ("paged_bs8", PAGED + ["--block-size", "8"], 64,
      ("flash_prefill", "flash_decode_paged")),
     ("dense_again", [], 64, ("flash_prefill", "flash_decode"))]
 _MOE = ("flash_prefill", "moe_router_topk")
@@ -1114,14 +1203,28 @@ def _busy_engine(cfg, model, max_new: int, warm: int, **kw):
     return eng
 
 
-def profile_decode(cfg, model, steps: int, trace: str):
+def kernel_launch_times(dev, dev_t, names, per: int, unit: str) -> dict:
+    """Each named kernel's device time, launches and time a launch over
+    ``per`` steps or rounds (``unit``), from a profile's device events."""
+    res = {}
+    for name in names:
+        hit = [e for e in dev if f"{name}_kernel" in e.key]
+        t, n = sum(dev_t(e) for e in hit), sum(e.count for e in hit)
+        res[f"{name}_ms_per_{unit}"] = t / 1e3 / per
+        res[f"{name}_launches_per_{unit}"] = n / per
+        res[f"{name}_ms_per_launch"] = t / 1e3 / n if n else None
+    return res
+
+
+def profile_decode(cfg, model, steps: int, trace: str, **kw):
     """Where a full-width decode step's time goes: device kernel time by
-    name over ``steps`` engine steps with 8 busy slots, against the host
-    clock around the same steps; the decode attention kernel's time and
-    share (the scans' for the hybrid and recurrent stacks); for an MoE
-    stack also the router kernel's time and the expert products'
-    (``aten::bmm``, which only the expert FFN calls)."""
-    eng = _busy_engine(cfg, model, steps + 8, 4)
+    name over ``steps`` engine steps with 8 busy slots (``kw``: the
+    engine's KV mode), against the host clock around the same steps; the
+    decode attention kernel's time, launches and share (the scans' for the
+    hybrid and recurrent stacks); for an MoE stack also the router
+    kernel's and the expert products' (``aten::bmm``, which only the
+    expert FFN calls)."""
+    eng = _busy_engine(cfg, model, steps + 8, 4, **kw)
     wall, ev, dev, dev_t = _profiled(eng, steps, trace)
     busy_us = sum(dev_t(e) for e in dev)
     top = sorted(dev, key=dev_t, reverse=True)[:8]
@@ -1132,30 +1235,31 @@ def profile_decode(cfg, model, steps: int, trace: str):
                top_kernels=[dict(name=e.key[:80], count=e.count,
                                  ms_per_step=dev_t(e) / 1e3 / steps)
                             for e in top])
+    attn = "flash_decode_paged" if kw.get("kv_mode") == "paged" \
+        else "flash_decode"
+    names = {"hybrid": ("ssm_scan", attn), "ssm": ("mlstm_scan",),
+             "moe": (attn, "moe_router_topk")}.get(cfg.family, (attn,))
+    res.update(kernel_launch_times(dev, dev_t, names, steps, "step"))
+    for name in names:
+        res[f"{name}_share_of_busy"] = \
+            1e3 * steps * res[f"{name}_ms_per_step"] / max(busy_us, 1e-9)
     if cfg.family == "moe":
         tot_t = lambda e: getattr(e, "device_time_total",
                                   getattr(e, "cuda_time_total", 0.0))
-        res["moe_router_topk_ms_per_step"] = sum(
-            dev_t(e) for e in dev if "moe_router" in e.key) / 1e3 / steps
         res["expert_bmm_ms_per_step"] = sum(
             tot_t(e) for e in ev if e.key == "aten::bmm") / 1e3 / steps
-    names = {"hybrid": ("ssm_scan", "flash_decode"),
-             "ssm": ("mlstm_scan",)}.get(cfg.family, ("flash_decode",))
-    for name in names:
-        t = sum(dev_t(e) for e in dev if f"{name}_kernel" in e.key)
-        res[f"{name}_ms_per_step"] = t / 1e3 / steps
-        res[f"{name}_share_of_busy"] = t / max(busy_us, 1e-9)
     return res
 
 
-def profile_spec(cfg, model, rounds: int = 4):
+def profile_spec(cfg, model, rounds: int = 4, **kw):
     """Where a full-width speculative round's time goes: the host clock
     around the draft's steps (``spec.draft`` + ``spec.catch_up``, each
     ending in a synchronize) against the whole round, and device time
-    over the same rounds, with 8 busy slots (k=4 self-draft, dense)."""
+    over the same rounds, with 8 busy slots (k=4 self-draft; ``kw``: the
+    engine's KV mode); the verify kernel's time a launch."""
     from repro_torch.serving.specdec import SpecConfig
     eng = _busy_engine(cfg, model, 5 * (rounds + 4), 2,
-                       spec_decode=SpecConfig(cfg, model, k=4))
+                       spec_decode=SpecConfig(cfg, model, k=4), **kw)
     draft_s = [0.0]
 
     def timed(fn):
@@ -1182,7 +1286,11 @@ def profile_spec(cfg, model, rounds: int = 4):
                 spec_accept_rate=eng.throughput_stats()["spec_accept_rate"],
                 top_kernels=[dict(name=e.key[:80], count=e.count,
                                   ms_per_round=dev_t(e) / 1e3 / rounds)
-                             for e in top])
+                             for e in top],
+                **kernel_launch_times(
+                    dev, dev_t, ("flash_verify_paged",)
+                    if kw.get("kv_mode") == "paged" else ("flash_verify",),
+                    rounds, "round"))
 
 
 def card_vs_cpu(cfg):
@@ -1265,7 +1373,11 @@ def planner_phases():
               f"{name}: tokens differ from monolithic prefill")
     emit("decode_profile", **profile_decode(cfg, model, 10,
                                             "decode_trace.json"))
+    emit("paged_decode_profile", **profile_decode(cfg, model, 10, "",
+                                                  kv_mode="paged"))
     emit("spec_profile", **profile_spec(cfg, model))
+    emit("paged_spec_profile", **profile_spec(cfg, model,
+                                              kv_mode="paged"))
     emit("card_vs_cpu", **card_vs_cpu(cfg))
     return runs
 
@@ -1708,13 +1820,20 @@ def main(argv=None) -> int:
          registers=_ptxas_registers(logs["flash_prefill"], "flash_prefill"),
          ptxas=[ln.strip() for ln in logs["flash_prefill"].splitlines()
                 if "Used" in ln or "smem" in ln or "spill" in ln])
-    dense_ptxas = {k: ptxas_instances(logs[k], f"{k}_kernel")
-                   for k in ("flash_decode", "flash_verify")}
+    decode_ptxas = {k: ptxas_instances(logs[src], f"{k}_kernel")
+                    for k, src in (("flash_decode", "flash_decode"),
+                                   ("flash_decode_paged",
+                                    "flash_decode_paged"),
+                                   ("flash_verify", "flash_verify"),
+                                   ("flash_verify_paged", "flash_verify"))}
     check(all(sorted(i["hd"] for i in v) == [32, 64, 128]
               and all(i.get("registers") for i in v)
-              for v in dense_ptxas.values()),
-          f"ptxas report lacks the dense decode instances: {dense_ptxas}")
-    emit("build_decode_ptxas", **dense_ptxas)
+              for v in decode_ptxas.values()),
+          f"ptxas report lacks the decode instances: {decode_ptxas}")
+    check(not any(i.get("spill_stores") or i.get("spill_loads")
+                  for v in decode_ptxas.values() for i in v),
+          f"a decode kernel instance spills: {decode_ptxas}")
+    emit("build_decode_ptxas", **decode_ptxas)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     pre = [prefill_case(s, s, 0, gen) for s in (37, 512, 1024)]
@@ -1732,6 +1851,8 @@ def main(argv=None) -> int:
         emit(f"kernel_{name[6:]}", **c)
     hd_cases = head_dim_cases(gen)
     hd_cases += verify_over_64_cases(gen)
+    hd_cases += block_size_cases(gen)
+    hd_cases.append(("kernel_decode", wide_group_case(gen)))
     for phase, c in hd_cases:
         emit(phase, **c)
     emit("kernel_decode_family_sweep", **decode_family_sweep(gen))

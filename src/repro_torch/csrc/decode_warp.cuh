@@ -1,13 +1,17 @@
-// The dense decode kernels' attention routine for Hopper (sm_90a): a warp
-// per row, K/V through an asynchronous ring.
+// The decode family's attention routine for Hopper (sm_90a): a warp per
+// row, K/V through an asynchronous ring.
 //
-// flash_decode and flash_verify compute, for the query rows of one
-// (kv head, batch slot), the online-softmax attention over the first
-// `lim` keys of that slot's dense (Sk, HD) K/V slab, each row with its
-// own key limit. Their paged twins still run decode_tile.cuh's
-// attend_rows; this routine does each row's operations exactly as that
-// one does, in the same order, so every row has the same bits in all
-// four kernels (the paged twins are the card's check of that):
+// flash_decode, flash_decode_paged, flash_verify and flash_verify_paged
+// all compute, for the query rows of one (kv head, batch slot), the
+// online-softmax attention over the first `lim` keys of that slot's K/V
+// rows, each row with its own key limit. All four run attend_warps below;
+// they differ only in where a tile's K/V rows come from, a source
+// (DenseSource: the slot's (Sk, HD) slab of a dense cache; PagedSource:
+// the blocks of a paged pool its row of the block table names). The
+// source only fills the ring; every row's arithmetic is this one piece of
+// code, in this order, so a row has the same bits in all four kernels
+// (verify row == decode row at its position, paged == dense on the
+// gathered view, any block size alike):
 //
 //   * keys in tiles of NT = 128 from key 0; a row takes part in a tile
 //     only if the tile starts below its limit;
@@ -42,16 +46,20 @@
 //     independent chains interleave;
 //   * a block holds up to block_warps warps (8 at HD 128, else 4), which
 //     share every staged K/V tile. K and V tiles alternate through a
-//     ring of NSTAGE = 4 entries filled by the copy engine (K by TMA
-//     tensor copies, swizzled; V by one bulk copy), one phase ahead, so
-//     no thread of the block spends instructions on loads; one block
+//     ring of NSTAGE = 4 entries filled by the copy engine, one phase
+//     ahead, so the consumer spends no instructions on loads; one block
 //     barrier per phase frees the entries of the phase before. Only keys
-//     below the block's largest limit are loaded;
+//     below the block's largest limit are loaded. The dense source
+//     issues a K tile as HD / PC swizzled TMA boxes of NT rows and a V
+//     tile as one bulk copy, from thread 0; the paged source issues a
+//     tile in row boxes of g = gcd(bs, NT) rows (one pool block's rows,
+//     contiguous in the pool), spread over the block's warps, one row box
+//     and one table entry a thread, read a tile ahead;
 //   * the grid is (Hkv, B, blocks of a kv head's G * W rows): rows are
 //     split over blocks (each re-reads its slot's K/V, from L2 mostly),
-//     keys never are. Two rows a warp (sharing the K/V reads and bf16
-//     conversions) were slower at every served shape and won only past
-//     ~10 k rows a call on an H100 (PERF.md §6).
+//     keys never are, so any G and W work. Two rows a warp (sharing the
+//     K/V reads and bf16 conversions) were slower at every served shape
+//     and won only past ~10 k rows a call on an H100 (PERF.md §6).
 //
 // What bounds it on an H100: each key costs 2 * 2 * HD operations per
 // row (2 * HD in Q.K^T, bf16 operands, 989 TFLOP/s on the card; 2 * HD
@@ -63,17 +71,19 @@
 // slot's rows, each walked by one warp, set the critical path.
 #pragma once
 
-#include "decode_tile.cuh"
+#include <cuda_bf16.h>
+
+#include <type_traits>
+
 #include "tma.cuh"
 
 namespace decode_warp {
 
 using namespace tma;
-using decode_tile::NEG_INF;
-using decode_tile::NT;
-using decode_tile::warp_sum;
 
+constexpr int NT = 128;            // keys a tile
 constexpr int NSTAGE = 4;          // ring entries (K and V tiles alternate)
+constexpr float NEG_INF = -1e30f;
 
 // Warps a block of head dim HD holds at most: 8 at HD 128, where the
 // ring (128 KB) lets one block reside on an SM, so an SM still runs 8
@@ -126,9 +136,174 @@ __device__ __forceinline__ float warp_fmax(float x) {
   return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
 }
 
+// The sum of the warp's 32 values by the xor butterfly 16, 8, 4, 2, 1.
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Where a tile's K/V rows come from. A source is called by every thread
+// of the block: start(n) once, when the block's largest key limit n is
+// known, then, after the ring's barriers are set up, k / v for each tile
+// below n in the ring's entry order (K of tile 0, V of tile 0, K of tile
+// 1, ...): stage the tile's keys
+// [k0, min(k0 + NT, n)) into the ring slot dst (K at KBox's positions, V
+// as plain rows of HD) and make `bar`'s phase complete when they have
+// landed. Rows of a slot at or past n may hold anything: a score there
+// is replaced by NEG_INF and P.V never reads such a V row.
+
+// A dense cache: the slot's K slab is box plane `pair` of the K cache's
+// tensor map tk (NT-row boxes; rows past Sk read as zeros), its V slab
+// (Sk, HD) at vc. Thread 0 issues every copy.
+template <int HD>
+struct DenseSource {
+  const CUtensorMap* tk;
+  int pair;
+  const __nv_bfloat16* vc;
+
+  __device__ __forceinline__ void start(int) {}
+  __device__ __forceinline__ void k(__nv_bfloat16* dst, uint64_t* bar,
+                                    int k0, int) {
+    if (threadIdx.x != 0) return;
+    bar_expect(bar, NT * HD * 2);
+#pragma unroll
+    for (int b = 0; b < HD / KBox<HD>::PC; ++b)
+      tma_load(dst + b * NT * KBox<HD>::PC, tk, bar, b * KBox<HD>::PC, k0,
+               pair);
+  }
+  __device__ __forceinline__ void v(__nv_bfloat16* dst, uint64_t* bar,
+                                    int k0, int n) {
+    if (threadIdx.x != 0) return;
+    const int bytes = min(NT, n - k0) * HD * 2;
+    bar_expect(bar, bytes);
+    bulk_load(dst, vc + (long long)k0 * HD, bytes, bar);
+  }
+};
+
+// A paged pool (nb, Hkv, bs, HD) of K at kp and V at vp: key `key` of the
+// slot is row key % bs of block tab[key / bs], the entry clamped to
+// [0, nb - 1] (a sentinel reads the last block, as the plain version's
+// gather does). A tile goes in nrb = NT / g row boxes of g = gcd(bs, NT)
+// rows (a power of 2): a row box never crosses a pool block or a tile, so
+// it is one run of the pool. Row box j is issued by lane j / nw of warp
+// j % nw (nw warps a block), so each warp issues a share of the copies,
+// which a warp issues one lane at a time: V by one bulk copy of its rows
+// below n; K, where g >= 8 (a box then starts on a row of the swizzle's
+// 8-row period, as KBox::at assumes), by HD / PC TMA boxes of g rows
+// through the pool's tensor map tk, (HD, bs, nb * Hkv), plane
+// blk * Hkv + hk. Where g < 8 the block's threads copy K's 16-byte chunks
+// to KBox::at's positions themselves (the next phase's block barrier
+// orders them before their reads; the entry's barrier completes at
+// once). Row boxes at or past n are not loaded. Thread 0 sets each
+// entry's byte count; a copy may land before it, which leaves the
+// barrier's phase open.
+//
+// With boxes (nrb <= 16: one row box a thread at most) each thread walks
+// its row box's table index and row in block from tile to tile by adds,
+// with no division, and reads its table entry two copies before it
+// issues from it, clamping it only then, so the read's latency hides
+// behind a phase: cur / cur_r are the raw entry and the row in its block
+// of the tile whose K is issued next (V of a tile follows its K), nxt /
+// nxt_r of the tile after, (pq, pr) the table index and row of the tile
+// after that, which is read next.
+template <int HD>
+struct PagedSource {
+  const CUtensorMap* tk;
+  const __nv_bfloat16* kp;
+  const __nv_bfloat16* vp;
+  const int* tab;       // this slot's row of the block table
+  int nb, Hkv, hk, bs, g;
+  int lg = 0, nrb = 0, box = 0, dq = 0, dr = 0, pq = 0, pr = 0;
+  int cur = 0, cur_r = 0, nxt = 0, nxt_r = 0;
+
+  __device__ __forceinline__ bool boxes() const { return g >= 8; }
+  __device__ __forceinline__ int clamp(int blk) const {
+    return blk < 0 ? 0 : (blk >= nb ? nb - 1 : blk);
+  }
+  // element offset of row r of block blk in the pool
+  __device__ __forceinline__ long long row(int blk, int r) const {
+    return (((long long)blk * Hkv + hk) * bs + r) * HD;
+  }
+  // (box mode) this thread's raw table entry for tile t, 0 where its row
+  // box holds no key below n; then (pq, pr) step to tile t + 1
+  __device__ __forceinline__ int read_entry(int t, int n) {
+    const int e = box < nrb && t * NT + box * g < n ? tab[pq] : 0;
+    pr += dr;
+    pq += dq;
+    if (pr >= bs) {
+      pr -= bs;
+      ++pq;
+    }
+    return e;
+  }
+
+  __device__ __forceinline__ void start(int n) {
+    lg = __ffs(g) - 1;
+    nrb = NT >> lg;
+    box = (threadIdx.x >> 5) + (blockDim.x >> 5) * (threadIdx.x & 31);
+    if (boxes()) {
+      pq = box * g / bs;
+      pr = box * g % bs;
+      dq = NT / bs;
+      dr = NT % bs;
+      cur_r = pr;
+      cur = read_entry(0, n);
+      nxt_r = pr;
+      nxt = read_entry(1, n);
+    }
+  }
+  __device__ __forceinline__ void k(__nv_bfloat16* dst, uint64_t* bar,
+                                    int k0, int n) {
+    constexpr int PC = KBox<HD>::PC, CPR = HD / 8;
+    if (!boxes()) {
+      const int rows = min(NT, n - k0);
+#pragma unroll 4
+      for (int i = threadIdx.x; i < rows * CPR; i += blockDim.x) {
+        const int r = i / CPR, t = i % CPR, key = k0 + r;
+        *reinterpret_cast<uint4*>(dst + KBox<HD>::at(r, t)) =
+            *reinterpret_cast<const uint4*>(
+                kp + row(clamp(tab[key / bs]), key % bs) + t * 8);
+      }
+      if (threadIdx.x == 0) bar_expect(bar, 0);
+      return;
+    }
+    if (threadIdx.x == 0)
+      bar_expect(bar, min(nrb, (n - k0 + g - 1) >> lg) * g * HD * 2);
+    if (box < nrb && k0 + box * g < n) {
+      const int plane = clamp(cur) * Hkv + hk;
+#pragma unroll
+      for (int b = 0; b < HD / PC; ++b)
+        tma_load(dst + b * NT * PC + box * g * PC, tk, bar, b * PC, cur_r,
+                 plane);
+    }
+  }
+  __device__ __forceinline__ void v(__nv_bfloat16* dst, uint64_t* bar,
+                                    int k0, int n) {
+    if (threadIdx.x == 0) bar_expect(bar, min(NT, n - k0) * HD * 2);
+    if (boxes()) {
+      const int kb = k0 + box * g;
+      if (box < nrb && kb < n)
+        bulk_load(dst + box * g * HD, vp + row(clamp(cur), cur_r),
+                  min(g, n - kb) * HD * 2, bar);
+      cur = nxt;
+      cur_r = nxt_r;
+      nxt_r = pr;
+      nxt = read_entry(k0 / NT + 2, n);
+      return;
+    }
+    for (int j = box; j < nrb; j += blockDim.x) {
+      const int kb = k0 + j * g;
+      if (kb < n)
+        bulk_load(dst + j * g * HD, vp + row(clamp(tab[kb / bs]), kb % bs),
+                  min(g, n - kb) * HD * 2, bar);
+    }
+  }
+};
+
 // The rows of one (kv head, slot): q rows at qp, out rows at op, row
-// (g, w) at (g * W + w) * HD; the slot's K slab is box plane `pair` of
-// the K cache's tensor map tk, its V slab (Sk, HD) at vc.
+// (g, w) at (g * W + w) * HD; the slot's Sk K/V rows come from `src` (a
+// DenseSource or a PagedSource).
 // Row (g, w) has the key limit kv_len - W + w + 1, clamped to [0, Sk];
 // decode is W = 1. Warp `warp` of block z takes row w * G + g = z * nw +
 // warp (the rows of one w are consecutive, so a block's limits are a few
@@ -140,11 +315,10 @@ __device__ __forceinline__ float warp_fmax(float x) {
 // 2i holds K of tile i, entry 2i + 1 V of tile i; phase i needs entries
 // 2i - 1 and 2i, and loads entries up to 2i + NSTAGE - 2 (one phase
 // ahead at NSTAGE = 4) into the slots that phase i - 1 has released.
-template <int HD>
+template <int HD, class Source>
 __device__ __forceinline__ void attend_warps(
     const __nv_bfloat16* __restrict__ qp, __nv_bfloat16* __restrict__ op,
-    const CUtensorMap* tk, int pair, const __nv_bfloat16* __restrict__ vc,
-    int G, int W, int kv_len, int Sk, float cap, float scale) {
+    Source& src, int G, int W, int kv_len, int Sk, float cap, float scale) {
   constexpr int CPR = HD / 8;      // 16-byte chunks of a K/V row
   constexpr int TILE = NT * HD;    // elements of a ring slot
   constexpr int CW = HD / 32;      // P.V columns a lane owns
@@ -168,6 +342,7 @@ __device__ __forceinline__ void attend_warps(
   const int last = min(rows, (int)(blockIdx.z + 1) * nw) - 1;
   const int n = clampk(kv_len - W + last / G + 1);
   const int ntile = (n + NT - 1) / NT;
+  src.start(n);    // (a paged source's first table reads go out here)
 
   // this warp's q row in fp32
   for (int d = lane; d < HD; d += 32)
@@ -175,10 +350,8 @@ __device__ __forceinline__ void attend_warps(
                    : 0.f;
 
   // entry e: K (e even) or V (e odd) of tile e / 2, into ring slot
-  // e % NSTAGE, issued by thread 0: K in HD / PC boxes of NT rows (rows
-  // past the slot's Sk read as zeros), V in one copy of its rows below n
-  // (keys at or past n are never read). The slot's barrier completes when
-  // the entry's bytes have landed.
+  // e % NSTAGE, by the source; the slot's barrier completes when the
+  // entry's bytes have landed
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int i = 0; i < NSTAGE; ++i) bar_init(&bars[i]);
@@ -188,21 +361,13 @@ __device__ __forceinline__ void attend_warps(
   int issued = 0;
   auto fill = [&](int upto) {
     for (; issued <= upto && issued < 2 * ntile; ++issued) {
-      if (threadIdx.x != 0) continue;
       const int e = issued, k0 = (e >> 1) * NT;
       __nv_bfloat16* dst = ring + (e % NSTAGE) * TILE;
       uint64_t* bar = &bars[e % NSTAGE];
-      if (e & 1) {
-        const int bytes = min(NT, n - k0) * HD * 2;
-        bar_expect(bar, bytes);
-        bulk_load(dst, vc + (long long)k0 * HD, bytes, bar);
-      } else {
-        bar_expect(bar, NT * HD * 2);
-#pragma unroll
-        for (int b = 0; b < HD / KBox<HD>::PC; ++b)
-          tma_load(dst + b * NT * KBox<HD>::PC, tk, bar, b * KBox<HD>::PC,
-                   k0, pair);
-      }
+      if (e & 1)
+        src.v(dst, bar, k0, n);
+      else
+        src.k(dst, bar, k0, n);
     }
   };
   // wait for entry e (its slot's (e / NSTAGE)-th fill)
@@ -392,35 +557,42 @@ __device__ __forceinline__ void attend_warps(
   }
 }
 
-// The K cache (B * Hkv slabs of (Sk, HD) bf16) as a (HD, Sk, B * Hkv)
-// tensor map whose box is PC columns of NT rows of one slab, swizzled as
-// KBox says; rows past a slab's Sk read as zeros.
+// K as a tensor map: `planes` planes of (rows, HD) bf16 at k, viewed as
+// (HD, rows, planes), whose box is PC columns of `box_rows` rows of one
+// plane, swizzled as KBox says; rows past a plane's end read as zeros.
+// A dense cache is B * Hkv planes of Sk rows (boxes of NT rows); a paged
+// pool nb * Hkv planes of bs rows (boxes of a row box's g rows).
+struct KPlanes {
+  const void* k;
+  int rows, planes, box_rows;    // box_rows 0: no copy reads K by TMA
+};
+
 template <int HD>
-inline cudaError_t k_map(CUtensorMap* map, const void* k, int Sk,
-                         int slabs) {
+inline cudaError_t k_map(CUtensorMap* map, const KPlanes& kl) {
   PFN_cuTensorMapEncodeTiled_v12000 enc = encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)HD, (cuuint64_t)Sk,
-                              (cuuint64_t)slabs};
+  const cuuint64_t dims[3] = {(cuuint64_t)HD, (cuuint64_t)kl.rows,
+                              (cuuint64_t)kl.planes};
   const cuuint64_t strides[2] = {(cuuint64_t)HD * 2,
-                                 (cuuint64_t)Sk * HD * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)KBox<HD>::PC, (cuuint32_t)NT, 1};
+                                 (cuuint64_t)kl.rows * HD * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)KBox<HD>::PC,
+                             (cuuint32_t)kl.box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(k),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             KBox<HD>::SWIZZLE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+             const_cast<void*>(kl.k), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, KBox<HD>::SWIZZLE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
       ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // Launch `kernel` (the instance for HD) over (Hkv, B, blocks of a kv
 // head's G * W rows, at most block_warps a block, the rows spread evenly
-// over the blocks), with the K cache's tensor map first among its
-// arguments. Returns a CUDA error code.
+// over the blocks), with K's tensor map (built here, per call) first
+// among its arguments. Returns a CUDA error code.
 template <int HD, class Kernel, class... Args>
-cudaError_t launch(Kernel kernel, const void* k_cache, int B, int Hkv,
-                   int Sk, int G, int W, cudaStream_t stream,
-                   Args... args) {
+cudaError_t launch(Kernel kernel, const KPlanes& kl, int B, int Hkv, int G,
+                   int W, cudaStream_t stream, Args... args) {
   constexpr int MW = block_warps<HD>();
   const int rows = G * W;
   const int blocks = (rows + MW - 1) / MW;
@@ -429,12 +601,25 @@ cudaError_t launch(Kernel kernel, const void* k_cache, int B, int Hkv,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem_bytes<HD>(MW));
   if (err != cudaSuccess || B == 0) return err;
-  CUtensorMap tk{};     // an empty cache (Sk = 0) loads nothing
-  if (Sk > 0) err = k_map<HD>(&tk, k_cache, Sk, B * Hkv);
+  CUtensorMap tk{};     // an empty cache (no rows) loads nothing
+  if (kl.rows > 0 && kl.box_rows > 0) err = k_map<HD>(&tk, kl);
   if (err != cudaSuccess) return err;
   dim3 grid(Hkv, B, blocks);
   kernel<<<grid, nw * 32, smem_bytes<HD>(nw), stream>>>(tk, args...);
   return cudaGetLastError();
+}
+
+// Call `launch` with the head dim as a compile-time constant
+// (std::integral_constant<int, HD>) for the head dims the kernels are
+// built for; any other hd returns cudaErrorInvalidValue.
+template <class Launch>
+inline cudaError_t dispatch_hd(int hd, Launch launch) {
+  switch (hd) {
+    case 32: return launch(std::integral_constant<int, 32>{});
+    case 64: return launch(std::integral_constant<int, 64>{});
+    case 128: return launch(std::integral_constant<int, 128>{});
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace decode_warp

@@ -12,11 +12,10 @@
 // so it is bound by the bytes of K and V it must read:
 // 2 * kv_len[b] * Hkv * hd * 2 bytes per slot.
 //
-// Design: decode_warp.cuh's routine, shared with flash_verify (decode is
-// its W = 1), so a verify row is bitwise the decode row at its position;
-// the paged twin runs decode_tile.cuh's attend_rows, whose per-row
-// arithmetic this routine repeats exactly, so paged and dense decode
-// agree bit for bit too:
+// Design: decode_warp.cuh's routine with its dense source, shared with
+// flash_verify (decode is its W = 1), so a verify row is bitwise the
+// decode row at its position, and with the paged twins (the same routine
+// with the paged source), so paged and dense decode agree bit for bit:
 //   * a warp owns a q row for the whole walk over the keys, with m, l
 //     and acc in registers; the grid is (kv head, slot, blocks of at
 //     most 4 of the kv head's G warps; 8 at head dim 128), so the rows
@@ -52,8 +51,9 @@ flash_decode_kernel(const __grid_constant__ CUtensorMap tk,
                     int Hkv, int G, int Sk, float cap, float scale) {
   const int hk = blockIdx.x, b = blockIdx.y;
   const long long pair = (long long)b * Hkv + hk;
-  attend_warps<HD>(q + pair * G * HD, out + pair * G * HD, &tk, (int)pair,
-                   vc + pair * Sk * HD, G, 1, kv_len[b], Sk, cap, scale);
+  DenseSource<HD> src{&tk, (int)pair, vc + pair * Sk * HD};
+  attend_warps<HD>(q + pair * G * HD, out + pair * G * HD, src, G, 1,
+                   kv_len[b], Sk, cap, scale);
 }
 
 }  // namespace
@@ -69,9 +69,10 @@ extern "C" int flash_decode_bf16(const void* q, const void* k_cache,
   if (Hkv <= 0 || Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
-  return (int)decode_tile::dispatch_hd(hd, [&](auto hd_c) {
+  return (int)dispatch_hd(hd, [&](auto hd_c) {
     constexpr int HD = decltype(hd_c)::value;
-    return launch<HD>(flash_decode_kernel<HD>, k_cache, B, Hkv, Sk, G, 1,
+    return launch<HD>(flash_decode_kernel<HD>,
+                      KPlanes{k_cache, Sk, B * Hkv, NT}, B, Hkv, G, 1,
                       (cudaStream_t)stream, (const __nv_bfloat16*)q,
                       (const __nv_bfloat16*)v_cache, (const int*)kv_len,
                       (__nv_bfloat16*)out, Hkv, G, Sk, cap, scale);

@@ -16,37 +16,29 @@
 // operations bound it from ~38 rows a kv head (kimi-k2's 40 at W = 5;
 // the planner's 15 is bound by the bytes).
 //
-// flash_verify's design is decode_warp.cuh's routine, which flash_decode
-// runs too (as W = 1): a warp owns one row for the whole walk over the
-// keys, with m, l and acc in registers; the
-// warps of a block (at most 4; 8 at head dim 128) share the slot's
-// 128-key K/V tiles, which the copy engine brings through a 4-entry
-// ring; the grid is (kv head, slot, blocks of the kv head's warps), so
-// any G and W work (G*W past 64 too: kimi's 72 rows at W = 9 are 72
-// warps in 9 blocks) and the rows of
-// the longest slot are spread over several SMs. Row (g, w) has the key
-// limit kv_len[b] - W + w + 1; it takes part only in the tiles that
-// start below it and its P.V loop runs only to it, so it repeats
-// flash_decode's operations for one token at its position and is
-// bitwise that decode row, which is what makes speculative decoding emit
-// exactly the non-speculative tokens on the card.
-//
-// flash_verify_paged still runs decode_tile.cuh's attend_rows: one
-// thread block per (kv head, slot) holds its G*W rows when they are at
-// most MAX_ROWS = 64, else one block per chunk of at most 64 of them (a
-// third grid axis), and stages its tiles as flash_decode_paged does.
-// attend_rows does each row's operations as decode_warp.cuh does, so
-// paged verify is bitwise dense verify on the gathered view. The two
-// cases are two instances of a kernel: in one block the instance
-// compiles as it did before chunks existed; one chunked kernel for both
-// took 22% longer at W = 5 and head dim 32 on an H100 80GB HBM3 at 700 W
-// (72 registers and spills against 56).
-#include "decode_tile.cuh"
+// Both run decode_warp.cuh's routine, which flash_decode and
+// flash_decode_paged run too (as W = 1): a warp owns one row for the
+// whole walk over the keys, with m, l and acc in registers; the warps of
+// a block (at most 4; 8 at head dim 128) share the slot's 128-key K/V
+// tiles, which the copy engine brings through a 4-entry ring; the grid is
+// (kv head, slot, blocks of the kv head's warps), so any G and W work
+// (kimi's 72 rows at W = 9 are 72 warps in 9 blocks) and the rows of the
+// longest slot are spread over several SMs. flash_verify fills the ring
+// from the dense cache, flash_verify_paged through the block table (the
+// paged source, see flash_decode_paged.cu); the arithmetic is one piece
+// of code. Row (g, w) has the key limit kv_len[b] - W + w + 1; it takes
+// part only in the tiles that start below it and its P.V loop runs only
+// to it, so it repeats flash_decode's operations for one token at its
+// position and is bitwise that decode row, which is what makes
+// speculative decoding emit exactly the non-speculative tokens on the
+// card; paged verify is bitwise dense verify on the gathered view.
+#include <numeric>
+
 #include "decode_warp.cuh"
 
 namespace {
 
-using namespace decode_tile;
+using namespace decode_warp;
 
 // one resident block is enough (the ring bounds blocks per SM): ptxas
 // may then give each thread the registers that keep the loads in flight
@@ -60,42 +52,28 @@ flash_verify_kernel(const __grid_constant__ CUtensorMap tk,
                     int Sk, float cap, float scale) {
   const int hk = blockIdx.x, b = blockIdx.y;
   const long long pair = (long long)b * Hkv + hk;
-  decode_warp::attend_warps<HD>(
-      q + pair * G * W * HD, out + pair * G * W * HD, &tk, (int)pair,
-      vc + pair * Sk * HD, G, W, kv_len[b], Sk, cap, scale);
+  DenseSource<HD> src{&tk, (int)pair, vc + pair * Sk * HD};
+  attend_warps<HD>(q + pair * G * W * HD, out + pair * G * W * HD, src, G,
+                   W, kv_len[b], Sk, cap, scale);
 }
 
-template <int HD, bool CHUNKED>
-__global__ void __launch_bounds__(NT)
-flash_verify_paged_kernel(const __nv_bfloat16* __restrict__ q,
+template <int HD>
+__global__ void __launch_bounds__(decode_warp::block_warps<HD>() * 32, 1)
+flash_verify_paged_kernel(const __grid_constant__ CUtensorMap tk,
+                          const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ kp,
                           const __nv_bfloat16* __restrict__ vp,
                           const int* __restrict__ tab,
                           const int* __restrict__ kv_len,
                           __nv_bfloat16* __restrict__ out, int Hkv, int G,
-                          int W, int nb, int bs, int mb, float cap,
+                          int W, int nb, int bs, int mb, int g, float cap,
                           float scale) {
   const int hk = blockIdx.x, b = blockIdx.y;
-  const int r0 = CHUNKED ? blockIdx.z * MAX_ROWS : 0;
-  const int nrows = CHUNKED ? min(MAX_ROWS, G * W - r0) : G * W;
-  const long long row0 =
-      (((long long)b * Hkv * G + (long long)hk * G) * W + r0) * HD;
-  const PagedRows<HD> rows{tab + (long long)b * mb, nb, Hkv, hk, bs};
-  attend_rows<HD>(q + row0, out + row0, kp, vp, rows, r0, nrows, W,
-                  kv_len[b], mb * bs, cap, scale);
-}
-
-// Launch `kernel` (an instance for head dim HD) over (Hkv, B) and, where
-// CHUNKED, over the ceil(rows / MAX_ROWS) chunks of a kv head's rows.
-template <int HD, bool CHUNKED, class Kernel, class... Args>
-cudaError_t launch_rows(Kernel kernel, int rows, int Hkv, int B,
-                        cudaStream_t stream, Args... args) {
-  const int chunk = CHUNKED ? MAX_ROWS : rows;
-  cudaError_t err = prepare<HD>(kernel, chunk);
-  if (err != cudaSuccess || B == 0) return err;
-  dim3 grid(Hkv, B, CHUNKED ? (rows + MAX_ROWS - 1) / MAX_ROWS : 1);
-  kernel<<<grid, NT, dyn_smem_bytes<HD>(chunk), stream>>>(args...);
-  return cudaGetLastError();
+  const long long pair = (long long)b * Hkv + hk;
+  PagedSource<HD> src{&tk, kp, vp, tab + (long long)b * mb, nb, Hkv, hk,
+                      bs, g};
+  attend_warps<HD>(q + pair * G * W * HD, out + pair * G * W * HD, src, G,
+                   W, kv_len[b], mb * bs, cap, scale);
 }
 
 }  // namespace
@@ -112,9 +90,9 @@ extern "C" int flash_verify_bf16(const void* q, const void* k_cache,
   const int G = Hq / Hkv;
   return (int)dispatch_hd(hd, [&](auto hd_c) {
     constexpr int HD = decltype(hd_c)::value;
-    return decode_warp::launch<HD>(
-        flash_verify_kernel<HD>, k_cache, B, Hkv, Sk, G, W,
-        (cudaStream_t)stream, (const __nv_bfloat16*)q,
+    return launch<HD>(
+        flash_verify_kernel<HD>, KPlanes{k_cache, Sk, B * Hkv, NT}, B, Hkv,
+        G, W, (cudaStream_t)stream, (const __nv_bfloat16*)q,
         (const __nv_bfloat16*)v_cache, (const int*)kv_len,
         (__nv_bfloat16*)out, Hkv, G, W, Sk, cap, scale);
   });
@@ -133,18 +111,15 @@ extern "C" int flash_verify_paged_bf16(const void* q, const void* k_pages,
                                        float scale, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || W <= 0 || nb <= 0 || bs <= 0)
     return (int)cudaErrorInvalidValue;
-  const int rows = Hq / Hkv * W;
+  const int G = Hq / Hkv, g = std::gcd(bs, NT);
   return (int)dispatch_hd(hd, [&](auto hd_c) {
     constexpr int HD = decltype(hd_c)::value;
-    auto go = [&](auto chunked) {
-      constexpr bool C = decltype(chunked)::value;
-      return launch_rows<HD, C>(
-          flash_verify_paged_kernel<HD, C>, rows, Hkv, B,
-          (cudaStream_t)stream, (const __nv_bfloat16*)q,
-          (const __nv_bfloat16*)k_pages, (const __nv_bfloat16*)v_pages,
-          (const int*)block_tab, (const int*)kv_len, (__nv_bfloat16*)out,
-          Hkv, Hq / Hkv, W, nb, bs, mb, cap, scale);
-    };
-    return rows > MAX_ROWS ? go(std::true_type{}) : go(std::false_type{});
+    return launch<HD>(
+        flash_verify_paged_kernel<HD>,
+        KPlanes{k_pages, bs, nb * Hkv, g < 8 ? 0 : g}, B, Hkv, G, W,
+        (cudaStream_t)stream, (const __nv_bfloat16*)q,
+        (const __nv_bfloat16*)k_pages, (const __nv_bfloat16*)v_pages,
+        (const int*)block_tab, (const int*)kv_len, (__nv_bfloat16*)out, Hkv,
+        G, W, nb, bs, mb, g, cap, scale);
   });
 }

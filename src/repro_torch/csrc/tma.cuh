@@ -1,7 +1,6 @@
 // Shared memory addresses, mbarriers and the copy engine (TMA) on Hopper
 // (sm_90a), for the kernels that stage their tiles by TMA: flash_prefill
-// (csrc/flash_prefill.cu) and the dense decode kernels
-// (csrc/decode_warp.cuh).
+// (csrc/flash_prefill.cu) and the decode family (csrc/decode_warp.cuh).
 #pragma once
 
 #include <cuda.h>

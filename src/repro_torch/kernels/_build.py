@@ -6,8 +6,8 @@ headers, so a build takes seconds), all sources in parallel, into a
 git-ignored ``build/kernels/<hash>/`` directory at the root of the
 checkout. The hash covers the sources, the shared headers (``*.cuh``)
 and the flags, so an edited source or header builds anew. Every source
-is compiled with the same flags, so the decode family's shared tile
-routine (``decode_tile.cuh``) compiles to the same arithmetic in each.
+is compiled with the same flags, so the decode family's shared routine
+(``decode_warp.cuh``) compiles to the same arithmetic in each.
 Libraries are loaded with ``ctypes``. A failed build raises with the
 compiler's output; nothing falls back.
 

@@ -6,10 +6,11 @@ Replaces the JAX package's Pallas TPU kernel ``flash_decode``
 ``csrc/flash_decode.cu``, carries the design note: a warp per q row with
 m/l/acc in registers, the warps of a block sharing the slot's 128-key
 K/V tiles through a ring the copy engine fills, a loop over tiles only
-up to the slot's ``kv_len``, and 0 (not NaN) for ``kv_len == 0``. Its routine,
-``csrc/decode_warp.cuh``, is flash_verify's too, and does each row's
-operations as the paged twin's ``csrc/decode_tile.cuh`` does, so the
-four kernels agree bit for bit; head dims 32, 64 and 128.
+up to the slot's ``kv_len``, and 0 (not NaN) for ``kv_len == 0``. Its
+routine, ``csrc/decode_warp.cuh``, is the whole decode family's (dense
+and paged decode and verify differ only in the source that fills the
+ring), so the four kernels agree bit for bit; any number of q heads per
+kv head; head dims 32, 64 and 128.
 
 On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
 tensor it runs the plain version, ``ref.decode_attention_ref``.
@@ -25,9 +26,6 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import decode_attention_ref
 
 HEAD_DIMS = (32, 64, 128)     # the head dims the kernels are built for
-MAX_ROWS = 64     # the most q rows one block of the paged twins holds
-                  # (decode_tile.cuh): decode's G, here as there, so the
-                  # dense and paged kernels take the same shapes
 # q, k_cache, v_cache, kv_len, out; B, Hq, Hkv, Sk, hd; cap, scale; stream
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_float] * 2 + [ctypes.c_void_p])
@@ -36,9 +34,8 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
 def check_cache(kernel: str, q, k_cache, v_cache, W: int = 0):
     """Shared checks of the dense decode-family kernels: contiguous bf16
     q (B,Hq,hd) (decode: W = 0) or (B,Hq,W,hd) (verify), caches
-    (B,Hkv,Sk,hd) on q's device, hd in HEAD_DIMS, Hq a multiple of Hkv
-    and, for decode, at most MAX_ROWS q heads per kv head (verify takes
-    any W). Raises ValueError."""
+    (B,Hkv,Sk,hd) on q's device, hd in HEAD_DIMS and Hq a multiple of
+    Hkv. Raises ValueError."""
     for name, t, nd in (("q", q, 4 if W else 3),
                         ("k_cache", k_cache, 4), ("v_cache", v_cache, 4)):
         _build.check_tensor(kernel, name, t, torch.bfloat16, nd, q.device)
@@ -46,11 +43,10 @@ def check_cache(kernel: str, q, k_cache, v_cache, W: int = 0):
     Hkv = k_cache.shape[1]
     if (hd not in HEAD_DIMS or k_cache.shape[0] != B
             or k_cache.shape[3] != hd or v_cache.shape != k_cache.shape
-            or Hq % Hkv or (not W and Hq // Hkv > MAX_ROWS)):
+            or Hq % Hkv):
         raise ValueError(f"{kernel}: unsupported shapes q {tuple(q.shape)} "
                          f"caches {tuple(k_cache.shape)} (head dim in "
-                         f"{HEAD_DIMS}, Hq % Hkv == 0, decode rows per kv "
-                         f"head <= {MAX_ROWS})")
+                         f"{HEAD_DIMS}, Hq % Hkv == 0)")
 
 
 def flash_decode(q, k_cache, v_cache, kv_len, *, cap: float = 0.0,

@@ -4,9 +4,10 @@ plain version.
 Replaces the JAX package's Pallas TPU kernel ``flash_decode_paged``
 (``src/repro/kernels/flash_decode_paged.py``). The CUDA source,
 ``csrc/flash_decode_paged.cu``, carries the design note: flash_decode's
-grid and tile routine, with each 128-key tile staged row by row through
-the slot's block table (sentinel entries clamp to the last block), so
-the output is bitwise flash_decode's on the gathered view.
+kernel and routine (``csrc/decode_warp.cuh``) with a paged source, which
+fills each 128-key tile through the slot's block table in row boxes of
+``gcd(bs, 128)`` rows (sentinel entries clamp to the last block), so the
+output is bitwise flash_decode's on the gathered view at any block size.
 
 On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
 tensor it runs the plain version, ``ref.paged_decode_attention_ref``.
@@ -19,7 +20,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_decode import HEAD_DIMS, MAX_ROWS
+from repro_torch.kernels.flash_decode import HEAD_DIMS
 from repro_torch.kernels.ref import paged_decode_attention_ref
 
 # q, k_pages, v_pages, block_tab, kv_len, out; B, Hq, Hkv, nb, bs, mb, hd;
@@ -28,10 +29,10 @@ _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
              + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 
 
-def check_pages(kernel: str, q, k_pages, v_pages, block_tab, G_rows: int):
+def check_pages(kernel: str, q, k_pages, v_pages, block_tab):
     """Shared shape checks of the paged kernels: pools (nb,Hkv,bs,hd)
-    bf16, a (B,mb) int32 table, head dim and the rows of one block
-    (``G_rows``: decode's G; 0 for verify, whose rows come in chunks)."""
+    bf16, a (B,mb) int32 table, the head dim and Hq a multiple of Hkv.
+    Raises ValueError."""
     dev = q.device
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         _build.check_tensor(kernel, name, t, torch.bfloat16, 4, dev)
@@ -40,12 +41,11 @@ def check_pages(kernel: str, q, k_pages, v_pages, block_tab, G_rows: int):
     nb, Hkv, bs = k_pages.shape[:3]
     if (hd not in HEAD_DIMS or k_pages.shape[3] != hd
             or v_pages.shape != k_pages.shape or block_tab.shape[0] != B
-            or Hq % Hkv or G_rows > MAX_ROWS):
+            or Hq % Hkv):
         raise ValueError(f"{kernel}: unsupported shapes q {tuple(q.shape)} "
                          f"pages {tuple(k_pages.shape)} table "
                          f"{tuple(block_tab.shape)} (head dim in "
-                         f"{HEAD_DIMS}, Hq % Hkv == 0, decode rows per kv "
-                         f"head <= {MAX_ROWS})")
+                         f"{HEAD_DIMS}, Hq % Hkv == 0)")
 
 
 def flash_decode_paged(q, k_pages, v_pages, block_tab, kv_len, *,
@@ -63,8 +63,7 @@ def flash_decode_paged(q, k_pages, v_pages, block_tab, kv_len, *,
                         q.device)
     B, Hq, hd = q.shape
     nb, Hkv, bs = k_pages.shape[:3]
-    check_pages("flash_decode_paged", q, k_pages, v_pages, block_tab,
-                Hq // max(Hkv, 1))
+    check_pages("flash_decode_paged", q, k_pages, v_pages, block_tab)
     mb = block_tab.shape[1]
     kvl = _build.kv_len_i32(kv_len, B, q.device)
     scale = scale if scale else 1.0 / math.sqrt(hd)

@@ -3,16 +3,15 @@ wrappers and their plain versions.
 
 Replaces the JAX package's Pallas TPU kernels ``flash_verify`` and
 ``flash_verify_paged`` (``src/repro/kernels/flash_verify.py``). The CUDA
-source, ``csrc/flash_verify.cu``, carries the design notes. Dense verify
-runs flash_decode's routine (``csrc/decode_warp.cuh``): a warp per row,
+source, ``csrc/flash_verify.cu``, carries the design notes. Both run
+flash_decode's routine (``csrc/decode_warp.cuh``): a warp per row,
 blocks of at most four warps (eight at head dim 128) over (kv head,
 slot, row blocks), so any G and W work, the slot's K/V tiles shared by a
-block's warps through a ring the copy engine fills. Paged verify
-runs ``csrc/decode_tile.cuh``'s routine (one block per (kv head, slot,
-chunk of at most 64 of its G*W rows)). Row w at key limit
-``kv_len - W + w + 1`` runs exactly flash_decode's operations for that
-limit in both, so every verify row is bitwise the decode row at its
-position and paged is bitwise dense on the gathered view.
+block's warps through a ring the copy engine fills, from the dense cache
+or through the block table. Row w at key limit ``kv_len - W + w + 1``
+runs exactly flash_decode's operations for that limit in both, so every
+verify row is bitwise the decode row at its position and paged is
+bitwise dense on the gathered view.
 
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
 tensor it runs the plain version the CPU path takes,
@@ -86,7 +85,7 @@ def flash_verify_paged(q, k_pages, v_pages, block_tab, kv_len, *,
                         q.device)
     B, Hq, W, hd = q.shape
     nb, Hkv, bs = k_pages.shape[:3]
-    check_pages("flash_verify_paged", q, k_pages, v_pages, block_tab, 0)
+    check_pages("flash_verify_paged", q, k_pages, v_pages, block_tab)
     mb = block_tab.shape[1]
     kvl = _build.kv_len_i32(kv_len, B, q.device)
     scale = scale if scale else 1.0 / math.sqrt(hd)

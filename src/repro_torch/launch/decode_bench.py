@@ -7,12 +7,17 @@ For each case (8 ragged slots of a 2,048-row cache: the planner's heads
 12/4 of 64, kimi-k2's 64/8 of 128, arctic's 56/8 of 32; hymba's 25/5 of
 64 over full and partly filled 1,024-row rings) it times flash_decode
 (and flash_verify at W = 5, 9 and 22, where chip_smoke.py has them) and
-their paged twins over an identity block table on the same cache, by
-CUDA events over ``--iters`` back-to-back wrapper calls and by the
-kernel's own device time per call from ``torch.profiler``, beside one
-``F.scaled_dot_product_attention`` call on the same inputs. It prints
-one JSON line per case with the sha256 of each kernel's output bytes, so
-two trees timed in one call can also be held to the same bits.
+their paged twins, over an identity block table on the same cache and
+over shuffled tables with sentinel tails that hold the same rows in
+blocks of each of BLOCK_SIZES rows, by CUDA events over ``--iters``
+back-to-back wrapper calls and by the kernel's own device time per call
+from ``torch.profiler``, beside one ``F.scaled_dot_product_attention``
+call on the same inputs (the dense cache: the paged rows' gathered
+view). It prints one JSON line per case with the sha256 of each
+kernel's output bytes (``bits``, ``paged_bits`` and ``paged_bits_bs<N>``),
+so two trees timed in one call can also be held to the same bits; every
+paged output of a case is also the dense output's bits, as the slots'
+rows are the same.
 
 It imports ``repro_torch`` from ``PYTHONPATH``, so one copy of this
 script times the kernels of any tree that has the same wrapper
@@ -40,6 +45,10 @@ CASES = [("planner", 12, 4, 64, 2048, KV_LENS, (5, 22)),
          ("hymba_full", 25, 5, 64, 1024, HYMBA_RINGS[0], ()),
          ("hymba_ragged", 25, 5, 64, 1024, HYMBA_RINGS[1], ())]
 BS = 16
+# the shuffled tables' block sizes: the engine's 16, 8, 12 and 24 (not
+# dividing a 128-key tile; tables then cover a few rows past the cache),
+# and 256 (past a tile)
+BLOCK_SIZES = (16, 8, 12, 24, 256)
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -95,6 +104,43 @@ def timed(name, fn, kernel, iters):
             f"{name}_device_ms": device_ms(fn, kernel, iters)}
 
 
+def shuffled_pools(kc, vc, kv, bs):
+    """The slots' first kv[b] rows of the caches (B, Hkv, Sk, hd) as pools
+    of ``bs``-row blocks in shuffled order (the last block of a slot
+    zero-padded past Sk), and their (B, ceil(Sk / bs)) table with
+    sentinel tails: the pool's block count, and past it in each slot's
+    last entry."""
+    B, Hkv, Sk, hd = kc.shape
+    mb = -(-Sk // bs)
+    need = [-(-n // bs) for n in kv]
+    nb = sum(need) + 1
+    perm = torch.randperm(nb, generator=torch.Generator().manual_seed(bs))
+    tab = torch.full((B, mb), nb, dtype=torch.int32)
+    tab[:, -1] += 5
+    pools = []
+    for c in (kc, vc):
+        blocks = F.pad(c, (0, 0, 0, mb * bs - Sk)).reshape(
+            B, Hkv, mb, bs, hd).transpose(1, 2)        # (B, mb, Hkv, bs, hd)
+        pool = torch.zeros(nb, Hkv, bs, hd, dtype=c.dtype, device=c.device)
+        used = 0
+        for b, k in enumerate(need):
+            ids = perm[used:used + k]
+            pool[ids.to(c.device)] = blocks[b, :k]
+            tab[b, :k] = ids.to(torch.int32)
+            used += k
+        pools.append(pool)
+    return pools[0], pools[1], tab.to(kc.device)
+
+
+def paged_runs(rec, run, kernel, pools, iters):
+    """Bits and times of ``run(kp, vp, tab)`` over each block size's
+    shuffled pools, into ``rec``."""
+    for bs, (kp, vp, tab) in pools.items():
+        fn = lambda: run(kp, vp, tab)
+        rec[f"paged_bits_bs{bs}"] = digest(fn())
+        rec.update(timed(f"paged_bs{bs}", fn, kernel, iters))
+
+
 def run(iters: int, label: str) -> list:
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.flash_decode_paged import flash_decode_paged
@@ -109,6 +155,7 @@ def run(iters: int, label: str) -> list:
         B = len(kv)
         kc, vc, q = mk(B, Hkv, Sk, hd), mk(B, Hkv, Sk, hd), mk(B, Hq, hd)
         (kp, tab), (vp, _) = identity_pool(kc, BS), identity_pool(vc, BS)
+        pools = {bs: shuffled_pools(kc, vc, kv, bs) for bs in BLOCK_SIZES}
         kvl = torch.tensor(kv, dtype=torch.int32, device="cuda")
         keys = torch.arange(Sk, device="cuda")
         mask = (keys[None, :] < kvl[:, None].long())[:, None, None, :]
@@ -122,6 +169,8 @@ def run(iters: int, label: str) -> list:
         rec.update(timed("dense", dense, "flash_decode_kernel", iters))
         rec.update(timed("paged", paged, "flash_decode_paged_kernel",
                          iters))
+        paged_runs(rec, lambda kp, vp, tab: flash_decode_paged(
+            q, kp, vp, tab, kvl), "flash_decode_paged_kernel", pools, iters)
         rec.update(timed("sdpa", sdpa, "", iters))
         out.append(rec)
         print(json.dumps(rec), flush=True)
@@ -141,6 +190,9 @@ def run(iters: int, label: str) -> list:
             rec.update(timed("dense", dense, "flash_verify_kernel", iters))
             rec.update(timed("paged", paged, "flash_verify_paged_kernel",
                              iters))
+            paged_runs(rec, lambda kp, vp, tab: flash_verify_paged(
+                qv, kp, vp, tab, kvl), "flash_verify_paged_kernel", pools,
+                iters)
             rec.update(timed("sdpa", sdpa, "", iters))
             out.append(rec)
             print(json.dumps(rec), flush=True)

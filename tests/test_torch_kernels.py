@@ -25,6 +25,7 @@ from repro_torch.kernels.flash_decode_paged import flash_decode_paged
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.kernels.flash_verify import flash_verify, \
     flash_verify_paged
+from repro_torch.launch.decode_bench import shuffled_pools
 
 ATOL = 1e-5
 
@@ -269,9 +270,8 @@ def test_paged_decode_is_dense_decode_on_the_gathered_view():
 
 
 # (G, W, hd): --draft-k 4 at G = 2, 3; and more than 64 rows per (kv
-# head, slot), which the card's verify kernels take in chunks of 64:
-# kimi-k2's G = 8 at --draft-k 8 (72 rows), the planner's G = 3 at
-# --draft-k 21 (66 rows), at a narrow head dim
+# head, slot): kimi-k2's G = 8 at --draft-k 8 (72 rows), the planner's
+# G = 3 at --draft-k 21 (66 rows), at a narrow head dim
 OVER_64_ROWS = [pytest.param(8, 9, 32, id="8-9-32"),
                 pytest.param(3, 22, 32, id="3-22-32")]
 VERIFY_SHAPES = [pytest.param(2, 5, 64, id="2"),
@@ -347,6 +347,50 @@ def test_identity_pool_is_the_cache(hd):
                        flash_verify(qv, kc, vc, kvl))
 
 
+# block sizes the paged kernels take: one row, 12 (no multiple of 8: the
+# card's paged source copies K with the block's threads there), the
+# engine's 16, 24 (a multiple of 8 that does not divide a 128-key tile)
+# and 256 (past a tile)
+PAGED_BS = [1, 12, 16, 24, 256]
+
+
+def _shuffled(rng, kv_len, bs, Hkv, hd, S):
+    """Seeded (B, Hkv, S, hd) K/V caches and their slots' rows as pools of
+    ``bs``-row blocks through a shuffled table with sentinel tails
+    (``decode_bench.shuffled_pools``, which the card's checks use too)."""
+    mk = lambda: torch.from_numpy(rng.standard_normal(
+        (len(kv_len), Hkv, S, hd), dtype=np.float32))
+    return shuffled_pools(mk(), mk(), kv_len, bs)
+
+
+@pytest.mark.parametrize("W", [0, 5])
+@pytest.mark.parametrize("bs", PAGED_BS)
+def test_paged_decode_family_at_block_sizes(bs, W):
+    """Paged decode (W = 0) and verify over a shuffled table with
+    sentinel tails equal dense decode and verify on the gathered view,
+    bitwise, and the JAX oracle, at every block size of PAGED_BS."""
+    rng = np.random.default_rng(100 + bs + W)
+    kvl = torch.tensor([5, 300, 257, 40])
+    kp, vp, tab = _shuffled(rng, kvl.tolist(), bs, 2, 32, 300)
+    qs = (4, 6, W, 32) if W else (4, 6, 32)
+    q = torch.from_numpy(rng.standard_normal(qs, dtype=np.float32))
+    kg, vg = TR.paged_gather_kv(kp, tab), TR.paged_gather_kv(vp, tab)
+    if W:
+        got = flash_verify_paged(q, kp, vp, tab, kvl)
+        dense = flash_verify(q, kg, vg, kvl)
+        want = JR.paged_verify_attention_ref(
+            *map(jnp.asarray, (q.numpy(), kp.numpy(), vp.numpy(),
+                               tab.numpy(), kvl.numpy())))
+    else:
+        got = flash_decode_paged(q, kp, vp, tab, kvl)
+        dense = flash_decode(q, kg, vg, kvl)
+        want = JR.paged_decode_attention_ref(
+            *map(jnp.asarray, (q.numpy(), kp.numpy(), vp.numpy(),
+                               tab.numpy(), kvl.numpy())))
+    assert torch.equal(got, dense)
+    _close(got, want)
+
+
 def test_decode_bench_refuses_without_a_card(capsys):
     """The timing script measures the card only: without one it exits
     non-zero and prints no result."""
@@ -409,11 +453,13 @@ def test_flash_prefill_extend_rows_are_prefill_rows_on_card(hd, cap, window):
     torch.cuda.synchronize()
 
 
-# the dense decode kernels (decode_warp.cuh) against their paged twins
-# (decode_tile.cuh's routine, which the dense kernels were redesigned
-# from): every group size the served configs have, verify windows of
-# --draft-k 0, 4, 8 and 21, every head dim the kernels are built for
+# the dense decode kernels against their paged twins (one routine,
+# decode_warp.cuh, with a dense and a paged source): every group size the
+# served configs have, verify windows of --draft-k 0, 4, 8 and 21, every
+# head dim the kernels are built for, block sizes 8, 12 (K copied by the
+# block's threads), the engine's 16, 24 (not dividing a tile) and 256
 CARD_G, CARD_W, CARD_HD = [3, 5, 7, 8], [1, 5, 9, 22], [32, 64, 128]
+CARD_BS = [8, 12, 16, 24, 256]
 
 
 @pytest.mark.parametrize("hd", CARD_HD)
@@ -431,30 +477,23 @@ def test_flash_decode_kernel_on_card(G, hd):
     assert torch.equal(out, flash_decode_paged(q, kp, vp, tab, kvl))
 
 
-def _card_paged(dev, kv_len, W=None, G=3, hd=64):
-    """Heads 4G/4 of hd over a shuffled 64-block pool of 16 rows."""
-    rng = np.random.default_rng(len(kv_len) + 10 * G + hd)
-    B, nb, bs, mb = len(kv_len), 64, 16, 32
+def _card_paged(dev, kv_len, W=None, G=3, hd=64, bs=16):
+    """Heads 4G/4 of hd over a shuffled pool of bs-row blocks with
+    sentinel tails, 512 rows a slot."""
+    rng = np.random.default_rng(len(kv_len) + 10 * G + hd + bs)
+    B = len(kv_len)
     shape = (B, 4 * G, hd) if W is None else (B, 4 * G, W, hd)
     q = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
-    kp, vp = (torch.from_numpy(rng.standard_normal((nb, 4, bs, hd),
-                                                   dtype=np.float32))
-              for _ in range(2))
-    tab = np.full((B, mb), nb, np.int32)
-    perm = rng.permutation(nb)
-    used = 0
-    for b, n in enumerate(kv_len):
-        need = -(-n // bs)
-        tab[b, :need] = perm[used:used + need]
-        used += need
+    kp, vp, tab = _shuffled(rng, kv_len, bs, 4, hd, 512)
     to = lambda t: t.to(dev, torch.bfloat16)
-    return (to(q), to(kp), to(vp), torch.from_numpy(tab).to(dev),
+    return (to(q), to(kp), to(vp), tab.to(dev),
             torch.tensor(kv_len, dtype=torch.int32, device=dev))
 
 
-def test_flash_decode_paged_kernel_on_card():
+@pytest.mark.parametrize("bs", CARD_BS)
+def test_flash_decode_paged_kernel_on_card(bs):
     dev = _card()
-    q, kp, vp, tab, kvl = _card_paged(dev, [1, 512, 300, 17])
+    q, kp, vp, tab, kvl = _card_paged(dev, [1, 512, 300, 17], bs=bs)
     before = flash_decode_paged.launches
     out = flash_decode_paged(q, kp, vp, tab, kvl)
     ref = TR.paged_decode_attention_ref(q, kp, vp, tab, kvl)
@@ -467,13 +506,14 @@ def test_flash_decode_paged_kernel_on_card():
     assert torch.equal(out, dense)
 
 
+@pytest.mark.parametrize("bs", CARD_BS)
 @pytest.mark.parametrize("hd", CARD_HD)
 @pytest.mark.parametrize("W", CARD_W)
 @pytest.mark.parametrize("G", CARD_G)
-def test_flash_verify_kernels_on_card(G, W, hd):
+def test_flash_verify_kernels_on_card(G, W, hd, bs):
     dev = _card()
     q, kp, vp, tab, kvl = _card_paged(dev, [5, 512, 300, 17], W=W, G=G,
-                                      hd=hd)
+                                      hd=hd, bs=bs)
     kc, vc = TR.paged_gather_kv(kp, tab), TR.paged_gather_kv(vp, tab)
     out = flash_verify(q, kc, vc, kvl)
     # rows with keys against the oracle; a row before the slot's first

@@ -235,13 +235,13 @@ def _checks(hd, G=2, W=5):
             _bf(1, 2, 8, hd)),
         "flash_decode_paged": lambda: check_pages(
             "flash_decode_paged", _bf(1, 2 * G, hd), _bf(4, 2, 16, hd),
-            _bf(4, 2, 16, hd), tab, G),
+            _bf(4, 2, 16, hd), tab),
         "flash_verify": lambda: check_cache(
             "flash_verify", _bf(1, 2 * G, W, hd), _bf(1, 2, 8, hd),
             _bf(1, 2, 8, hd), W),
         "flash_verify_paged": lambda: check_pages(
             "flash_verify_paged", _bf(1, 2 * G, W, hd), _bf(4, 2, 16, hd),
-            _bf(4, 2, 16, hd), tab, 0)}
+            _bf(4, 2, 16, hd), tab)}
 
 
 @pytest.mark.parametrize("hd", [16, 96, 256])
@@ -255,7 +255,7 @@ def test_attention_wrappers_raise_on_other_head_dims(hd):
 @pytest.mark.parametrize("G", [7, 8])
 def test_attention_wrappers_take_the_moe_head_dims(hd, G):
     """arctic's G = 7 (56/8) and kimi's G = 8 (64/8) at W = 5: 35 and 40
-    rows a block, inside MAX_ROWS."""
+    rows a kv head, which the kernels spread over blocks of warps."""
     for check in _checks(hd, G=G).values():
         check()
 
@@ -263,15 +263,19 @@ def test_attention_wrappers_take_the_moe_head_dims(hd, G):
 @pytest.mark.parametrize("G,W", [(8, 9), (3, 22)])
 def test_verify_wrappers_take_more_than_64_rows(G, W):
     """kimi's G = 8 at --draft-k 8 (72 rows) and the planner's G = 3 at
-    --draft-k 21 (66 rows): the verify kernels take a kv head's G*W rows
-    in chunks of 64, so their checks pass; decode's G stays capped."""
+    --draft-k 21 (66 rows): the verify kernels spread a kv head's G*W
+    rows over blocks of warps, so their checks pass; so do decode's, at
+    65 q heads per kv head (as the JAX kernels take any G)."""
     checks = _checks(64, G=G, W=W)
     checks["flash_verify"]()
     checks["flash_verify_paged"]()
     from repro_torch.kernels.flash_decode import check_cache
-    with pytest.raises(ValueError, match="decode rows per kv head <= 64"):
-        check_cache("flash_decode", _bf(1, 130, 64), _bf(1, 2, 8, 64),
-                    _bf(1, 2, 8, 64))
+    from repro_torch.kernels.flash_decode_paged import check_pages
+    tab = torch.zeros(1, 1, dtype=torch.int32)
+    check_cache("flash_decode", _bf(1, 130, 64), _bf(1, 2, 8, 64),
+                _bf(1, 2, 8, 64))
+    check_pages("flash_decode_paged", _bf(1, 130, 64), _bf(4, 2, 16, 64),
+                _bf(4, 2, 16, 64), tab)
 
 
 # ------------------------------------------------- on the card only ----
