@@ -28,7 +28,8 @@ flash_prefill's row contract, bitwise:
 a 1,300-token prefill's rows against extends at six offsets over a
 stale 2,048-row cache, at head dims 64, 128 and 32, causal, windowed and
 softcapped; the MoE router at the MoE families' (tokens, experts,
-top-k). Then it serves
+top-k); flash_prefill's device time a call at the serve runs' 14-token
+prompts (the planner's, kimi-k2's and hymba's heads). Then it serves
 planner-proxy-100m at full width through the launcher's serving
 function (dense monolithic and chunked, paged, speculative dense and
 paged, ``--draft-k 21`` (66 verify rows per kv head), paged with a pool
@@ -48,7 +49,8 @@ factor and asserted at 100; a profile of kimi's decode step; card vs
 CPU on both MoE smoke configs. Then hymba-1.5b at full width and full
 depth (32 hybrid attention + SSM layers, 30 of them over 1,024-row
 sliding-window rings): the selective-scan kernel against its plain
-version at hymba's prefill and decode shapes, with its seam contract
+version at hymba's prefill and decode shapes, with each output's sha256
+(so a later tree can be held to the same bits) and its seam contract
 (a scan split at any seam, or run one step per launch, gives the bits
 of one scan); the window variant of the prefill kernel and the decode
 kernel over a ring at hymba's heads (25/5 of 64); two serve runs that
@@ -63,10 +65,11 @@ xlstm-125m at full width and full depth (12 layers: three units of
 three mLSTM layers, heads of 192, and one sLSTM layer): the mLSTM scan
 kernel against its plain version at xlstm's prefill and decode shapes,
 at head dims 32, 64 and 128, and on the full-width model's own scan
-inputs of a 1,024-token prefill, with its contracts (a scan split at
-any seam, or run one step per launch, gives the bits of one scan; every
-column tile steps the same n and m); two dense serve runs and a
-``--prefill-budget 1024`` run that must serve the same tokens, the
+inputs of a 1,024-token prefill, with each output's sha256 and its
+contracts (a scan split at any seam, or run one step per launch, gives
+the bits of one scan; every column tile steps the same n and m, at the
+tile widths of a many-step and of a one-step launch); two dense serve
+runs and a ``--prefill-budget 1024`` run that must serve the same tokens, the
 recycled slots' requests against a fresh engine; budgeted prefill and 8
 prefix hits on a 1,300-token prefix against monolithic prefill
 (admission logits and tokens bitwise); the refusals of paged KV and
@@ -149,6 +152,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.launch.decode_bench import (  # noqa: E402
     HYMBA_RINGS, KV_LENS, cuda_ms, device_ms, shuffled_pools)
 from repro_torch.kernels.ref import identity_pool  # noqa: E402
+from repro_torch.launch import scan_bench  # noqa: E402
 OUT_DIR = ROOT / "chiprun_out"
 KERNEL_ATOL = KERNEL_RTOL = 1e-2
 LOGIT_TOL = 0.1
@@ -206,7 +210,11 @@ def _mk(gen, *shape):
         torch.bfloat16)
 
 
-def prefill_case(Sq, Sk, q_offset, gen, heads=(HQ, HKV, HD), window=0):
+def prefill_case(Sq, Sk, q_offset, gen, heads=(HQ, HKV, HD), window=0,
+                 device=False):
+    """flash_prefill against its plain version, with its CUDA-event time
+    beside the plain version's and SDPA's and the bound; ``device`` adds
+    its device time a call (``torch.profiler``)."""
     from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.ref import attention_ref
     import torch.nn.functional as F
@@ -230,9 +238,29 @@ def prefill_case(Sq, Sk, q_offset, gen, heads=(HQ, HKV, HD), window=0):
     keys = min(Sk, q_offset + Sq)
     nbytes = 2 * hd * (2 * Hq * Sq + 2 * Hkv * keys)
     b_ms, b_by = bound(nbytes, 4 * hd * Hq * pairs)
-    return dict(Sq=Sq, Sk=Sk, q_offset=q_offset, window=window,
-                heads=list(heads), max_abs_err=err, ms=ms, plain_ms=plain,
-                library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+    out = dict(Sq=Sq, Sk=Sk, q_offset=q_offset, window=window,
+               heads=list(heads), max_abs_err=err, ms=ms, plain_ms=plain,
+               library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+    if device:
+        out["device_ms"] = device_ms(lambda: flash_prefill(q, k, v, **kw),
+                                     "flash_prefill_kernel")
+    return out
+
+
+# the serve runs' prompts: every request's prefill is 14 tokens
+SERVE_PROMPT = 14
+
+
+def prefill_serve_cases(gen):
+    """flash_prefill at the serve runs' prompt length with the planner's,
+    kimi-k2's and hymba's heads (hymba's windowed): each a case as
+    above, with its device time a call."""
+    return [dict(prefill_case(SERVE_PROMPT, SERVE_PROMPT, 0, gen, heads,
+                              window=window, device=True), family=fam)
+            for fam, heads, window in (
+                ("planner", (HQ, HKV, HD), 0),
+                ("kimi", MOE_HEADS["kimi"] + (128,), 0),
+                ("hymba", HYMBA_HEADS, HYMBA_WINDOW))]
 
 
 def decode_case(kv_len_list, Sk, gen, heads=(HQ, HKV, HD)):
@@ -650,23 +678,9 @@ def _ptxas_registers(log: str, symbol: str) -> list:
 def ptxas_instances(log: str, symbol: str) -> list:
     """Registers and spill bytes nvcc reports (``-Xptxas -v``) for each
     instance of the kernel ``symbol``, by head dim (its template
-    argument, read from the mangled name)."""
-    import re
-    out, cur = [], None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            m = re.search(symbol + r"ILi(\d+)EE", line)
-            cur = dict(hd=int(m.group(1))) if m else None
-            if cur:
-                out.append(cur)
-        elif cur and "spill stores" in line:
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
-            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
-        elif cur and "Used" in line and "registers" in line:
-            cur["registers"] = int(line.split("Used")[1].split(
-                "registers")[0])
-    return out
+    argument)."""
+    return [dict(hd=i.pop("args")[0], **i)
+            for i in scan_bench.ptxas_instances(log, symbol)]
 
 
 def prefill_sass(build: Path) -> dict:
@@ -767,9 +781,10 @@ def ssm_cases(gen, build_log: str):
     """ssm_scan against its plain version at SSM_CASES (prefill shapes
     from zero and from random h0), with its time, bound (the bytes of
     every input read once and every output written once; ~7 fp32
-    operations per (b, t, d, n)) and registers; then its seam contract,
-    bitwise: the 1,300-step scan split at 1,024 and at 1, and 16 one-step
-    launches against one 16-step launch over 8 slots."""
+    operations per (b, t, d, n)), registers and the sha256 of each output
+    (``bits``: a later tree's kernel is held to them); then its seam
+    contract, bitwise: the 1,300-step scan split at 1,024 and at 1, and 16
+    one-step launches against one 16-step launch over 8 slots."""
     from repro_torch.kernels.ref import selective_scan_ref
     from repro_torch.kernels.ssm_scan import ssm_scan
     cases = []
@@ -786,6 +801,8 @@ def ssm_cases(gen, build_log: str):
             cases.append(dict(
                 B=B, S=S, di=di, n=n,
                 h0="random" if random_h0 else "zeros", max_abs_err=err,
+                bits=dict(y=scan_bench.digest(y),
+                          h_last=scan_bench.digest(h)),
                 ms=cuda_ms(lambda: ssm_scan(*args)),
                 device_ms=device_ms(lambda: ssm_scan(*args),
                                     "ssm_scan_kernel"),
@@ -915,11 +932,12 @@ def mlstm_cases(gen, build_log: str):
     once, every output written once; the function's 5 hd^2 + 7 hd + 10
     fp32 operations per (b, h, t): C fw + (iw ks) v^T is a multiply and a
     multiply-add per element of C, the readout C^T q a multiply-add; ks,
-    iw ks, the n update, n . q and the division are O(hd)) and registers;
-    then its contracts, bitwise: the 1,300-step scan split at 1,024 and
-    at 1, 16 one-step launches against one 16-step launch over 8 slots,
-    and every column tile's own n and m equal to the n and m written
-    out."""
+    iw ks, the n update, n . q and the division are O(hd)), registers
+    and the sha256 of each output (``bits``); then its contracts,
+    bitwise: the 1,300-step scan split at 1,024 and at 1, 16 one-step
+    launches (decode's tile width) against one 16-step launch (the
+    scan's), and every column tile's own n and m equal to the n and m
+    written out, at both widths."""
     from repro_torch.kernels.mlstm_scan import mlstm_scan, \
         mlstm_scan_tile_states
     from repro_torch.kernels.ref import mlstm_scan_ref
@@ -940,6 +958,7 @@ def mlstm_cases(gen, build_log: str):
                 B=B, H=H, S=S, hd=hd,
                 state="random" if random_state else "fresh",
                 max_abs_err=err, err_over_scale=over, state_err=st_err,
+                bits=dict(zip("hCnm", map(scan_bench.digest, (h, *s)))),
                 min_den_over_nq=ratio, h_absmax=float(rh.abs().max()),
                 ms=cuda_ms(lambda: mlstm_scan(*args, st)),
                 device_ms=device_ms(lambda: mlstm_scan(*args, st),
@@ -970,6 +989,10 @@ def mlstm_cases(gen, build_log: str):
           "16 one-step mlstm_scan launches differ from one 16-step launch")
     (h2, s2), (nt, mt) = mlstm_scan_tile_states(*args, st)
     tiles.append((h2, s2, nt, mt, h, s))
+    one = [part(a, 0, 1) for a in args]
+    h, s = mlstm_scan(*one, st)
+    (h2, s2), (nt1, mt1) = mlstm_scan_tile_states(*one, st)
+    tiles.append((h2, s2, nt1, mt1, h, s))
     for h2, s2, nt, mt, h, s in tiles:
         check(torch.equal(h2, h) and same(s2, s)
               and all(torch.equal(nt[:, :, j], s[1])
@@ -977,8 +1000,8 @@ def mlstm_cases(gen, build_log: str):
                       for j in range(nt.shape[2])),
               "mlstm_scan: the column tiles' n and m differ")
     return cases, dict(split_at=[1024, 1], one_step_launches=16,
-                       tiles=int(nt.shape[2]), tiles_n_m_equal=True,
-                       bitwise=True)
+                       tiles=[int(t[2].shape[2]) for t in tiles],
+                       tiles_n_m_equal=True, bitwise=True)
 
 
 def mlstm_model_cases():
@@ -1841,6 +1864,12 @@ def main(argv=None) -> int:
             for sq in (16, 1024) for off in (0, 700)]
     for c in pre:
         emit("kernel_prefill", **c)
+    # profiled early, on their own draws: after the xlstm model's
+    # prefill, torch.profiler misses a launch of these short calls
+    pre_serve = prefill_serve_cases(
+        torch.Generator(device="cuda").manual_seed(1))
+    for c in pre_serve:
+        emit("kernel_prefill_serve", **c)
     dec = [decode_case(KV_LENS, CACHE, gen)]
     for c in dec:
         emit("kernel_decode", **c)
@@ -1859,7 +1888,7 @@ def main(argv=None) -> int:
     pre_ext = prefill_extend_cases(gen)
     for c in pre_ext:
         emit("kernel_prefill_bitwise", **c)
-    hd_cases += [("kernel_prefill", c) for c in pre_ext]
+    hd_cases += [("kernel_prefill", c) for c in pre_ext + pre_serve]
     build_log = (OUT_DIR / "chip_smoke_build.log").read_text()
     rout = router_cases(gen, build_log)
     for c in rout:

@@ -15,21 +15,35 @@
 // card's ~295 operations per byte: bound by bytes. At decode (B = 8, S = 1,
 // di = 1600, n = 16) the h0 / h_last traffic dominates (~1.8 MB, ~0.5 us at
 // 3.35 TB/s); at a 1,024-token prefill (B = 1) dt, x and y do (~20 MB,
-// ~6 us). In practice the launch sets its time at decode, and at prefill
-// the sequential dependency chain over S does: ceil(1600 / 128) = 13 blocks
-// leave most of the 132 SMs idle. A chunked parallel scan, or n split over
-// lanes, is later work.
+// ~6 us). The sequential chain over S is what a design has to spread: one
+// thread per channel leaves a B = 1 prefill on ceil(1600 / 128) = 13 SMs
+// with n dependent steps of y per timestep.
 //
 // Design (what the TPU kernel computes and keeps out of device memory, not
 // its grid): the TPU kernel carries the (block_d, n) state in VMEM across
-// its sequential s-blocks. Here one thread owns one (b, d) channel and
-// holds its n states and its row of A in registers for the whole scan; the
-// sequential s axis is a loop inside the thread. Blocks of 128 channels
-// over ceil(di / 128) x B, the ragged channel edge masked. Per tile of 32
-// timesteps the block stages the (32, n) rows of B_ and C_ in shared memory
-// once (every thread reads the same row: broadcast), and each thread loads
-// its own dt and x of the tile into registers with loads coalesced across
-// the block's threads before the tile's dependent steps begin.
+// its sequential s-blocks. Here a channel's n states lie over n lanes of a
+// warp (16 at n = 16, 8 at n = 8): lane i keeps h_i and A[d, i] in
+// registers for the whole scan, and a warp covers 32 / n consecutive
+// channels, so its slice of h0, A and h_last is 32 consecutive floats. A
+// block of 128 threads covers 128 / n channels; the grid is
+// ceil(di / (128 / n)) x B blocks (200 at hymba's B = 1 prefill, 1,600 at
+// 8 decode slots). Tiles of up to 64 timesteps (as many as the launch has:
+// a decode stages one row) of the block's dt and x columns and of B_ and
+// C_ are staged in shared memory by per-thread asynchronous copies, two
+// buffers deep: the next tile's copies are in flight while this tile is
+// stepped. Per full sub-tile of n steps a lane first computes every step's
+// exp(dt A_i) and (dt x) B_i, independent of the state, then runs the
+// chain h_i = fmaf(a, h_i, bx), one fmaf a step (a shorter tail, such as
+// a decode's one step, computes only its own steps, one after the other,
+// with the same operations), and writes its h_i of
+// every step into its channel's history in shared memory. Then lane l of
+// the channel sums step l's history against that step's row of C_ in
+// order i = 0 .. n-1: the n dependent fmafs of y run on n lanes at once
+// instead of in series. A channel's lanes and its history stay in one
+// warp, so the sub-tile needs only __syncwarp; the block meets twice a
+// tile (the tile has landed; its y is in shared memory for a coalesced
+// write-out). Histories and C_ rows are padded to n + 1 floats, so the
+// history's writes and the lanes' reads over steps hit distinct banks.
 //
 // Every step is the same code with explicit roundings: the products are
 // __fmul_rn (never contracted into an FMA), the state update is one fmaf,
@@ -37,84 +51,122 @@
 // depend only on its inputs and the carried state, never on where the
 // step sits in a tile or a launch: a scan split at any seam (h_last of the
 // first part fed as h0 of the second) gives the bits of one scan, and S
-// one-step launches give the bits of one S-step launch.
+// one-step launches give the bits of one S-step launch. These are also
+// the bits of the one-thread-per-channel form of this kernel, which did
+// the same operations in the same order.
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tma.cuh"
+
 namespace {
 
-constexpr int BD = 128;        // channels (threads) per block
-constexpr int TT = 32;         // timesteps per staged tile
+constexpr int NT = 128;        // threads per block
+constexpr int TS = 64;         // timesteps staged per tile
 
 template <int N>
-__global__ void __launch_bounds__(BD)
+__global__ void __launch_bounds__(NT)
 ssm_scan_kernel(const float* __restrict__ dt, const float* __restrict__ x,
                 const float* __restrict__ Bm, const float* __restrict__ Cm,
                 const float* __restrict__ A, const float* __restrict__ h0,
                 float* __restrict__ y, float* __restrict__ h_last, int S,
                 int di) {
-  __shared__ float sB[TT][N];
-  __shared__ float sC[TT][N];
-  const int d = blockIdx.x * BD + threadIdx.x;
+  constexpr int CPB = NT / N;  // channels per block
+  constexpr int HS = N + 1;    // padded row of a history and of C_
+  __shared__ float sdt[2][TS][CPB];
+  __shared__ float sx[2][TS][CPB];
+  __shared__ float sB[2][TS][N];
+  __shared__ float sC[2][TS][HS];
+  __shared__ float sy[TS][CPB + 1];
+  __shared__ float hist[CPB][N][HS];  // a channel's h at a sub-tile's steps
+  const int c = threadIdx.x / N;      // this lane's channel in the block
+  const int i = threadIdx.x % N;      // its state; in y, its step
+  const int d0 = blockIdx.x * CPB;
   const int b = blockIdx.y;
-  const bool active = d < di;
-
-  float h[N], a_row[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    a_row[i] = active ? A[(long long)d * N + i] : 0.f;
-    h[i] = active ? h0[((long long)b * di + d) * N + i] : 0.f;
-  }
+  const bool active = d0 + c < di;
+  const long long st = ((long long)b * di + d0 + c) * N + i;
   const long long row0 = (long long)b * S;       // (b, t = 0) row
-  const float* bp = Bm + row0 * N;
-  const float* cp = Cm + row0 * N;
 
-  for (int t0 = 0; t0 < S; t0 += TT) {
-    const int nt = min(TT, S - t0);
-    __syncthreads();                // the previous tile's rows are read
-    for (int i = threadIdx.x; i < TT * N; i += BD) {
-      const bool ok = i / N < nt;
-      sB[i / N][i % N] = ok ? bp[(long long)t0 * N + i] : 0.f;
-      sC[i / N][i % N] = ok ? cp[(long long)t0 * N + i] : 0.f;
-    }
-    float rdt[TT], rx[TT];
-#pragma unroll
-    for (int j = 0; j < TT; ++j) {
-      const bool ok = active && j < nt;
-      const long long off = (row0 + t0 + j) * di + d;
-      rdt[j] = ok ? dt[off] : 0.f;
-      rx[j] = ok ? x[off] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < TT; ++j) {
-      if (j < nt) {                 // the same for every thread
-        const float dtv = rdt[j];
-        const float dx = __fmul_rn(dtv, rx[j]);
-        float acc = 0.f;
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-          const float a = expf(__fmul_rn(dtv, a_row[i]));
-          h[i] = fmaf(a, h[i], __fmul_rn(dx, sB[j][i]));
-          acc = fmaf(h[i], sC[j][i], acc);
-        }
-        if (active) y[(row0 + t0 + j) * di + d] = acc;
+  // the tile of timesteps from t0 into buffer u, one element a copy; a
+  // ragged channel's elements stay uncopied (its lanes' results are never
+  // stored)
+  auto fetch = [&](int t0, int u) {
+    const int nt = min(TS, S - t0);
+    for (int k = threadIdx.x; k < nt * CPB; k += NT) {
+      const int t = k / CPB, cc = k % CPB;
+      if (d0 + cc < di) {
+        const long long off = (row0 + t0 + t) * di + d0 + cc;
+        tma::copy_async<4>(&sdt[u][t][cc], dt + off);
+        tma::copy_async<4>(&sx[u][t][cc], x + off);
       }
     }
-  }
-  if (active) {
+    for (int k = threadIdx.x; k < nt * N; k += NT) {
+      tma::copy_async<4>(&sB[u][k / N][k % N], Bm + (row0 + t0) * N + k);
+      tma::copy_async<4>(&sC[u][k / N][k % N], Cm + (row0 + t0) * N + k);
+    }
+  };
+
+  const float a_i = active ? A[(long long)(d0 + c) * N + i] : 0.f;
+  float h = active ? h0[st] : 0.f;
+  if (S > 0) fetch(0, 0);
+  int u = 0;
+  for (int t0 = 0; t0 < S; t0 += TS, u ^= 1) {
+    const int nt = min(TS, S - t0);
+    tma::copy_wait();
+    __syncthreads();            // the tile has landed; the last y is out
+    if (t0 + TS < S) fetch(t0 + TS, u ^ 1);
+    for (int s0 = 0; s0 < nt; s0 += N) {
+      const int ns = min(N, nt - s0);
+      if (ns == N) {            // the same for every lane of the block
+        // every step's gain and input first, then the chain
+        float av[N], bx[N];
 #pragma unroll
-    for (int i = 0; i < N; ++i)
-      h_last[((long long)b * di + d) * N + i] = h[i];
+        for (int k = 0; k < N; ++k) {
+          const float dtv = sdt[u][s0 + k][c];
+          const float dx = __fmul_rn(dtv, sx[u][s0 + k][c]);
+          av[k] = expf(__fmul_rn(dtv, a_i));
+          bx[k] = __fmul_rn(dx, sB[u][s0 + k][i]);
+        }
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          h = fmaf(av[k], h, bx[k]);
+          hist[c][k][i] = h;
+        }
+      } else {                  // a short tail (a decode's one step)
+        for (int k = 0; k < ns; ++k) {
+          const float dtv = sdt[u][s0 + k][c];
+          const float dx = __fmul_rn(dtv, sx[u][s0 + k][c]);
+          const float a = expf(__fmul_rn(dtv, a_i));
+          h = fmaf(a, h, __fmul_rn(dx, sB[u][s0 + k][i]));
+          hist[c][k][i] = h;
+        }
+      }
+      __syncwarp();
+      if (i < ns) {
+        float acc = 0.f;
+#pragma unroll
+        for (int n = 0; n < N; ++n)
+          acc = fmaf(hist[c][i][n], sC[u][s0 + i][n], acc);
+        sy[s0 + i][c] = acc;
+      }
+      __syncwarp();             // the history is read before it is reused
+    }
+    __syncthreads();            // the tile's y is in shared memory
+    for (int k = threadIdx.x; k < nt * CPB; k += NT) {
+      const int t = k / CPB, cc = k % CPB;
+      if (d0 + cc < di) y[(row0 + t0 + t) * di + d0 + cc] = sy[t][cc];
+    }
   }
+  if (active) h_last[st] = h;
 }
 
 template <int N>
 cudaError_t launch(const void* dt, const void* x, const void* Bm,
                    const void* Cm, const void* A, const void* h0, void* y,
                    void* h_last, int B, int S, int di, cudaStream_t st) {
-  const dim3 grid((di + BD - 1) / BD, B);
-  ssm_scan_kernel<N><<<grid, BD, 0, st>>>(
+  constexpr int CPB = NT / N;
+  const dim3 grid((di + CPB - 1) / CPB, B);
+  ssm_scan_kernel<N><<<grid, NT, 0, st>>>(
       (const float*)dt, (const float*)x, (const float*)Bm, (const float*)Cm,
       (const float*)A, (const float*)h0, (float*)y, (float*)h_last, S, di);
   return cudaGetLastError();

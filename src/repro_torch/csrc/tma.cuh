@@ -1,6 +1,8 @@
 // Shared memory addresses, mbarriers and the copy engine (TMA) on Hopper
 // (sm_90a), for the kernels that stage their tiles by TMA: flash_prefill
-// (csrc/flash_prefill.cu) and the decode family (csrc/decode_warp.cuh).
+// (csrc/flash_prefill.cu) and the decode family (csrc/decode_warp.cuh);
+// and per-thread asynchronous copies, for the scans (csrc/ssm_scan.cu,
+// csrc/mlstm_scan.cu), which stage the next tile while they step this one.
 #pragma once
 
 #include <cuda.h>
@@ -61,6 +63,26 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n"
       :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// BYTES (4 or 16) from global src to shared dst, both BYTES-aligned, by
+// one thread's asynchronous copy (cp.async). The copy lands by the
+// issuing thread's copy_wait(); a barrier after that shows it to the
+// block.
+template <int BYTES>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  static_assert(BYTES == 4 || BYTES == 16, "cp.async copies 4 or 16 bytes");
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+// Wait for every asynchronous copy this thread has issued.
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // cuTensorMapEncodeTiled, libcuda's entry point found through the runtime

@@ -2,12 +2,15 @@
 
 Replaces the JAX package's Pallas TPU kernel ``mlstm_scan``
 (``src/repro/kernels/mlstm_scan.py``). The CUDA source,
-``csrc/mlstm_scan.cu``, carries the design note: a grid of (hd/32 column
-tiles of C, B·H) blocks, each holding its 32 columns of one head's C and
-its own copy of n and m in registers for the whole scan, the sequential
-s axis a loop inside the block, q, ks, v, i and f staged in shared memory
-16 steps at a time, and explicit roundings (``__fmul_rn``, ``__fadd_rn``,
-a fixed order for both reductions over d), so a scan split at any seam,
+``csrc/mlstm_scan.cu``, carries the design note: a grid of (column tiles
+of C, B·H) blocks, each holding its ``tile_cols(S)`` columns of one head's
+C over 8 row groups and its own copy of n and m in registers for the whole
+scan, the sequential s axis a loop inside the block in tiles of 8 steps
+that the stepping threads run back to back while a producer warp stages
+the next tile (q, ks, v by asynchronous copies, its gates computed once)
+and reduces the last tile's outputs, one barrier a tile, and explicit
+roundings (``__fmul_rn``, ``__fadd_rn``, a fixed order for both
+reductions over d, whatever the tile width), so a scan split at any seam,
 its state fed back, gives the bits of one scan. Head dims 32, 64, 128
 and 192 are built.
 
@@ -30,10 +33,26 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import mlstm_scan_ref, mlstm_zero_state
 
 HEAD_DIMS = (32, 64, 128, 192)  # the head dims the kernel is built for
-TILE_COLS = 32                  # columns of C per block
-# q, ks, v, i, f, C0, n0, m0, h, C1, n1, m1, n_tiles, m_tiles; BH, S, hd;
-# stream
-_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+# columns of C per block (the kernel is built for 8 and 16): 8 in a
+# launch of many steps (96 blocks for a B·H = 4 prefill, each warp on its
+# own scheduler), 16 in a one-step launch (384 blocks at 8 decode slots
+# of xlstm-125m's 4 heads: the fastest width there on the H100)
+TILE_COLS = {"scan": 8, "step": 16}
+# q, ks, v, i, f, C0, n0, m0, h, C1, n1, m1, n_tiles, m_tiles; BH, S, hd,
+# columns a tile; stream
+_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def tile_cols(S: int) -> int:
+    """Columns of C a block of the kernel holds in a launch of S steps."""
+    return TILE_COLS["step"] if S == 1 else TILE_COLS["scan"]
+
+
+def tile_state_shapes(B: int, H: int, S: int, hd: int):
+    """Shapes of ``mlstm_scan_tile_states``' (n_tiles, m_tiles): one n and
+    one m for each of the hd / tile_cols(S) column tiles."""
+    T = hd // tile_cols(S)
+    return (B, H, T, hd), (B, H, T)
 
 
 def check_shapes(q, k, v, i_pre, f_pre, state):
@@ -78,9 +97,8 @@ def _launch(q, k, v, i_pre, f_pre, state, scale, tiles: bool):
     ks = (k * scale).contiguous()
     h = torch.empty_like(q)
     C1, n1, m1 = (torch.empty_like(t) for t in state)
-    T = hd // TILE_COLS
-    nt = (torch.empty((B, H, T, hd), dtype=torch.float32, device=q.device),
-          torch.empty((B, H, T), dtype=torch.float32, device=q.device)) \
+    nt = tuple(torch.empty(shape, dtype=torch.float32, device=q.device)
+               for shape in tile_state_shapes(B, H, S, hd)) \
         if tiles else None
     fn = _build.entry("mlstm_scan", "mlstm_scan_f32", _ARGTYPES)
     with torch.cuda.device(q.device):
@@ -89,7 +107,8 @@ def _launch(q, k, v, i_pre, f_pre, state, scale, tiles: bool):
                 f_pre.data_ptr(), C0.data_ptr(), n0.data_ptr(),
                 m0.data_ptr(), h.data_ptr(), C1.data_ptr(), n1.data_ptr(),
                 m1.data_ptr(), nt[0].data_ptr() if tiles else None,
-                nt[1].data_ptr() if tiles else None, B * H, S, hd, stream)
+                nt[1].data_ptr() if tiles else None, B * H, S, hd,
+                tile_cols(S), stream)
     _build.check_rc("mlstm_scan", rc)
     mlstm_scan.launches += 1
     return (h, (C1, n1, m1)) + ((nt,) if tiles else ())

@@ -2,13 +2,17 @@
 
 Replaces the JAX package's Pallas TPU kernel ``ssm_scan``
 (``src/repro/kernels/ssm_scan.py``). The CUDA source,
-``csrc/ssm_scan.cu``, carries the design note: one thread per (batch
-row, channel) with its n fp32 states and its row of A in registers, a
-sequential loop over the timesteps inside the thread, the (32, n) rows
-of B_ and C_ of each tile of timesteps staged in shared memory, and
-explicit roundings (``__fmul_rn``, ``fmaf``, a fixed order over n), so a
-scan split at any seam, h_last fed back as h0, gives the bits of one
-scan. State sizes n of 8 and 16 are built.
+``csrc/ssm_scan.cu``, carries the design note: a channel's n states over
+n lanes of a warp, each lane with its h_i and A[d, i] in registers for the
+whole scan and one fmaf a step as the only chain between steps, blocks of
+128 lanes (128 / n channels) over the channels and the batch, the
+timesteps staged 64 at a time in shared memory by asynchronous copies,
+two tiles deep (as many as the launch has), and y summed over n in one
+lane's fixed order from the states each lane leaves in shared memory per
+sub-tile of n steps. Its roundings are
+explicit (``__fmul_rn``, ``fmaf``, a fixed order over n), so a scan split
+at any seam, h_last fed back as h0, gives the bits of one scan. State
+sizes n of 8 and 16 are built.
 
 On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
 tensor it runs the plain version, ``ref.selective_scan_ref``. The

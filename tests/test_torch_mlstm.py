@@ -328,7 +328,7 @@ def _card():
 
 @pytest.mark.parametrize("B,H,S,hd", [(1, 4, 300, 192), (8, 4, 1, 192),
                                       (1, 4, 40, 32), (2, 2, 33, 64),
-                                      (1, 2, 17, 128)])
+                                      (1, 2, 17, 128), (1, 4, 14, 192)])
 def test_mlstm_scan_kernel_on_card(B, H, S, hd):
     dev = _card()
     args, st = _scan_inputs(S + hd, B, H, S, hd)

@@ -217,7 +217,7 @@ def _card():
 
 
 @pytest.mark.parametrize("B,T,di,n", [(1, 300, 1600, 16), (8, 1, 1600, 16),
-                                      (1, 40, 128, 8)])
+                                      (1, 40, 128, 8), (1, 14, 1600, 16)])
 def test_ssm_scan_kernel_on_card(B, T, di, n):
     dev = _card()
     dt, x, B_, C_, A, h0 = (torch.from_numpy(a).to(dev) for a in
