@@ -28,8 +28,13 @@ flash_prefill's row contract, bitwise:
 a 1,300-token prefill's rows against extends at six offsets over a
 stale 2,048-row cache, at head dims 64, 128 and 32, causal, windowed and
 softcapped; the MoE router at the MoE families' (tokens, experts,
-top-k); flash_prefill's device time a call at the serve runs' 14-token
-prompts (the planner's, kimi-k2's and hymba's heads). Then it serves
+top-k), at the smoke configs' 4 experts, at a ragged 100, at 40, 200
+and 512 (so that every template instance runs) and on logits rounded
+to integers (ties), with its device time a call beside the
+launch floor (a one-element zero_ in the same profile) and its
+instances' registers (no spills, no stack frame); flash_prefill's
+device time a call at the serve runs' 14-token prompts (the planner's,
+kimi-k2's and hymba's heads). Then it serves
 planner-proxy-100m at full width through the launcher's serving
 function (dense monolithic and chunked, paged, speculative dense and
 paged, ``--draft-k 21`` (66 verify rows per kv head), paged with a pool
@@ -103,8 +108,9 @@ Tolerances:
     for the MoE smoke configs on the tokens whose routes agree in every
     layer (a near-tie may route a token to another expert on the other
     device; the count of such tokens is printed);
-  * router kernel vs plain version: ids equal, weights within 1e-5 (fp32
-    softmax and renormalisation, summed in another order);
+  * router kernel vs plain version: ids equal (ties to the lowest id),
+    weights within 1e-5 (fp32 softmax and renormalisation, summed in
+    another order);
   * ssm_scan vs plain version (fp32 both; the kernel rounds the state
     update as one fmaf and sums over n in its own fixed order, the plain
     version with separate roundings and torch's reduction):
@@ -153,6 +159,9 @@ from repro_torch.launch.decode_bench import (  # noqa: E402
     HYMBA_RINGS, KV_LENS, cuda_ms, device_ms, shuffled_pools)
 from repro_torch.kernels.ref import identity_pool  # noqa: E402
 from repro_torch.launch import scan_bench  # noqa: E402
+from repro_torch.launch.router_bench import (  # noqa: E402
+    INSTANCES as ROUTER_INSTANCES, KERNEL as ROUTER_KERNEL, ROUTER_CASES,
+    ROUTER_EXTRA_CASES, ROUTER_WTOL, router_logits)
 OUT_DIR = ROOT / "chiprun_out"
 KERNEL_ATOL = KERNEL_RTOL = 1e-2
 LOGIT_TOL = 0.1
@@ -518,11 +527,6 @@ def wide_group_case(gen):
 # the MoE families' attention heads (Hq, Hkv): kimi-k2 (G = 8) and arctic
 # (G = 7, the first group size that is not a power of two)
 MOE_HEADS = {"kimi": (64, 8), "arctic": (56, 8)}
-# the router's (T, E, k): kimi and arctic at decode (8 slots) and at a
-# 1,024-token prefill, and a ragged T
-ROUTER_CASES = [(8, 128, 2), (8, 384, 8), (1024, 128, 2), (1024, 384, 8),
-                (37, 384, 8)]
-ROUTER_WTOL = 1e-5
 
 
 # the dense decode kernels against their paged twins, bitwise, over
@@ -712,20 +716,37 @@ def prefill_sass(build: Path) -> dict:
 
 
 def router_cases(gen, build_log: str):
-    """moe_router_topk against its plain version on the card: ids equal,
-    weights within ROUTER_WTOL; its time, bound and the softmax + topk +
-    renormalisation yardstick (no one PyTorch call computes it)."""
+    """moe_router_topk against its plain version on the card at
+    ROUTER_CASES (logits from ``gen``) and ROUTER_EXTRA_CASES (from a
+    generator of their own, so that later phases draw what they drew
+    before): ids equal, weights within ROUTER_WTOL; its time by events,
+    its device time a call beside the launch floor (a one-element zero_
+    in the same profile), its bound and the softmax + topk +
+    renormalisation yardstick (no one PyTorch call computes it). Also the
+    registers, stack frame and spills of each template instance: every
+    one of ROUTER_INSTANCES is built (and the cases run each), and none
+    spills or has a stack frame."""
     from repro_torch.kernels.moe_router import moe_router_topk
-    from repro_torch.kernels.ssm_scan import ssm_scan
     from repro_torch.kernels.ref import router_topk_ref
+    inst = [dict(V=i.pop("args")[0], **i)
+            for i in scan_bench.ptxas_instances(build_log, ROUTER_KERNEL)]
+    check(set(ROUTER_INSTANCES) == {i["V"] for i in inst}
+          and all(i.get("registers") for i in inst),
+          f"ptxas report lacks the router instances: {inst}")
+    check(not any(i["stack"] or i["spill_stores"] or i["spill_loads"]
+                  for i in inst),
+          f"a router instance spills or has a stack frame: {inst}")
+    extra = torch.Generator(device="cuda").manual_seed(2)
     out = []
-    for T, E, k in ROUTER_CASES:
-        logits = torch.randn(T, E, generator=gen, device="cuda") * 3.0
+    for T, E, k, draw, g in (
+            [(*c, "randn", gen) for c in ROUTER_CASES]
+            + [(*c, extra) for c in ROUTER_EXTRA_CASES]):
+        logits = router_logits(g, T, E, draw, "cuda")
         w, idx = moe_router_topk(logits, k)
         rw, ridx, _ = router_topk_ref(logits, k)
         torch.cuda.synchronize()
-        check(torch.equal(idx, ridx), f"router ids differ at {(T, E, k)}: "
-              f"{int((idx != ridx).any(-1).sum())} rows")
+        check(torch.equal(idx, ridx), f"router ids differ at "
+              f"{(T, E, k, draw)}: {int((idx != ridx).any(-1).sum())} rows")
         err = float((w - rw).abs().max())
         check(err <= ROUTER_WTOL, f"router weights differ by {err}")
 
@@ -733,17 +754,21 @@ def router_cases(gen, build_log: str):
             p = torch.softmax(logits, -1)
             tw, ti = torch.topk(p, k, dim=-1)
             return tw / torch.clamp(tw.sum(-1, keepdim=True), min=1e-9), ti
+        call = lambda: moe_router_topk(logits, k)
+        dev, floor = device_ms(call, ROUTER_KERNEL, floor=True)
         b_ms, b_by = bound(T * E * 4 + T * k * 8, T * E * (4 + 2 * k),
                            FP32_FLOP_S)
-        out.append(dict(T=T, E=E, k=k, max_abs_err=err, ids_equal=True,
-                        ms=cuda_ms(lambda: moe_router_topk(logits, k)),
+        out.append(dict(T=T, E=E, k=k, draw=draw, max_abs_err=err,
+                        ids_equal=True,
+                        bits=dict(w=scan_bench.digest(w),
+                                  idx=scan_bench.digest(idx)),
+                        ms=cuda_ms(call), device_ms=dev, floor_ms=floor,
                         plain_ms=cuda_ms(lambda: router_topk_ref(logits, k),
                                          iters=5),
                         library_ms=None,
                         softmax_topk_ms=cuda_ms(yardstick),
-                        bound_ms=b_ms, bound_by=b_by,
-                        registers=_ptxas_registers(build_log, "moe_router")))
-    return out
+                        bound_ms=b_ms, bound_by=b_by))
+    return out, inst
 
 
 # ------------------------------------------- hymba slice: kernel cases ----
@@ -1890,7 +1915,8 @@ def main(argv=None) -> int:
         emit("kernel_prefill_bitwise", **c)
     hd_cases += [("kernel_prefill", c) for c in pre_ext + pre_serve]
     build_log = (OUT_DIR / "chip_smoke_build.log").read_text()
-    rout = router_cases(gen, build_log)
+    rout, router_ptxas = router_cases(gen, build_log)
+    emit("build_router_ptxas", instances=router_ptxas)
     for c in rout:
         emit("kernel_router", **c)
     scan, seams = ssm_cases(gen, build_log)
@@ -1950,8 +1976,10 @@ def main(argv=None) -> int:
             rows[-1].update(device_ms=c["device_ms"],
                             library_device_ms=c["library_device_ms"])
     # the router: launches of the kimi-k2 dense serve; times at its decode
-    # shape there (8 slots, 384 experts, top-8)
-    c = next(c for c in rout if (c["T"], c["E"], c["k"]) == (8, 384, 8))
+    # shape there (8 slots, 384 experts, top-8), with its device time a
+    # call and the launch floor
+    c = next(c for c in rout if (c["T"], c["E"], c["k"], c["draw"]) == (
+        8, 384, 8, "randn"))
     rows.append({"name": moe_router_topk.__name__, "route": "cuda",
                  "source": "src/repro_torch/csrc/moe_router.cu",
                  "replaces": "src/repro/kernels/moe_router.py:47",
@@ -1960,7 +1988,8 @@ def main(argv=None) -> int:
                  "max_abs_err": max(x["max_abs_err"] for x in rout),
                  "ms": c["ms"], "plain_ms": c["plain_ms"],
                  "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-                 "library_ms": None})
+                 "library_ms": None, "device_ms": c["device_ms"],
+                 "floor_ms": c["floor_ms"]})
     # the scan: launches of the hymba dense serve; times at its 1,024-token
     # prefill from zero state (the decode case is in chip_smoke.json)
     c = next(c for c in scan if (c["B"], c["S"], c["h0"]) == (1, 1024,

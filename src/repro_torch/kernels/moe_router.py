@@ -4,9 +4,11 @@ plain version.
 Replaces the JAX package's Pallas TPU kernel ``moe_router_topk``
 (``src/repro/kernels/moe_router.py``). The CUDA source,
 ``csrc/moe_router.cu``, carries the design note: one warp per token row
-with the row's logits in registers, the softmax by warp shuffles, then k
-warp-argmax passes (ties to the lowest expert id) and the chosen weights
-renormalised by their sum clamped at 1e-9.
+with the row's logits in registers (ceil(E / 32) a lane, a template
+instance per size), the softmax by warp shuffles, each lane's
+probabilities ordered once, then k passes of one ``redux.sync`` max and
+one min over the lanes' heads (ties to the lowest expert id) and the
+chosen weights renormalised by their sum clamped at 1e-9.
 
 On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
 tensor it runs the plain version, ``ref.router_topk_ref``.

@@ -65,32 +65,49 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str = "", iters: int = 20, tries: int = 3):
+def device_ms(fn, kernel: str = "", iters: int = 20, tries: int = 3,
+              floor: bool = False):
     """Device time per call of ``fn``: the self CUDA time of the kernels
     whose name contains ``kernel`` (all of them where it is empty), under
     ``torch.profiler`` over ``iters`` calls. A profile now and then misses
     some of its kernels' events, so a profile counts only if it saw
     ``iters`` launches of the named kernel (a whole multiple of ``iters``
     device events where none is named); the first such profile of
-    ``tries`` gives the time, and None stands where none did."""
+    ``tries`` gives the time, and None stands where none did.
+
+    With ``floor`` (and a ``kernel`` named), a one-element ``zero_()``
+    follows each call, and the result is (time, floor): the floor is the
+    zero_'s device time per call, what any launch costs the device. Such
+    a profile counts only if it also saw ``iters`` launches besides the
+    named kernel's; (None, None) stands where none did."""
     from torch.profiler import ProfilerActivity, profile
     dev_t = lambda e: getattr(e, "self_device_time_total",
                               getattr(e, "self_cuda_time_total", 0.0))
+    call = fn
+    if floor:
+        z = torch.empty(1, device="cuda")
+        call = lambda: (fn(), z.zero_())
     for _ in range(3):
-        fn()
+        call()
     for _ in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
-                fn()
+                call()
             torch.cuda.synchronize()
-        seen = [e for e in prof.key_averages()
-                if "CUDA" in str(e.device_type) and kernel in e.key]
+        dev = [e for e in prof.key_averages()
+               if "CUDA" in str(e.device_type)]
+        seen = [e for e in dev if kernel in e.key]
         n = sum(e.count for e in seen)
-        if n == iters or (not kernel and n and n % iters == 0):
-            return sum(dev_t(e) for e in seen) / 1e3 / iters
-    return None
+        per_call = lambda es: sum(dev_t(e) for e in es) / 1e3 / iters
+        if floor:
+            rest = [e for e in dev if kernel not in e.key]
+            if kernel and n == iters == sum(e.count for e in rest):
+                return per_call(seen), per_call(rest)
+        elif n == iters or (not kernel and n and n % iters == 0):
+            return per_call(seen)
+    return (None, None) if floor else None
 
 
 def digest(t) -> str:

@@ -76,23 +76,24 @@ def mlstm_inputs(gen, B, H, S, hd, random_state, device):
 
 
 def ptxas_instances(log: str, symbol: str) -> list:
-    """Registers and spill bytes nvcc reports (``-Xptxas -v``) in ``log``
-    for each instance of the kernel ``symbol``, with its integer template
-    arguments (``args``, read from the mangled name). Self-contained, so
-    that it reads any tree's build."""
+    """Registers, stack frame and spill bytes nvcc reports (``-Xptxas
+    -v``) in ``log`` for each instance of the kernel ``symbol``, with its
+    integer template arguments (``args``, read from the mangled name;
+    empty for a kernel that is no template). Self-contained, so that it
+    reads any tree's build."""
     out, cur = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(symbol + r"I((?:Li\d+E)+)E", line)
-            cur = (dict(args=[int(x) for x in re.findall(r"Li(\d+)E",
-                                                         m.group(1))])
-                   if m else None)
+            m = re.search(symbol + r"(?:I((?:Li\d+E)+)E)?", line)
+            cur = (dict(args=[int(x) for x in re.findall(
+                r"Li(\d+)E", m.group(1) or "")]) if m else None)
             if cur:
                 out.append(cur)
         elif cur and "spill stores" in line:
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
-            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = map(
+                int, m.groups())
         elif cur and "Used" in line and "registers" in line:
             cur["registers"] = int(line.split("Used")[1].split(
                 "registers")[0])

@@ -286,11 +286,17 @@ def _card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("T,E,k", [(8, 384, 8), (37, 128, 2),
-                                   (1024, 384, 8)])
-def test_router_kernel_on_card(T, E, k):
+@pytest.mark.parametrize("T,E,k,ties", [
+    (8, 384, 8, False), (37, 128, 2, False), (1024, 384, 8, False),
+    (8, 128, 2, False), (8, 4, 2, False), (8, 128, 2, True),
+    (1024, 384, 8, True), (8, 40, 8, False), (8, 40, 8, True),
+    (37, 200, 8, False), (37, 200, 8, True), (1024, 512, 8, False),
+    (1024, 512, 8, True), (8, 4, 2, True)])
+def test_router_kernel_on_card(T, E, k, ties):
+    # ties: logits rounded to integers, so many probabilities are equal
     dev = _card()
-    logits = torch.from_numpy(_logits(T, T, E)).to(dev)
+    x = _logits(T, T, E)
+    logits = torch.from_numpy(np.round(x) if ties else x).to(dev)
     before = moe_router_topk.launches
     w, idx = moe_router_topk(logits, k)
     rw, ridx, _ = TR.router_topk_ref(logits, k)
