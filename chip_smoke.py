@@ -34,7 +34,9 @@ to integers (ties), with its device time a call beside the
 launch floor (a one-element zero_ in the same profile) and its
 instances' registers (no spills, no stack frame); flash_prefill's
 device time a call at the serve runs' 14-token prompts (the planner's,
-kimi-k2's and hymba's heads). Then it serves
+kimi-k2's and hymba's heads) and at the intent gate's shapes (64, 128
+and 256 rows of a causal 64-token forward at the planner's heads, with
+SDPA's device time beside it). Then it serves
 planner-proxy-100m at full width through the launcher's serving
 function (dense monolithic and chunked, paged, speculative dense and
 paged, ``--draft-k 21`` (66 verify rows per kv head), paged with a pool
@@ -44,6 +46,16 @@ rate of 1.0, that chunked prefill and prefix hits of 1,312-token prompts
 do too, profiles a full-width decode step and a speculative round, dense
 and paged (each decode kernel's device time a launch), and checks the
 card's logits against the CPU's on the same seeded weights. Then the
+GeckOpt path at the planner's full width, through
+``launch/serve_pipeline.py``: the concurrent pipeline on 16 tasks with 8
+in flight, with the gated library catalog and with a top-8 retrieved
+toolset of a generated 128-tool catalog, each run with its kernel
+launches and its gate, prefix, turn and host seconds; the batched
+gate's decisions and the pipeline's Table-2 row must equal the
+sequential harness's with the single-query gate, every engine turn must
+ride a prefix prefilled once, and a prefix hit's tokens must equal a
+full prefill's; then the gate's losses on the card against the CPU's
+for 8 queries. Then the
 MoE families at their published widths with the depth cut
 (kimi-k2-1t-a32b: its dense first layer and one MoE layer of 384 experts
 top-8; arctic-480b: one MoE layer of 128 experts top-2), through the
@@ -108,6 +120,12 @@ Tolerances:
     for the MoE smoke configs on the tokens whose routes agree in every
     layer (a near-tie may route a token to another expert on the other
     device; the count of such tokens is printed);
+  * the intent gate's (query, intent) losses, card vs CPU (an fp32
+    logsumexp over the head of a 12-layer bf16 stack): max |diff| <=
+    GATE_LOSS_TOL = 0.1, and the same decision wherever the CPU's top-2
+    margin exceeds twice the tolerance or twice the largest difference
+    measured; within the card, the batched gate's decisions equal the
+    single-query gate's exactly;
   * router kernel vs plain version: ids equal (ties to the lowest id),
     weights within 1e-5 (fp32 softmax and renormalisation, summed in
     another order);
@@ -220,16 +238,16 @@ def _mk(gen, *shape):
 
 
 def prefill_case(Sq, Sk, q_offset, gen, heads=(HQ, HKV, HD), window=0,
-                 device=False):
-    """flash_prefill against its plain version, with its CUDA-event time
-    beside the plain version's and SDPA's and the bound; ``device`` adds
-    its device time a call (``torch.profiler``)."""
+                 device=False, batch=1):
+    """flash_prefill against its plain version on ``batch`` rows, with its
+    CUDA-event time beside the plain version's and SDPA's and the bound;
+    ``device`` adds its device time a call (``torch.profiler``)."""
     from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.ref import attention_ref
     import torch.nn.functional as F
     Hq, Hkv, hd = heads
-    q, k, v = _mk(gen, 1, Hq, Sq, hd), _mk(gen, 1, Hkv, Sk, hd), \
-        _mk(gen, 1, Hkv, Sk, hd)
+    q, k, v = _mk(gen, batch, Hq, Sq, hd), _mk(gen, batch, Hkv, Sk, hd), \
+        _mk(gen, batch, Hkv, Sk, hd)
     kw = dict(causal=True, q_offset=q_offset, window=window)
     out = flash_prefill(q, k, v, **kw)
     ref = attention_ref(q, k, v, **kw)
@@ -243,16 +261,19 @@ def prefill_case(Sq, Sk, q_offset, gen, heads=(HQ, HKV, HD), window=0,
     plain = cuda_ms(lambda: attention_ref(q, k, v, **kw), iters=5)
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, enable_gqa=True))
-    pairs = int(mask.sum())                       # this run's (q,k) pairs
+    pairs = batch * int(mask.sum())               # this run's (q,k) pairs
     keys = min(Sk, q_offset + Sq)
-    nbytes = 2 * hd * (2 * Hq * Sq + 2 * Hkv * keys)
+    nbytes = 2 * hd * batch * (2 * Hq * Sq + 2 * Hkv * keys)
     b_ms, b_by = bound(nbytes, 4 * hd * Hq * pairs)
-    out = dict(Sq=Sq, Sk=Sk, q_offset=q_offset, window=window,
+    out = dict(B=batch, Sq=Sq, Sk=Sk, q_offset=q_offset, window=window,
                heads=list(heads), max_abs_err=err, ms=ms, plain_ms=plain,
                library_ms=lib, bound_ms=b_ms, bound_by=b_by)
     if device:
         out["device_ms"] = device_ms(lambda: flash_prefill(q, k, v, **kw),
                                      "flash_prefill_kernel")
+        out["library_device_ms"] = device_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                   enable_gqa=True))
     return out
 
 
@@ -270,6 +291,22 @@ def prefill_serve_cases(gen):
                 ("planner", (HQ, HKV, HD), 0),
                 ("kimi", MOE_HEADS["kimi"] + (128,), 0),
                 ("hymba", HYMBA_HEADS, HYMBA_WINDOW))]
+
+
+# the intent gate's forward: every (query, intent) row of an admission
+# wave at once, Q*8 rows of 64 tokens (Q = 8, 16 and the pipeline's
+# gate_batch of 32)
+GATE_BATCHES = (64, 128, 256)
+GATE_SEQ = 64
+
+
+def gate_prefill_cases(gen):
+    """flash_prefill at the gate's shapes: B = 64, 128 and 256 rows of a
+    causal Sq = Sk = 64 forward with the planner's heads, each a case as
+    above with its device time a call."""
+    return [dict(prefill_case(GATE_SEQ, GATE_SEQ, 0, gen, batch=b,
+                              device=True), family="gate")
+            for b in GATE_BATCHES]
 
 
 def decode_case(kv_len_list, Sk, gen, heads=(HQ, HKV, HD)):
@@ -1430,6 +1467,149 @@ def planner_phases():
     return runs
 
 
+# the GeckOpt pipeline runs: 16 tasks at 8 sessions in flight, with the
+# gated library catalog, then with a top-8 retrieved toolset of a
+# generated 128-tool catalog; (name, extra serve_pipeline flags)
+GECKOPT_TASKS = 16
+GECKOPT_RUNS = [("dense", []),
+                ("retrieved", ["--retriever-k", "8", "--catalog-size", "128"])]
+GATE_QUERIES = 8
+GATE_LOSS_TOL = 0.1
+
+
+def hit_vs_miss_turns(cfg, model, turns, cache_len: int, n: int = 4):
+    """The first turn of each of ``n`` prefixes served again on a fresh
+    engine with no prefix cache (a full prefill of its ~2.5k-token
+    prompt): its tokens must be the hit's."""
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.sampling import SamplerConfig
+    firsts = {}
+    for prompt, key, out in turns:
+        firsts.setdefault(key, (prompt, out))
+    picked = list(firsts.values())[:n]
+    eng = InferenceEngine(cfg, model, max_batch=len(picked),
+                          cache_len=cache_len)
+    rids = [eng.add_request(p, max_new_tokens=len(out),
+                            sampler=SamplerConfig(temperature=0.0))
+            for p, out in picked]
+    done = {r.request_id: list(r.output) for r in eng.run_until_done()}
+    same = [done[rid] == out for rid, (_, out) in zip(rids, picked)]
+    return dict(turns=len(picked), prompt_tokens=[len(p) for p, _ in picked],
+                tokens_equal=all(same))
+
+
+def geckopt_run(cfg, model, name: str, extra):
+    """One full-width pipeline run through the launcher's
+    ``serve_pipeline`` with its launch counts (set to 0 just before it,
+    read just after), then the sequential harness on the same tasks with
+    the single-query gate (8 B=1 forwards a query): its decisions and its
+    Table-2 row must be the pipeline's. Every turn must ride a prefix
+    (hits == sessions), each prefix must be prefilled once, and a prefix
+    hit must give a full prefill's tokens."""
+    from repro_torch.env.evaluator import evaluate_results
+    from repro_torch.kernels import backend as KB
+    from repro_torch.launch import serve_pipeline as SP
+    from repro_torch.serving.neural_planner import NeuralIntentClassifier
+    args = SP.parse_args(["--requests", str(GECKOPT_TASKS),
+                          "--concurrency", "8"] + extra)
+    KB.reset_launches()
+    res = SP.serve_pipeline(cfg, model, args)
+    counts = KB.launch_counts()
+    n = len(res["results"])
+    check(n == GECKOPT_TASKS, f"geckopt {name}: {n} results")
+    missing = [k for k in ("flash_prefill", "flash_decode") if not counts[k]]
+    check(not missing, f"geckopt {name}: no launch of {missing}")
+    agent = SP.build_agent(args, NeuralIntentClassifier(cfg, model),
+                           res["agent"].world, model.device)
+    t0 = time.time()
+    seq = [agent.run_task(t, task_seed=i)
+           for i, t in enumerate(res["tasks"])]
+    seq_s = time.time() - t0
+    same_gate = [r.intent_predicted for r in seq] == res["decisions"]
+    check(same_gate, f"geckopt {name}: batched gate decisions differ from "
+                     f"the single-query gate's")
+    seq_row = evaluate_results(seq).row()
+    check(seq_row == res["row"], f"geckopt {name}: pipeline row "
+                                 f"{res['row']} != sequential {seq_row}")
+    st = res["stats"]
+    check(st["prefix_hits"] == res["pipeline"]["engine_turns"] == n,
+          f"geckopt {name}: {st['prefix_hits']} prefix hits for {n} turns")
+    check(st["prefills"] == st["prefix_registrations"]
+          == len(res["prefixes"]),
+          f"geckopt {name}: {st['prefills']} prefills for "
+          f"{len(res['prefixes'])} prefixes")
+    hm = hit_vs_miss_turns(cfg, model, res["turns"], SP.cache_len_for(args))
+    check(hm["tokens_equal"], f"geckopt {name}: a prefix hit's tokens "
+                              f"differ from a full prefill's")
+    waves = res["gate_wave_ms"]
+    return dict(sessions=n, concurrency=8, flags=extra,
+                seconds=res["seconds"], tasks_s=res["tasks_s"],
+                gate_waves=len(waves), gate_wave_ms=waves,
+                gate_ms_per_wave=sum(waves) / max(len(waves), 1),
+                launches=counts, launches_by_phase=res["launches"],
+                prefixes=len(res["prefixes"]),
+                engine={k: st[k] for k in (
+                    "prefix_hits", "prefix_registrations", "prefills",
+                    "prefix_tokens_saved", "tokens_generated",
+                    "decode_steps", "kv_bytes_peak", "kv_bytes_allocated")},
+                pipeline={k: res["pipeline"][k] for k in (
+                    "admitted", "gate_batches", "mean_gate_batch", "ticks",
+                    "peak_concurrent", "engine_turns", "retrievals",
+                    "retrieval_widens")},
+                row=res["row"], sequential_row_equal=True,
+                gate_decisions_equal=same_gate, sequential_seconds=seq_s,
+                hit_vs_miss=hm)
+
+
+def gate_card_vs_cpu(cfg, model, queries):
+    """The batched gate's (Q, 8) losses on the card against the same
+    forward on the CPU (the same seeded weights): within GATE_LOSS_TOL,
+    and the same decisions wherever the CPU's top-2 margin exceeds twice
+    the tolerance or twice the largest difference measured."""
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.neural_planner import \
+        BatchedNeuralIntentClassifier
+    cpu = init_params(cfg, seed=0, device="cpu")
+    card = BatchedNeuralIntentClassifier(cfg, model).losses(queries)
+    t0 = time.time()
+    host = BatchedNeuralIntentClassifier(cfg, cpu).losses(queries)
+    cpu_s = time.time() - t0
+    check(bool(np.isfinite(card).all()), "gate: non-finite card losses")
+    diff = float(np.abs(card - host).max())
+    check(diff <= GATE_LOSS_TOL, f"gate: card vs CPU losses differ by "
+                                 f"{diff}")
+    top2 = np.sort(host, axis=1)
+    margin = top2[:, 1] - top2[:, 0]
+    same = np.argmin(card, axis=1) == np.argmin(host, axis=1)
+    check(bool(same[margin > 2 * GATE_LOSS_TOL].all()
+               and same[margin > 2 * diff].all()),
+          f"gate: card decisions differ outside near-ties (margins "
+          f"{margin.tolist()}, diff {diff})")
+    return dict(queries=len(queries), max_abs_diff=diff, tol=GATE_LOSS_TOL,
+                decisions_equal=int(same.sum()),
+                margins=[float(m) for m in margin],
+                loss_range=[float(host.min()), float(host.max())],
+                cpu_seconds=cpu_s)
+
+
+def geckopt_phases():
+    """The GeckOpt path at the planner's full width: the pipeline runs
+    and the gate's card-vs-CPU losses. Returns the runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    cfg = get_config(ARCH)
+    model = init_params(cfg, seed=0, device="cuda")
+    runs = {}
+    for name, extra in GECKOPT_RUNS:
+        runs[name] = geckopt_run(cfg, model, name, extra)
+        emit(f"geckopt_{name}", **runs[name])
+    from repro_torch.env.tasks import make_benchmark
+    from repro_torch.env.world import build_world
+    queries = [t.query for t in make_benchmark(build_world(0), GATE_QUERIES)]
+    emit("geckopt_gate_card_vs_cpu", **gate_card_vs_cpu(cfg, model, queries))
+    return runs
+
+
 def moe_config(arch: str):
     """The full config at its published widths, heads, experts, top-k,
     vocab and FFN sizes, with the depth cut: kimi-k2 to its dense first
@@ -1895,6 +2075,10 @@ def main(argv=None) -> int:
         torch.Generator(device="cuda").manual_seed(1))
     for c in pre_serve:
         emit("kernel_prefill_serve", **c)
+    pre_gate = gate_prefill_cases(
+        torch.Generator(device="cuda").manual_seed(2))
+    for c in pre_gate:
+        emit("kernel_prefill_gate", **c)
     dec = [decode_case(KV_LENS, CACHE, gen)]
     for c in dec:
         emit("kernel_decode", **c)
@@ -1913,7 +2097,8 @@ def main(argv=None) -> int:
     pre_ext = prefill_extend_cases(gen)
     for c in pre_ext:
         emit("kernel_prefill_bitwise", **c)
-    hd_cases += [("kernel_prefill", c) for c in pre_ext + pre_serve]
+    hd_cases += [("kernel_prefill", c)
+                 for c in pre_ext + pre_serve + pre_gate]
     build_log = (OUT_DIR / "chip_smoke_build.log").read_text()
     rout, router_ptxas = router_cases(gen, build_log)
     emit("build_router_ptxas", instances=router_ptxas)
@@ -1939,6 +2124,7 @@ def main(argv=None) -> int:
         return 0
 
     runs = planner_phases()
+    geckopt = geckopt_phases()
     moe = moe_phases()
     hymba = hymba_phases()
     xlstm = xlstm_phases()
@@ -1975,6 +2161,9 @@ def main(argv=None) -> int:
         if "device_ms" in c:       # the decode family: profiler times
             rows[-1].update(device_ms=c["device_ms"],
                             library_device_ms=c["library_device_ms"])
+        # the GeckOpt pipeline's dense run (gate waves, prefixes, turns)
+        rows[-1]["geckopt_launches"] = \
+            geckopt["dense"]["launches"][fn.__name__]
     # the router: launches of the kimi-k2 dense serve; times at its decode
     # shape there (8 slots, 384 experts, top-8), with its device time a
     # call and the launch floor

@@ -20,9 +20,14 @@ with the engine's ``ValueError``, as in the JAX launcher. xlstm takes
 ``--prefill-budget`` (its state extends without padding) and refuses
 the other two likewise. The cluster-only
 flags (``--router``, ``--profile``, ``--skew``, ``--turns``) come back
-with replicas; until then replicas, retrieval and SLA spill are refused
-as not ported yet. ``--checkpoint`` loads a JAX-package npz through the
-weight bridge. ``main`` is the command line: it builds the model and
+with replicas; until then replicas and SLA spill are refused as not
+ported yet. ``--retriever-k`` retrieves a top-k toolset per request from
+the base registry or, with ``--catalog-size``, a generated catalog
+(``core/retriever.py``, scored on the model's device), registers each
+toolset's catalog text as a shared engine prefix and prepends it to the
+request's prompt, as the JAX launcher does; the cache grows to hold the
+widest toolset prefix. ``--checkpoint`` loads a JAX-package npz through
+the weight bridge. ``main`` is the command line: it builds the model and
 hands it to ``serve``, which runs the engine for any ``(cfg, model,
 args)`` (a depth-cut full-width config, say) and returns the run's
 numbers as a dict. Prompts are encoded into the model's vocabulary: the
@@ -37,6 +42,9 @@ import time
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.catalog import build_catalog, catalog_intent_libraries
+from repro_torch.core.retriever import ToolRetriever
+from repro_torch.core.tools import DEFAULT_REGISTRY
 from repro_torch.models.convert import load_jax_checkpoint, \
     params_from_numpy
 from repro_torch.models.model import init_params, resolve_device
@@ -46,14 +54,12 @@ from repro_torch.serving.engine import InferenceEngine
 from repro_torch.serving.sampling import SamplerConfig
 from repro_torch.serving.sched import ADMISSION_POLICIES
 from repro_torch.serving.specdec import SpecConfig
-from repro_torch.serving.tokenizer import TOKENIZER, Tokenizer
+from repro_torch.serving.tokenizer import SPECIALS, TOKENIZER, Tokenizer
 
 # flags of the JAX launcher this slice does not serve, with the ROADMAP.md
 # queue item that brings each
 NOT_PORTED = {
     "replicas": "--replicas > 1 (queue A6)",
-    "retriever_k": "--retriever-k (queue A8)",
-    "catalog_size": "--catalog-size (queue A8)",
     "sla_spill": "--sla-spill (queue A6)",
 }
 
@@ -99,8 +105,14 @@ def build_parser() -> argparse.ArgumentParser:
                          "decoding at --temperature 0)")
     ap.add_argument("--draft-k", type=int, default=4,
                     help="draft tokens per speculative round (>= 1)")
-    ap.add_argument("--catalog-size", type=int, default=None)
-    ap.add_argument("--retriever-k", type=int, default=None)
+    ap.add_argument("--catalog-size", type=int, default=None,
+                    help="serve against a generated tool catalog of N "
+                         "tools instead of the base registry; needs "
+                         "--retriever-k (the launcher has no intent gate)")
+    ap.add_argument("--retriever-k", type=int, default=None,
+                    help="retrieve a top-k toolset per request, register "
+                         "each toolset as a shared engine prefix and "
+                         "prepend its catalog text to the prompt")
     ap.add_argument("--trace-out", default="",
                     help="write the request-lifecycle trace here: .jsonl "
                          "= record per line, else Chrome trace-event JSON")
@@ -109,10 +121,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def validate_args(ap: argparse.ArgumentParser, args):
     """Invalid or unported combinations error before any model is built."""
-    given = {"replicas": args.replicas > 1,
-             "retriever_k": args.retriever_k is not None,
-             "catalog_size": args.catalog_size is not None,
-             "sla_spill": args.sla_spill}
+    given = {"replicas": args.replicas > 1, "sla_spill": args.sla_spill}
     for key, on in given.items():
         if on:
             ap.error(f"{NOT_PORTED[key]} is not ported yet")
@@ -128,6 +137,14 @@ def validate_args(ap: argparse.ArgumentParser, args):
                  f"got {args.prefill_budget}")
     if args.no_interleave and args.prefill_budget is None:
         ap.error("--no-interleave only applies with --prefill-budget")
+    if args.catalog_size is not None and args.catalog_size < 1:
+        ap.error(f"--catalog-size must be >= 1, got {args.catalog_size}")
+    if args.retriever_k is not None and args.retriever_k < 1:
+        ap.error(f"--retriever-k must be >= 1, got {args.retriever_k}")
+    if args.catalog_size is not None and args.retriever_k is None:
+        ap.error("--catalog-size needs --retriever-k: the launcher has no "
+                 "intent gate, so a scaled catalog is only servable "
+                 "through retrieved toolsets")
     return args
 
 
@@ -150,14 +167,43 @@ def main(argv=None) -> dict:
     return serve(cfg, model, args)
 
 
+def _tokenizer(cfg) -> Tokenizer:
+    """The engine's tokenizer folded into ``cfg``'s vocabulary."""
+    return (TOKENIZER if cfg.vocab_size >= TOKENIZER.vocab_size
+            else Tokenizer(cfg.vocab_size))
+
+
+def request_texts(n: int):
+    return [f"Plot xview1 images around Tampa Bay with cloud cover below "
+            f"{10 + i}%" for i in range(n)]
+
+
 def request_prompts(cfg, n: int):
     """The launcher's ``n`` request prompts, encoded into ``cfg``'s
     vocabulary."""
-    tok = (TOKENIZER if cfg.vocab_size >= TOKENIZER.vocab_size
-           else Tokenizer(cfg.vocab_size))
-    return [tok.encode_with_specials(
-        f"Plot xview1 images around Tampa Bay with cloud cover below "
-        f"{10 + i}%") for i in range(n)]
+    tok = _tokenizer(cfg)
+    return [tok.encode_with_specials(t) for t in request_texts(n)]
+
+
+def retrieved_prompts(cfg, args, device):
+    """With ``--retriever-k``: each request's retrieved toolset, as the
+    JAX launcher builds them (no intent gate, so no prior). Returns
+    ({toolset key: prefix ids}, [(prompt ids, key)], registry size),
+    encoded into ``cfg``'s vocabulary: a prefix is <bos> + its catalog
+    text, a prompt <bos> + catalog text + the task + <eos>."""
+    registry = (build_catalog(args.catalog_size, seed=0)
+                if args.catalog_size is not None else DEFAULT_REGISTRY)
+    retriever = ToolRetriever(registry, catalog_intent_libraries(registry),
+                              k=args.retriever_k, device=device)
+    texts = request_texts(args.requests)
+    exposures = retriever.retrieve_batch(texts, [None] * len(texts))
+    tok = _tokenizer(cfg)
+    catalog = {e.key_str: e.catalog_text(registry) for e in exposures}
+    prefixes = {k: [SPECIALS["<bos>"]] + tok.encode(t)
+                for k, t in catalog.items()}
+    prompts = [(tok.encode_with_specials(f"{catalog[e.key_str]}\nTask: {t}"),
+                e.key_str) for t, e in zip(texts, exposures)]
+    return prefixes, prompts, len(registry.tools)
 
 
 def serve(cfg, model, args) -> dict:
@@ -169,7 +215,19 @@ def serve(cfg, model, args) -> dict:
     # launcher
     spec = (SpecConfig(draft_cfg=cfg, draft_model=model, k=args.draft_k)
             if args.spec_decode else None)
-    prompts = request_prompts(cfg, args.requests)
+    if args.retriever_k is not None:
+        prefixes, prompts, n_tools = retrieved_prompts(cfg, args, device)
+        # the cache must hold the widest toolset prefix + the turn; grow
+        # it rather than refuse (register_prefix checks the fit)
+        need = max(len(ids) for ids in prefixes.values()) \
+            + args.max_new + 128
+        if args.cache_len < need:
+            print(f"cache-len {args.cache_len} -> {need} (toolset "
+                  f"prefixes need the room)")
+            args.cache_len = need
+    else:
+        prefixes = {}
+        prompts = [(p, None) for p in request_prompts(cfg, args.requests)]
     tracer = Tracer() if args.trace_out else None
     engine = InferenceEngine(cfg, model, max_batch=args.max_batch,
                              cache_len=args.cache_len,
@@ -183,10 +241,13 @@ def serve(cfg, model, args) -> dict:
                              # the launcher is the wall-clock boundary
                              clock=time.time)
     t0 = time.time()
-    for p in prompts:
+    for key, ids in prefixes.items():
+        engine.register_prefix(key, ids)
+    for p, key in prompts:
         engine.add_request(p, max_new_tokens=args.max_new,
                            sampler=SamplerConfig(
-                               temperature=args.temperature, top_k=40))
+                               temperature=args.temperature, top_k=40),
+                           prefix_key=key)
     done = engine.run_until_done()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -197,6 +258,11 @@ def serve(cfg, model, args) -> dict:
     print(f"served {len(done)} requests in {dt:.2f}s on {device} | "
           f"decode steps {st['decode_steps']} | {tok_s:.1f} tok/s | "
           f"{step_ms:.2f} ms/step")
+    if prefixes:
+        print(f"retrieval[k={args.retriever_k}, catalog={n_tools} tools]: "
+              f"{len(prefixes)} toolset prefixes for {len(prompts)} "
+              f"requests | {st['prefix_hits']} prefix hits, "
+              f"{st['prefix_tokens_saved']} prefill tokens saved")
     if spec is not None:
         print(f"spec-decode[k={spec.k}]: {st['tokens_per_step']:.2f} "
               f"tokens/target-forward, accept rate "
@@ -218,6 +284,7 @@ def serve(cfg, model, args) -> dict:
             "tok_s": tok_s, "step_ms": step_ms, "stats": st,
             "spec_accept_rate": st["spec_accept_rate"],
             "preemptions": st["preemptions"],
+            "toolset_prefixes": len(prefixes),
             "outputs": {r.request_id: list(r.output) for r in done}}
 
 

@@ -21,6 +21,10 @@ runs:
                  hd) shared by every slot
   mode="verify"  speculative verify: W = K+1 tokens per slot at per-slot
                  positions [pos_b, pos_b + W), dense or paged
+  mode="train"   the JAX package's full-sequence training forward with no
+                 cache, forward only (under ``torch.no_grad()``) and for
+                 the ``"full"`` kind only: the intent gate scores
+                 (query, intent) rows with it (serving/neural_planner.py)
 
 JAX arrays are immutable; here the extend, decode and verify writes
 update the cache tensors IN PLACE (the engine clones a shared prefix
@@ -44,8 +48,10 @@ verify logits ARE the decode logits. For an MoE layer this also gives
 decode's routing semantics: each row is a group of one token, whose
 capacity (8) never drops a choice. The JAX package's verify routes all W
 rows as one group with capacity(W), which can drop choices once W > 8;
-at W <= 8 the two agree. Train mode raises ``NotImplementedError``
-naming the slice that brings it.
+at W <= 8 the two agree. Train mode runs prefill's arithmetic (the
+fixed-size row calls, so a row's bits do not depend on the batch) and
+keeps no K/V; a backward and every other kind raise
+``NotImplementedError`` naming the slice that brings them.
 
 A sliding-window layer (``"hymba_w"``) keeps a ring of
 ``Sc = min(window, cache_len)`` rows: prefill attends over the window
@@ -78,13 +84,15 @@ from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models import xlstm as X
 
-MODES = ("prefill", "extend", "decode", "verify")
+MODES = ("prefill", "extend", "decode", "verify", "train")
 #: kinds without recurrent state or rings: the only ones with paged pools,
 #: bucket-padded extends and speculative verify
 PURE_ATTENTION_KINDS = ("full", "dense", "moe")
 HYMBA_KINDS = ("hymba_g", "hymba_w")
 XLSTM_KINDS = ("mlstm", "slstm")
 KINDS = PURE_ATTENTION_KINDS + HYMBA_KINDS + XLSTM_KINDS
+#: modes whose row-wise products and norms run in fixed-size calls
+FIXED_MODES = ("prefill", "extend", "train")
 
 
 class Block(nn.Module):
@@ -218,15 +226,20 @@ def _ring_from_prefill(k, Sc: int):
 
 def _attn_sublayer(p: Block, x, cfg: ModelConfig, mode: str, cache, pos,
                    positions, block_tab, plan):
-    """Attention sub-layer of prefill, extend and decode. Returns
-    (y, cache)."""
-    fixed = mode in ("prefill", "extend")
+    """Attention sub-layer of prefill, extend, decode and the forward-only
+    train mode. Returns (y, cache)."""
+    fixed = mode in FIXED_MODES
     window = cfg.window if p.kind in WINDOW_KINDS else 0
     if window and mode == "extend":
         raise NotImplementedError(
             "extend over sliding-window ring buffers; decode "
             "token-by-token instead")
     q, k, v = _rope_qkv(p, x, cfg, positions, fixed)
+
+    if mode == "train":
+        out = L.attention(q, k, v, causal=True, window=window,
+                          cap=cfg.attn_softcap, scale=cfg.attn_scale)
+        return L.out_proj(p.attn, out, fixed), cache
 
     if mode == "prefill":
         out = L.attention(q, k, v, causal=True, window=window,
@@ -334,9 +347,9 @@ def _verify_block(p: Block, x, cfg: ModelConfig, cache, pos, positions,
     return torch.cat(ys, dim=1), cache
 
 
-def _mode_not_ported(mode: str) -> NotImplementedError:
+def _mode_not_ported(mode: str, what: str = "train") -> NotImplementedError:
     return NotImplementedError(
-        f"mode {mode!r}: train comes with the training slice (ROADMAP.md "
+        f"mode {mode!r}: {what} comes with the training slice (ROADMAP.md "
         f"queue A11)")
 
 
@@ -371,6 +384,10 @@ def block_apply(p: Block, x, cfg: ModelConfig, *, mode: str, cache,
     (computed here when None)."""
     if mode not in MODES:
         raise _mode_not_ported(mode)
+    if mode == "train" and p.kind != "full":
+        raise _mode_not_ported(mode, f"train over {p.kind!r} layers")
+    if mode == "train" and torch.is_grad_enabled():
+        raise _mode_not_ported(mode, "a backward (train with grad)")
     if p.kind in XLSTM_KINDS:
         return _xlstm_block(p, x, cfg, mode, cache)
     if mode == "verify":
@@ -383,7 +400,7 @@ def block_apply(p: Block, x, cfg: ModelConfig, *, mode: str, cache,
                 "back by KV-length truncation)")
         return _verify_block(p, x, cfg, cache, pos, positions, block_tab,
                              plan)
-    fixed = mode in ("prefill", "extend")
+    fixed = mode in FIXED_MODES
     h = L.rmsnorm(p.norm1.scale, x, cfg.norm_eps, fixed)
     attn_y, cache = _attn_sublayer(p, h, cfg, mode, cache, pos, positions,
                                    block_tab, plan)

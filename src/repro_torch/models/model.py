@@ -202,6 +202,23 @@ def _logits(model: Model, x):
 # ------------------------------------------------------------- public API ----
 
 @torch.no_grad()
+def forward_hidden(model: Model, batch):
+    """The JAX package's training forward without the loss (its
+    ``_apply_stack(mode="train")`` then the final norm), forward only:
+    (B, S, d) final-normed hidden states of ``batch["tokens"]`` from
+    position 0, no cache. Every product and norm runs in fixed-size row
+    calls, so a row's bits do not depend on B. Dense ``"full"`` stacks
+    only (``blocks.block_apply``)."""
+    tokens = _tokens(model, batch)
+    x, positions = _embed_inputs(model, tokens)
+    for blk in model.layers:
+        x, _ = block_apply(blk, x, model.cfg, mode="train", cache=None,
+                           pos=0, positions=positions)
+    return L.rmsnorm(model.final_norm.scale, x, model.cfg.norm_eps,
+                     fixed=True)
+
+
+@torch.no_grad()
 def prefill(model: Model, batch, cache_len: int):
     """Process a prompt; returns (last-token logits (B,V) fp32, filled
     cache with ``pos`` = prompt length)."""

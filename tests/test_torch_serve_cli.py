@@ -38,6 +38,10 @@ def test_valid_combinations_parse(argv):
     parse(argv)
 
 
+#: flags once refused here that a later slice ported (retrieval)
+OPENED = ("--retriever-k",)
+
+
 @pytest.mark.parametrize("argv,msg", [
     (["--kv-mode", "paged"], None),          # ported: parses
     (["--spec-decode"], None),               # ported: parses
@@ -52,6 +56,13 @@ def test_unported_flags_refused(argv, msg, capsys):
         assert args.kv_mode == ("paged" if "--kv-mode" in argv
                                 else "dense")
         assert args.spec_decode == ("--spec-decode" in argv)
+        return
+    if msg in OPENED:
+        # ported since: parses as the JAX launcher's flag
+        args = parse(argv)
+        assert args.retriever_k == 4
+        assert args.catalog_size == (64 if "--catalog-size" in argv
+                                     else None)
         return
     with pytest.raises(SystemExit):
         parse(argv)
@@ -68,6 +79,8 @@ def test_unported_flags_refused(argv, msg, capsys):
     ["--no-interleave"],
     ["--replicas", "0"],
     ["--admission", "lifo"],
+    ["--catalog-size", "64"],                # no gate: needs --retriever-k
+    ["--retriever-k", "0"],
 ])
 def test_invalid_combinations_error(argv):
     with pytest.raises(SystemExit):
