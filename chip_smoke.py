@@ -45,7 +45,19 @@ every run emits the monolithic run's tokens with a self-draft accept
 rate of 1.0, that chunked prefill and prefix hits of 1,312-token prompts
 do too, profiles a full-width decode step and a speculative round, dense
 and paged (each decode kernel's device time a launch), and checks the
-card's logits against the CPU's on the same seeded weights. Then the
+card's logits against the CPU's on the same seeded weights. It holds the
+threefry Gumbel-max sampler on the card to the CPU port (64 seeded rows
+at V = 8,192, T = 0.8, top-k 0 and 40: the same tokens, the largest
+Gumbel difference printed) and times its host cost for one decode step
+of 8 slots. Then the replica cluster on the same card through the
+launcher's ``serve_cluster`` (the JAX launcher's cluster example: 32
+bursty sessions of up to 2 turns, skew 0.7, 16 new tokens at T = 0.8,
+8 slots and a 2,048-row cache a replica, replicas sharing the model):
+1 replica under round robin, 4 under each of the three routers, then
+intent affinity with paged KV, with speculative decoding dense and
+paged, and with SLA spill; every served request's tokens must equal the
+1-replica run's, affinity's prefix-hit ratio must beat round robin's,
+and each run must launch its attention kernels. Then the
 GeckOpt path at the planner's full width, through
 ``launch/serve_pipeline.py``: the concurrent pipeline on 16 tasks with 8
 in flight, with the gated library catalog and with a top-8 retrieved
@@ -54,8 +66,9 @@ launches and its gate, prefix, turn and host seconds; the batched
 gate's decisions and the pipeline's Table-2 row must equal the
 sequential harness's with the single-query gate, every engine turn must
 ride a prefix prefilled once, and a prefix hit's tokens must equal a
-full prefill's; then the gate's losses on the card against the CPU's
-for 8 queries. Then the
+full prefill's; the gated run again on a 4-replica intent-affinity
+cluster, whose row and gate decisions must be the single engine's; then
+the gate's losses on the card against the CPU's for 8 queries. Then the
 MoE families at their published widths with the depth cut
 (kimi-k2-1t-a32b: its dense first layer and one MoE layer of 384 experts
 top-8; arctic-480b: one MoE layer of 128 experts top-2), through the
@@ -1441,8 +1454,9 @@ def card_vs_cpu(cfg):
 
 def planner_phases():
     """planner-proxy-100m at full width (depth not cut): the serve runs,
-    the long-prompt equalities (asserted), the decode and spec profiles
-    and card vs CPU. Returns the serve runs."""
+    the long-prompt equalities (asserted), the decode and spec profiles,
+    card vs CPU, the sampler on the card against the CPU and the replica
+    cluster. Returns the serve runs and the cluster runs."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
     cfg = get_config(ARCH)
@@ -1464,7 +1478,8 @@ def planner_phases():
     emit("paged_spec_profile", **profile_spec(cfg, model,
                                               kv_mode="paged"))
     emit("card_vs_cpu", **card_vs_cpu(cfg))
-    return runs
+    emit("sampler_card_vs_cpu", **sampler_card_vs_cpu())
+    return runs, cluster_phases(cfg, model)
 
 
 # the GeckOpt pipeline runs: 16 tasks at 8 sessions in flight, with the
@@ -1557,6 +1572,7 @@ def geckopt_run(cfg, model, name: str, extra):
                     "peak_concurrent", "engine_turns", "retrievals",
                     "retrieval_widens")},
                 row=res["row"], sequential_row_equal=True,
+                decisions=res["decisions"],
                 gate_decisions_equal=same_gate, sequential_seconds=seq_s,
                 hit_vs_miss=hm)
 
@@ -1594,7 +1610,8 @@ def gate_card_vs_cpu(cfg, model, queries):
 
 def geckopt_phases():
     """The GeckOpt path at the planner's full width: the pipeline runs
-    and the gate's card-vs-CPU losses. Returns the runs."""
+    (one engine, then a 4-replica cluster) and the gate's card-vs-CPU
+    losses. Returns the runs."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
     cfg = get_config(ARCH)
@@ -1603,11 +1620,190 @@ def geckopt_phases():
     for name, extra in GECKOPT_RUNS:
         runs[name] = geckopt_run(cfg, model, name, extra)
         emit(f"geckopt_{name}", **runs[name])
+    runs["cluster"] = geckopt_cluster(cfg, model, runs["dense"])
+    emit("geckopt_cluster", **runs["cluster"])
     from repro_torch.env.tasks import make_benchmark
     from repro_torch.env.world import build_world
     queries = [t.query for t in make_benchmark(build_world(0), GATE_QUERIES)]
     emit("geckopt_gate_card_vs_cpu", **gate_card_vs_cpu(cfg, model, queries))
     return runs
+
+# ---------------------------------- the sampler and the replica cluster ----
+
+SAMPLER_ROWS, SAMPLER_VOCAB, SAMPLER_T = 64, 8192, 0.8
+SAMPLER_STEP_ROWS = 8           # one decode step's slots
+
+
+def sampler_card_vs_cpu():
+    """The threefry Gumbel-max sampler on the card against the CPU port:
+    64 rows of seeded logits at V = 8,192, T = 0.8, top-k 0 and 40, one
+    key a row (an engine key's splits): the same tokens, and the largest
+    Gumbel difference (the devices' logs round differently). Then the
+    sampler's host cost of one decode step of 8 slots on the card: the
+    8 key splits and 8 seeded ``fold_in`` keys on the host and one
+    batched draw, closed by the tokens' copy to the host."""
+    from repro_torch.serving import prng
+    from repro_torch.serving.sampling import SamplerConfig, sample
+    rng = np.random.default_rng(5)
+    logits = torch.from_numpy((rng.standard_normal(
+        (SAMPLER_ROWS, SAMPLER_VOCAB)) * 3).astype(np.float32))
+    key, keys = prng.prng_key(5), []
+    for _ in range(SAMPLER_ROWS):
+        key, k = prng.split(key)
+        keys.append(k)
+    card_logits = logits.cuda()
+    res = {"rows": SAMPLER_ROWS, "vocab": SAMPLER_VOCAB,
+           "temperature": SAMPLER_T}
+    for top_k in (0, 40):
+        cfg = SamplerConfig(temperature=SAMPLER_T, top_k=top_k)
+        card = sample(card_logits, keys, cfg)
+        host = sample(logits, keys, cfg)
+        same = int((card == host).sum())
+        check(same == SAMPLER_ROWS, f"sampler top_k {top_k}: {same} of "
+                                    f"{SAMPLER_ROWS} card tokens equal the "
+                                    f"CPU's")
+        res[f"tokens_equal_top_k{top_k}"] = same
+    g_card = prng.gumbel(keys, SAMPLER_VOCAB, "cuda").cpu()
+    g_host = prng.gumbel(keys, SAMPLER_VOCAB, "cpu")
+    check(bool(torch.isfinite(g_card).all()), "sampler: non-finite Gumbel")
+    res["gumbel_max_abs_diff"] = float((g_card - g_host).abs().max())
+    step_logits = card_logits[:SAMPLER_STEP_ROWS].contiguous()
+    cfg = SamplerConfig(temperature=SAMPLER_T, top_k=40)
+
+    def one_step():
+        nonlocal key
+        ks = []
+        for i in range(SAMPLER_STEP_ROWS):
+            key, _ = prng.split(key)
+            ks.append(prng.fold_in(prng.prng_key(1000 + i), 7))
+        return sample(step_logits, ks, cfg)
+
+    for _ in range(5):
+        one_step()
+    torch.cuda.synchronize()
+    n = 50
+    t0 = time.perf_counter()
+    for _ in range(n):
+        one_step()
+    res["step_rows"] = SAMPLER_STEP_ROWS
+    res["step_ms"] = 1e3 * (time.perf_counter() - t0) / n
+    t0 = time.perf_counter()
+    for _ in range(n):
+        key, _ = prng.split(key)
+        prng.fold_in(prng.prng_key(1000), 7)
+    res["keys_ms_per_row"] = 1e3 * (time.perf_counter() - t0) / n
+    return res
+
+
+# the cluster example of the JAX launcher (src/repro/launch/serve.py:10-11)
+# at the planner's full width: 32 sessions, bursty, skew 0.7, up to 2
+# turns, 16 new tokens at T = 0.8, 8 slots a replica, cache 2,048;
+# (name, replicas, router, extra flags, kernels the run must launch)
+CLUSTER_FLAGS = ["--requests", "32", "--profile", "bursty", "--skew", "0.7",
+                 "--turns", "2", "--max-new", "16", "--temperature", "0.8",
+                 "--max-batch", "8", "--cache-len", "2048"]
+_DENSE = ("flash_prefill", "flash_decode")
+CLUSTER_RUNS = [
+    ("rr_1", 1, "round_robin", [], _DENSE),
+    ("rr_4", 4, "round_robin", [], _DENSE),
+    ("least_loaded_4", 4, "least_loaded", [], _DENSE),
+    ("affinity_4", 4, "intent_affinity", [], _DENSE),
+    ("affinity_4_paged", 4, "intent_affinity", PAGED,
+     ("flash_prefill", "flash_decode_paged")),
+    ("affinity_4_spec", 4, "intent_affinity", SPEC,
+     ("flash_prefill", "flash_verify")),
+    ("affinity_4_paged_spec", 4, "intent_affinity", PAGED + SPEC,
+     ("flash_prefill", "flash_verify_paged")),
+    ("affinity_4_sla_spill", 4, "intent_affinity", ["--sla-spill"], _DENSE)]
+
+
+def cluster_phases(cfg, model):
+    """The planner's replica cluster on one card (the replicas share the
+    model) through the launcher's ``serve_cluster``, once per run of
+    CLUSTER_RUNS, each with its launch counts (set to 0 just before it,
+    read just after): every served request's tokens must equal the
+    1-replica run's, and intent affinity's prefix-hit ratio must beat
+    round robin's. Returns the runs."""
+    from repro_torch.kernels import backend as KB
+    from repro_torch.launch.serve import parse_args, serve_cluster
+    runs, ref = {}, None
+    for name, n, router, extra, kernels in CLUSTER_RUNS:
+        args = parse_args(["--replicas", str(n), "--router", router]
+                          + CLUSTER_FLAGS + extra)
+        KB.reset_launches()
+        spec = None
+        if "--spec-decode" in extra:
+            from repro_torch.serving.specdec import SpecConfig
+            spec = SpecConfig(draft_cfg=cfg, draft_model=model,
+                              k=args.draft_k)
+        res = serve_cluster(cfg, model, args, spec)
+        counts = KB.launch_counts()
+        missing = [k for k in kernels if not counts[k]]
+        check(not missing, f"cluster {name}: no launch of {missing}")
+        s = res["summary"]
+        out = res["outputs"]
+        ref = out if ref is None else ref
+        common = sorted(set(out) & set(ref))
+        check(common and all(out[i] == ref[i] for i in common),
+              f"cluster {name}: tokens differ from the 1-replica run's")
+        check(all(len(o) for o in out.values()), f"cluster {name}: a "
+                                                 f"served request is empty")
+        runs[name] = dict(
+            replicas=n, router=router, flags=extra, seconds=res["seconds"],
+            ticks=res["ticks"], tick_ms=res["tick_ms"], tok_s=res["tok_s"],
+            requests=s["requests"], served=s["finished"],
+            sla_expired=s["sla_expired"], compared=len(common),
+            tokens_equal_1_replica=True, tokens_out=s["tokens_out"],
+            prefix_hit_ratio=s["prefix_hit_ratio"],
+            sla_attainment=s["sla_attainment"],
+            ttft_p50=s["ttft_p50"], e2e_p95=s["e2e_p95"],
+            spec_accept_rate=s["spec_accept_rate"],
+            tokens_per_step=s["tokens_per_step"],
+            preemptions=s["preemptions"],
+            utilization=[r["utilization"] for r in s["per_replica"]],
+            replica_hit_ratio=[r["hit_ratio"] for r in s["per_replica"]],
+            admissions=[r["admissions"] for r in s["per_replica"]],
+            launches=counts)
+        emit(f"cluster_{name}", **runs[name])
+    check(runs["affinity_4"]["prefix_hit_ratio"]
+          > runs["rr_4"]["prefix_hit_ratio"],
+          f"cluster: affinity's prefix-hit ratio "
+          f"{runs['affinity_4']['prefix_hit_ratio']} is not above round "
+          f"robin's {runs['rr_4']['prefix_hit_ratio']}")
+    return runs
+
+
+def geckopt_cluster(cfg, model, single):
+    """The pipeline on a 4-replica ``intent_affinity`` cluster (16 tasks,
+    8 in flight) through ``serve_pipeline``: its Table-2 row and gate
+    decisions must be the single-engine run's (``single``)."""
+    from repro_torch.kernels import backend as KB
+    from repro_torch.launch import serve_pipeline as SP
+    args = SP.parse_args(["--requests", str(GECKOPT_TASKS), "--concurrency",
+                          "8", "--replicas", "4", "--router",
+                          "intent_affinity"])
+    KB.reset_launches()
+    res = SP.serve_pipeline(cfg, model, args)
+    counts = KB.launch_counts()
+    missing = [k for k in _DENSE if not counts[k]]
+    check(not missing, f"geckopt cluster: no launch of {missing}")
+    check(res["row"] == single["row"], f"geckopt cluster: row {res['row']}"
+                                       f" != single engine {single['row']}")
+    check(res["decisions"] == single["decisions"],
+          "geckopt cluster: gate decisions differ from the single engine's")
+    st = res["stats"]
+    check(st["prefix_hits"] == res["pipeline"]["engine_turns"]
+          == GECKOPT_TASKS,
+          f"geckopt cluster: {st['prefix_hits']} prefix hits for "
+          f"{res['pipeline']['engine_turns']} turns")
+    return dict(sessions=GECKOPT_TASKS, replicas=4, router="intent_affinity",
+                seconds=res["seconds"], tasks_s=res["tasks_s"],
+                launches=counts, row=res["row"], row_equal_single=True,
+                decisions_equal_single=True, prefixes=len(res["prefixes"]),
+                turns_by_replica=[r["admissions"]
+                                  for r in st["per_replica"]],
+                hits_by_replica=[r["prefix_hits"]
+                                 for r in st["per_replica"]])
 
 
 def moe_config(arch: str):
@@ -2123,7 +2319,7 @@ def main(argv=None) -> int:
             RESULTS, indent=1, default=str))
         return 0
 
-    runs = planner_phases()
+    runs, cluster = planner_phases()
     geckopt = geckopt_phases()
     moe = moe_phases()
     hymba = hymba_phases()
@@ -2164,6 +2360,9 @@ def main(argv=None) -> int:
         # the GeckOpt pipeline's dense run (gate waves, prefixes, turns)
         rows[-1]["geckopt_launches"] = \
             geckopt["dense"]["launches"][fn.__name__]
+        # every run of the replica cluster together
+        rows[-1]["cluster_launches"] = sum(
+            r["launches"][fn.__name__] for r in cluster.values())
     # the router: launches of the kimi-k2 dense serve; times at its decode
     # shape there (8 slots, 384 experts, top-8), with its device time a
     # call and the launch floor

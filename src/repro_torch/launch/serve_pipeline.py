@@ -3,6 +3,7 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve_pipeline \
       [--requests 12] [--concurrency 8] [--retriever-k 8 --catalog-size 128]
+      [--replicas 4 --router intent_affinity]
 
 The counterpart of the JAX package's ``examples/serve_pipeline.py``, with
 its flags and its summary lines:
@@ -13,22 +14,23 @@ its flags and its summary lines:
   * ``GeckOptPipeline`` runs N sessions through gate → (retrieve →) plan
     → execute concurrently;
   * an ``InferenceEngine`` serves each session's first planner turn at
-    T=0 off a prefix cached once per intent (or per retrieved toolset).
+    T=0 off a prefix cached once per intent (or per retrieved toolset);
+    with ``--replicas N`` an ``EngineCluster`` of N 4-slot replicas
+    sharing the model does, its ``--router`` placing each session (under
+    ``intent_affinity`` on its prefix's home replica).
 
 By default it serves the planner's full config (``planner-proxy-100m``,
 random weights from seed 0); ``--smoke`` takes its 2-layer variant.
 ``--arch`` takes only dense stacks of ``"full"`` layers whose vocabulary
 holds the tokenizer's ids: the gate's forward is ported for that kind
 alone, and the engine encodes text with the 8,192-id tokenizer. There is
-no ``--backend``: the device decides which attention runs. Serving on
-several replicas (``--replicas > 1``, ``--router``) is refused until the
-cluster is ported (ROADMAP.md queue A6).
+no ``--backend``: the device decides which attention runs.
 
 ``main`` is the command line; ``serve_pipeline(cfg, model, args)`` runs
 one pipeline for any model built for ``cfg`` and returns the run's
 numbers as a dict, with the seconds and the kernel launches of the
-gate's waves, the prefix prefills and the engine's steps (each closed by
-a device synchronize) beside the whole run's.
+gate's waves, the prefix prefills and the engine's (or the cluster's)
+steps (each closed by a device synchronize) beside the whole run's.
 """
 from __future__ import annotations
 
@@ -55,6 +57,7 @@ from repro_torch.models.model import count_params, init_params, \
     resolve_device
 from repro_torch.obs import Tracer
 from repro_torch.obs.export import write_trace
+from repro_torch.serving.cluster import ROUTER_POLICIES, EngineCluster
 from repro_torch.serving.engine import InferenceEngine
 from repro_torch.serving.neural_planner import BatchedNeuralIntentClassifier
 from repro_torch.serving.pipeline import GeckOptPipeline, PipelineConfig
@@ -62,7 +65,7 @@ from repro_torch.serving.sched import ADMISSION_POLICIES
 from repro_torch.serving.specdec import SpecConfig
 from repro_torch.serving.tokenizer import TOKENIZER
 
-#: the engine's slots, as in the JAX example
+#: the engine's (each replica's) slots, as in the JAX example
 MAX_BATCH = 4
 #: the timed phases of a run: the gate's waves, the prefix prefills and
 #: the engine's steps (the planner turns); the rest of a run is the host's
@@ -78,9 +81,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--concurrency", type=int, default=8)
     ap.add_argument("--replicas", type=int, default=1,
-                    help="only 1: the cluster is not ported yet")
-    ap.add_argument("--router", default=None,
-                    help="cluster routing policy: not ported yet")
+                    help="serve planner turns on an EngineCluster of N "
+                         "replicas instead of one engine")
+    ap.add_argument("--router", default="intent_affinity",
+                    choices=ROUTER_POLICIES,
+                    help="cluster routing policy (with --replicas > 1)")
     ap.add_argument("--kv-mode", default="dense", choices=("dense", "paged"),
                     help="KV-cache manager for the engine: dense slabs or "
                          "the paged pool with CoW prefix sharing")
@@ -113,13 +118,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def validate_args(ap: argparse.ArgumentParser, args):
-    """Invalid or unported combinations error before any model is built."""
-    if args.replicas != 1:
-        ap.error(f"--replicas {args.replicas}: serving on a cluster is not "
-                 f"ported yet (ROADMAP.md queue A6)")
-    if args.router is not None:
-        ap.error("--router: the cluster is not ported yet (ROADMAP.md "
-                 "queue A6)")
+    """Invalid combinations error before any model is built."""
+    if args.replicas < 1:
+        ap.error(f"--replicas must be >= 1, got {args.replicas}")
     if args.kv_mode == "dense" and (args.kv_blocks is not None
                                     or args.block_size is not None):
         ap.error("--kv-blocks/--block-size apply only to --kv-mode paged")
@@ -195,7 +196,9 @@ class _TimedGate(BatchedNeuralIntentClassifier):
         return self._phases.timed("gate", super().losses, queries)
 
 
-class _TimedEngine(InferenceEngine):
+class _Timed:
+    """Times an engine's or a cluster's prefix registrations and steps."""
+
     def __init__(self, *a, seconds: _Phases, **kw):
         super().__init__(*a, **kw)
         self._phases = seconds
@@ -206,6 +209,14 @@ class _TimedEngine(InferenceEngine):
 
     def step(self):
         return self._phases.timed("turns", super().step)
+
+
+class _TimedEngine(_Timed, InferenceEngine):
+    pass
+
+
+class _TimedCluster(_Timed, EngineCluster):
+    pass
 
 
 def build_agent(args, classifier, world, device) -> Agent:
@@ -240,18 +251,18 @@ def serve_pipeline(cfg, model, args, tasks: Optional[list] = None) -> dict:
     spec = (SpecConfig(draft_cfg=cfg, draft_model=model, k=args.draft_k)
             if args.spec_decode else None)
     tracer = Tracer() if args.trace_out else None
-    engine = _TimedEngine(cfg, model, max_batch=MAX_BATCH,
-                          cache_len=cache_len_for(args),
-                          kv_mode=args.kv_mode,
-                          kv_blocks=args.kv_blocks,
-                          block_size=args.block_size, spec_decode=spec,
-                          prefill_budget=args.prefill_budget,
-                          admission=args.admission, tracer=tracer,
-                          seconds=clock)
+    kw = dict(max_batch=MAX_BATCH, cache_len=cache_len_for(args),
+              kv_mode=args.kv_mode, kv_blocks=args.kv_blocks,
+              block_size=args.block_size, spec_decode=spec,
+              prefill_budget=args.prefill_budget, admission=args.admission,
+              tracer=tracer, seconds=clock)
+    engine = (_TimedCluster(cfg, model, args.replicas, router=args.router,
+                            **kw)
+              if args.replicas > 1 else _TimedEngine(cfg, model, **kw))
     classifier = _TimedGate(cfg, model, clock)
     print(f"planner engine up: {count_params(model) / 1e6:.1f}M params on "
-          f"{device}, 1 engine x {MAX_BATCH} slots; batched intent gate "
-          f"ready")
+          f"{device}, {args.replicas} replica(s) x {MAX_BATCH} slots; "
+          f"batched intent gate ready")
     world = build_world(0)
     if tasks is None:
         tasks = make_benchmark(world, args.requests)
@@ -298,6 +309,11 @@ def serve_pipeline(cfg, model, args, tasks: Optional[list] = None) -> dict:
               f"tokens/target-forward, accept rate "
               f"{es['spec_accept_rate']:.2f} over {es['spec_rounds']} "
               f"rounds")
+    if args.replicas > 1:
+        for r in es["per_replica"]:
+            print(f"  replica {r['replica']}: {r['admissions']} turns, "
+                  f"{r['prefix_hits']} prefix hits, "
+                  f"{r['tokens_generated']} tokens")
     print(f"quality: success={100 * rep.success_rate:.1f}% "
           f"tokens/task={rep.tokens_per_task / 1000:.2f}k "
           f"steps={rep.steps_per_task:.2f} "

@@ -72,8 +72,8 @@ from repro_torch.models.model import Model, decode_step, init_cache, \
     init_paged_cache, prefill, prefill_extend, verify_extend
 from repro_torch.obs import NULL_TRACER, MetricsRegistry, StatsView
 from repro_torch.serving.kvpool import BlockTable, KVBlockPool
-from repro_torch.serving.sampling import SamplerConfig, request_generator, \
-    sample
+from repro_torch.serving.prng import Key, fold_in, prng_key, split
+from repro_torch.serving.sampling import SamplerConfig, sample
 from repro_torch.serving.sched import AdmissionQueue, deadline_step, \
     victim_key
 from repro_torch.serving.specdec import SpecConfig, SpecDecoder, \
@@ -302,7 +302,9 @@ class InferenceEngine:
         self.cache_len = cache_len
         self.kv_mode = kv_mode
         self.seed = seed
-        self.rng = torch.Generator().manual_seed(seed)
+        # the engine's sampling key, split once for every sampled token
+        # (greedy and seeded ones too), in the JAX engine's order
+        self.rng: Key = prng_key(seed)
         if kv_mode == "paged":
             self.block_size = 16 if block_size is None else block_size
             if cache_len % self.block_size:
@@ -405,7 +407,7 @@ class InferenceEngine:
         admission."""
         if seed is not None:
             self.seed = seed
-        self.rng = torch.Generator().manual_seed(self.seed)
+        self.rng = prng_key(self.seed)
         self.metrics.reset()
         self._req_spans.clear()
         self._pos[:] = 0
@@ -663,12 +665,37 @@ class InferenceEngine:
     def _free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if s is None]
 
-    def _request_gen(self, req: Request) -> torch.Generator:
-        """Generator for the request's next token: the engine stream, or
-        the request's own (seed, token index) stream when seeded."""
+    def _request_key(self, req: Request, engine_key: Optional[Key],
+                     ahead: int = 0) -> Key:
+        """Sampling key of the request's token ``len(output) + ahead``:
+        ``engine_key`` (split off ``self.rng`` either way, so seeded
+        requests never perturb their neighbours' streams), or
+        ``fold_in(PRNGKey(seed), index)`` when the sampler is seeded."""
         if req.sampler.seed is None:
-            return self.rng
-        return request_generator(req.sampler.seed, len(req.output))
+            return engine_key
+        return fold_in(prng_key(req.sampler.seed), len(req.output) + ahead)
+
+    def _split(self) -> Key:
+        """Advance the engine key; returns the key split off to draw
+        with."""
+        self.rng, key = split(self.rng)
+        return key
+
+    @staticmethod
+    def _draw(logits, rows: Dict[int, Tuple[Key, SamplerConfig]]
+              ) -> Dict[int, int]:
+        """The T>0 tokens of ``rows`` ({row of ``logits``: (key,
+        sampler)}), one batched ``sample`` per (temperature, top_k)."""
+        groups: Dict[Tuple[float, int], List[int]] = {}
+        for r, (_, s) in rows.items():
+            groups.setdefault((s.temperature, s.top_k), []).append(r)
+        out: Dict[int, int] = {}
+        for (t, k), rs in groups.items():
+            idx = torch.as_tensor(rs, device=logits.device)
+            toks = sample(logits.index_select(0, idx),
+                          [rows[r][0] for r in rs], SamplerConfig(t, k))
+            out.update(zip(rs, toks.tolist()))
+        return out
 
     def _prefix_hit(self, req: Request) -> Optional[CachedPrefix]:
         pref = (self.prefixes.get(req.prefix_key)
@@ -726,7 +753,8 @@ class InferenceEngine:
 
     def _first_token(self, req: Request, logits) -> bool:
         """Sample the admission token; True when it is terminal."""
-        tok = int(sample(logits, self._request_gen(req), req.sampler)[0])
+        key = self._request_key(req, self._split())
+        tok = int(sample(logits, [key], req.sampler)[0])
         req.output.append(tok)
         req.first_token_t = self._clock()
         req.first_token_step = self.step_no
@@ -1071,14 +1099,17 @@ class InferenceEngine:
         if self.kv_mode == "paged":
             for i in active:          # one KV row written per sequence
                 self.tables[i].n_tokens += 1
+        # one engine-key split per active slot, in slot order; the T>0
+        # slots draw in one batched call
         greedy = torch.argmax(logits, dim=-1).tolist()
+        keys = {i: self._split() for i in active}
+        drawn = self._draw(logits, {
+            i: (self._request_key(self.slots[i], keys[i]),
+                self.slots[i].sampler)
+            for i in active if self.slots[i].sampler.temperature > 0.0})
         for i in active:
             req = self.slots[i]
-            if req.sampler.temperature <= 0.0:
-                tok = greedy[i]
-            else:
-                tok = int(sample(logits[i:i + 1], self._request_gen(req),
-                                 req.sampler)[0])
+            tok = drawn.get(i, greedy[i])
             req.output.append(tok)
             self.stats["tokens_generated"] += 1
             self._last_tokens[i, 0] = tok
@@ -1100,10 +1131,13 @@ class InferenceEngine:
         forward over W = K+1 positions per slot, then per-slot
         sample-and-match acceptance (serving/specdec.py). Every emitted
         token is sampled from verify logits that are bitwise the decode
-        logits, with the generator non-speculative decoding would use for
-        it, and the finish checks replay step()'s decisions token by
-        token, so outputs and finish reasons match the non-speculative
-        engine."""
+        logits, with the key non-speculative decoding would use for it
+        (the engine key still splits once per emitted token), and the
+        finish checks replay step()'s decisions token by token, so
+        outputs and finish reasons match the non-speculative engine.
+        Seeded rows draw in one batched call up front (their keys do not
+        depend on the engine key); an unseeded T>0 slot draws its window
+        in one call off the next k+1 engine keys."""
         k = self.spec.k
         pos0 = self._pos.copy()
         drafts = self.spec.draft(self._last_tokens)              # (B, k)
@@ -1115,6 +1149,13 @@ class InferenceEngine:
         self.stats["decode_steps"] += 1
         self.stats["spec_rounds"] += 1
         greedy = torch.argmax(vlogits, dim=-1).tolist()          # (B, W)
+        W = k + 1
+        rows = vlogits.reshape(-1, vlogits.shape[-1])            # row i*W+j
+        drawn = self._draw(rows, {
+            i * W + j: (self._request_key(req, None, j), req.sampler)
+            for i in active for req in (self.slots[i],)
+            if req.sampler.temperature > 0.0 and req.sampler.seed is not None
+            for j in range(W)})
         new_pos = pos0.copy()
         finished: List[Request] = []
         full_accept = False
@@ -1123,13 +1164,18 @@ class InferenceEngine:
             req = self.slots[i]
             emitted = accepted = 0
             reason = None
+            chain = None
+            if req.sampler.temperature > 0.0 and req.sampler.seed is None:
+                # the engine keys this window would take: chain[j] is the
+                # engine key after j splits
+                chain, keys = [self.rng], {}
+                for j in range(W):
+                    nxt, keys[i * W + j] = split(chain[-1])
+                    chain.append(nxt)
+                drawn.update(self._draw(rows, {r: (key, req.sampler)
+                                               for r, key in keys.items()}))
             for j in range(k + 1):
-                if req.sampler.temperature <= 0.0:
-                    tok = greedy[i][j]
-                else:
-                    tok = int(sample(vlogits[i, j][None],
-                                     self._request_gen(req),
-                                     req.sampler)[0])
+                tok = drawn.get(i * W + j, greedy[i][j])
                 req.output.append(tok)
                 emitted += 1
                 self.stats["tokens_generated"] += 1
@@ -1143,6 +1189,11 @@ class InferenceEngine:
                           else "cache_len" if hit_len else None)
                 if reason is not None or not matched:
                     break
+            if chain is not None:
+                self.rng = chain[emitted]
+            else:
+                for _ in range(emitted):
+                    self._split()
             self.stats["spec_drafted"] += k
             self.stats["spec_accepted"] += accepted
             round_accepted += accepted

@@ -3,9 +3,9 @@ Copilot sessions at once.
 
 Port of the JAX package's ``serving/pipeline.py``: the same stages, the
 same statistics and the same engine mirroring, over the port's agent,
-retriever, metrics and ``InferenceEngine``. A multi-replica
-``EngineCluster`` is not ported yet: passing one raises
-``NotImplementedError`` (ROADMAP.md queue A6).
+retriever, metrics and ``InferenceEngine`` or multi-replica
+``EngineCluster`` (serving/cluster.py: a session lands on its intent
+prefix's home replica under the ``intent_affinity`` router).
 
 The paper's setting is a massively parallel Copilot platform ("over 100
 GPT-4-Turbo nodes"); the sequential Table-2 loop (one task to
@@ -34,8 +34,8 @@ Optionally the pipeline mirrors its LLM traffic onto a real
 prefix (the gated system prompt + catalog, see
 ``ScriptedPlanner.serialize_prompt_prefix``), which the engine prefills
 once per intent and reuses across all sessions via its prompt-prefix
-cache — launch/serve_pipeline.py drives this path. The engine's turns
-run at T=0, so the port's sampler draws nothing for them.
+cache — launch/serve_pipeline.py drives this path, on one engine or on
+an ``EngineCluster``. The engine's turns run at T=0.
 """
 from __future__ import annotations
 
@@ -173,18 +173,19 @@ class GeckOptPipeline:
         if tracer is not None and agent.tracer is NULL_TRACER:
             # surface the agent's retrieve/widen spans in the same trace
             agent.tracer = tracer
-        if getattr(engine, "replicas", None) is not None:
-            raise NotImplementedError(
-                "serving the pipeline on an EngineCluster is not ported "
-                "yet (ROADMAP.md queue A6)")
         self.stats = PipelineStats(metrics)
         if engine is not None:
             self.stats.engine_backend = engine.device.type
-            self.stats.engine_replicas = 1
+            # an EngineCluster carries .replicas; a bare engine is 1
+            replicas = getattr(engine, "replicas", None) or [engine]
+            self.stats.engine_replicas = len(replicas)
             self.stats.engine_kv_mode = engine.kv_mode
             self.stats.engine_spec_k = engine.spec_k
-            self.stats.engine_prefill_budget = engine.prefill_budget or 0
-            self.stats.engine_admission = engine.admission
+            # scheduling knobs live on the engine; a cluster's replicas
+            # are homogeneous, so replica 0 speaks for the fleet
+            self.stats.engine_prefill_budget = \
+                replicas[0].prefill_budget or 0
+            self.stats.engine_admission = replicas[0].admission
         self._engine_sessions = []
 
     # ---------------------------------------------------------- stages ----

@@ -1,19 +1,21 @@
 """Token sampling policies.
 
-Port of the JAX package's ``serving/sampling.py``. Greedy (T=0) is
-``argmax``, which gives the JAX tokens whenever the logits agree. T>0
-applies top-k, then a categorical draw from a ``torch.Generator``.
-Per-request ``seed`` streams are deterministic within the port (token i
-of a seeded request draws from a generator seeded by (seed, i)), but they
-are not JAX's threefry bits: seeded T>0 parity with the JAX engine needs
-threefry ported (ROADMAP.md queue A3).
+Port of the JAX package's ``serving/sampling.py``, with JAX's draws:
+greedy (T=0) is ``argmax``; T>0 applies top-k, then the Gumbel-max draw
+of ``jax.random.categorical``, ``argmax(gumbel(key, (1, V)) + logits /
+T)``, with the Gumbel bits of ``serving/prng.py``. So a row sampled with
+a key gives the JAX package's token for that key wherever the two
+packages' logits agree (and wherever they differ by less than the draw's
+top-2 margin).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
+
+from repro_torch.serving.prng import Key, gumbel
 
 
 @dataclass(frozen=True)
@@ -21,24 +23,28 @@ class SamplerConfig:
     temperature: float = 0.0      # 0 => greedy
     top_k: int = 0                # 0 => no top-k truncation
     # Per-request sampling stream. None: the engine draws from its own
-    # generator, so tokens depend on engine seed and admission order. An
-    # int makes token i a pure function of (logits, seed, i).
+    # key, so tokens depend on engine seed and admission order. An int
+    # decouples the request from its engine: token i is sampled with
+    # fold_in(PRNGKey(seed), i), so outputs are a pure function of
+    # (prompt, seed), the property the multi-replica cluster relies on
+    # for exact token parity across routing policies
+    # (serving/cluster.py).
     seed: Optional[int] = None
 
 
-def request_generator(seed: int, i: int) -> torch.Generator:
-    """The generator for token ``i`` of a request seeded with ``seed``."""
-    return torch.Generator().manual_seed((seed * 1_000_003 + i) % (1 << 63))
-
-
-def sample(logits, gen: Optional[torch.Generator], cfg: SamplerConfig):
-    """logits: (B, V) fp32 -> token ids (B,) int64 (on the CPU)."""
+def sample(logits, keys: Optional[Sequence[Key]], cfg: SamplerConfig):
+    """logits: (B, V) -> token ids (B,) int64 on the CPU. At T>0 row b
+    draws with ``keys[b]`` over its own counters 0..V-1: the JAX
+    package's ``sample(logits[b:b + 1], keys[b], cfg)``. ``keys`` is
+    unused at T<=0."""
     if cfg.temperature <= 0.0:
         return torch.argmax(logits, dim=-1).cpu()
-    scaled = logits.float().cpu() / cfg.temperature
+    if len(keys) != logits.shape[0]:
+        raise ValueError(f"{len(keys)} keys for {logits.shape[0]} rows")
+    scaled = logits.float() / cfg.temperature
     if cfg.top_k > 0:
         kth = torch.sort(scaled, dim=-1).values[:, -cfg.top_k][:, None]
         scaled = torch.where(scaled < kth, torch.full_like(scaled, -1e30),
                              scaled)
-    probs = torch.softmax(scaled, dim=-1)
-    return torch.multinomial(probs, 1, generator=gen)[:, 0]
+    noise = gumbel(keys, scaled.shape[-1], scaled.device)
+    return torch.argmax(noise + scaled, dim=-1).cpu()

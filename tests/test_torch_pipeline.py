@@ -159,11 +159,18 @@ def test_pipeline_with_engine_equals_the_reference(pair):
 
 
 def test_pipeline_refuses_a_cluster(world, intent_map):
-    class FakeCluster:
-        replicas = [object(), object()]
-
-    with pytest.raises(NotImplementedError, match="A6"):
-        GeckOptPipeline(_agent(world, intent_map), engine=FakeCluster())
+    """The refusal is lifted since the cluster was ported: a cluster is
+    taken, its replica count and replica 0's scheduling knobs recorded
+    (tests/test_torch_cluster.py serves a real one)."""
+    cluster = SimpleNamespace(
+        device=torch.device("cpu"), kv_mode="paged", spec_k=3,
+        replicas=[SimpleNamespace(prefill_budget=64, admission="slack"),
+                  SimpleNamespace(prefill_budget=None, admission="fifo")])
+    summ = GeckOptPipeline(_agent(world, intent_map),
+                           engine=cluster).stats.summary()
+    assert (summ["engine_replicas"], summ["engine_kv_mode"],
+            summ["engine_spec_k"], summ["engine_prefill_budget"],
+            summ["engine_admission"]) == (2, "paged", 3, 64, "slack")
 
 
 # -------------------------------------------------------------- launchers --
@@ -186,8 +193,16 @@ def test_serve_with_retrieval_runs_on_the_cpu(capsys):
     (["--kv-blocks", "8"], "paged"),
     (["--retriever-k", "0"], "--retriever-k"),
     (["--spec-decode", "--draft-k", "0"], "--draft-k"),
+    (["--replicas", "0"], "--replicas"),
+    (["--replicas", "2", "--router", "random"], "--router"),
 ])
 def test_serve_pipeline_refusals(argv, msg, capsys):
+    if msg == "A6":
+        # refused until the cluster (queue A6) was ported: parses now
+        args = SP.parse_args(argv)
+        assert (args.replicas, args.router) == (
+            2 if "--replicas" in argv else 1, "intent_affinity")
+        return
     with pytest.raises(SystemExit):
         SP.parse_args(argv)
     assert msg in capsys.readouterr().err
@@ -222,3 +237,22 @@ def test_serve_pipeline_cpu_run_equals_the_sequential_harness(capsys):
     assert st["prefix_hits"] == res["pipeline"]["engine_turns"] == 5
     assert st["prefix_registrations"] == len(res["prefixes"])
     assert len(res["gate_wave_ms"]) == res["pipeline"]["gate_batches"]
+
+
+def test_serve_pipeline_on_a_cluster_gives_the_single_engine_row(capsys):
+    """``--replicas 2 --router intent_affinity``: the same Table-2 row and
+    gate decisions as one engine, every turn a prefix hit, the turns
+    spread over the replicas."""
+    base = ["--device", "cpu", "--smoke", "--requests", "5",
+            "--concurrency", "3"]
+    one = SP.main(base)
+    res = SP.main(base + ["--replicas", "2", "--router", "intent_affinity"])
+    out = capsys.readouterr().out
+    assert "2 replica(s) x 4 slots" in out and "replica 1:" in out
+    assert res["row"] == one["row"]
+    assert res["decisions"] == one["decisions"]
+    assert res["pipeline"]["engine_replicas"] == 2
+    st = res["stats"]
+    assert st["prefix_hits"] == res["pipeline"]["engine_turns"] == 5
+    assert sum(r["admissions"] for r in st["per_replica"]) == 5
+    assert sorted(res["prefixes"]) == sorted(one["prefixes"])

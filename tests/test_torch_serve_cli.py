@@ -1,6 +1,7 @@
 """The port's serve launcher: the JAX launcher's surface plus
-``--device``, unported flags refused before any model is built, and one
-tiny CPU run at the smoke config."""
+``--device``, invalid combinations refused before any model is built as
+the JAX launcher refuses them, and tiny CPU runs at the smoke config,
+one engine and a two-replica cluster."""
 import jax
 import numpy as np
 import pytest
@@ -9,6 +10,7 @@ import torch
 from repro.configs import get_smoke_config as jax_smoke
 from repro.models.model import init_params as jax_init
 from repro.training.checkpoint import save_checkpoint
+from repro.launch import serve as jax_serve
 from repro_torch.launch.serve import build_parser, main, validate_args
 
 
@@ -21,7 +23,7 @@ def test_defaults_match_jax_launcher():
     from repro.launch.serve import build_parser as jax_parser
     ours = vars(parse([]))
     theirs = vars(jax_parser().parse_args([]))
-    shared = set(theirs) - {"backend", "router", "profile", "skew", "turns"}
+    shared = set(theirs) - {"backend"}
     assert {k: ours[k] for k in shared} == {k: theirs[k] for k in shared}
     assert ours["device"] is None and set(ours) == shared | {"device"}
 
@@ -38,8 +40,18 @@ def test_valid_combinations_parse(argv):
     parse(argv)
 
 
-#: flags once refused here that a later slice ported (retrieval)
-OPENED = ("--retriever-k",)
+#: flags once refused here as not ported that later slices ported
+#: (retrieval, the cluster)
+OPENED = ("--retriever-k", "--replicas", "--sla-spill")
+
+
+def jax_refuses(argv) -> bool:
+    ap = jax_serve.build_parser()
+    try:
+        jax_serve.validate_args(ap, ap.parse_args(argv))
+    except SystemExit:
+        return True
+    return False
 
 
 @pytest.mark.parametrize("argv,msg", [
@@ -57,17 +69,24 @@ def test_unported_flags_refused(argv, msg, capsys):
                                 else "dense")
         assert args.spec_decode == ("--spec-decode" in argv)
         return
-    if msg in OPENED:
-        # ported since: parses as the JAX launcher's flag
-        args = parse(argv)
+    assert msg in OPENED
+    # ported since: parses, or is refused, as the JAX launcher's flag
+    if jax_refuses(argv):
+        # --sla-spill alone: router-level spill needs two replicas
+        with pytest.raises(SystemExit):
+            parse(argv)
+        err = capsys.readouterr().err
+        assert msg in err and "not ported" not in err
+        argv = argv + ["--replicas", "2"]
+        assert not jax_refuses(argv)
+    args = parse(argv)
+    if msg == "--retriever-k":
         assert args.retriever_k == 4
         assert args.catalog_size == (64 if "--catalog-size" in argv
                                      else None)
-        return
-    with pytest.raises(SystemExit):
-        parse(argv)
-    err = capsys.readouterr().err
-    assert msg in err and "not ported yet" in err
+    else:
+        assert args.replicas == 2 and args.router == "intent_affinity"
+        assert args.sla_spill == (msg == "--sla-spill")
 
 
 @pytest.mark.parametrize("argv", [
@@ -81,10 +100,15 @@ def test_unported_flags_refused(argv, msg, capsys):
     ["--admission", "lifo"],
     ["--catalog-size", "64"],                # no gate: needs --retriever-k
     ["--retriever-k", "0"],
+    ["--skew", "1.5"],
+    ["--router", "random"],
+    ["--profile", "zipf"],
+    ["--replicas", "2", "--retriever-k", "4"],   # cluster: intent workload
 ])
 def test_invalid_combinations_error(argv):
     with pytest.raises(SystemExit):
         parse(argv)
+    assert argv[0] == "--backend" or jax_refuses(argv)
 
 
 def test_cpu_smoke_run(capsys, tmp_path):
@@ -145,3 +169,24 @@ def test_default_device_needs_a_card():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="CUDA device"):
         main(["--smoke", "--requests", "1"])
+
+
+def test_cluster_runs_serve_the_same_tokens_under_every_router(capsys):
+    """``--replicas 2`` on the CPU: the seeded T = 0.8 workload gives the
+    same tokens under each router and with SLA spill; affinity keeps
+    every turn on its prefix's home replica."""
+    base = ["--device", "cpu", "--smoke", "--requests", "6", "--max-new",
+            "3", "--max-batch", "2", "--cache-len", "128", "--temperature",
+            "0.8", "--replicas", "2", "--profile", "bursty", "--skew",
+            "0.7", "--turns", "2"]
+    runs = {r: main(base + ["--router", r]) for r in
+            ("round_robin", "least_loaded", "intent_affinity")}
+    runs["sla_spill"] = main(base + ["--sla-spill"])
+    out = capsys.readouterr().out
+    assert "cluster[2x2 slots, router=intent_affinity]" in out
+    assert "replica 1:" in out and "prefix-hit ratio" in out
+    ref = runs["round_robin"]["outputs"]
+    assert len(ref) == runs["round_robin"]["summary"]["requests"] > 6
+    assert all(r["outputs"] == ref for r in runs.values())
+    assert runs["intent_affinity"]["summary"]["prefix_hit_ratio"] == 1.0
+    assert runs["round_robin"]["summary"]["prefix_hit_ratio"] < 1.0
