@@ -2,7 +2,7 @@
 
   python3 chip_smoke.py [--kernels-only]
 
-Builds the port's eight Hopper kernels from ``src/repro_torch/csrc/``
+Builds the port's nine Hopper kernels from ``src/repro_torch/csrc/``
 and checks that flash_prefill's SASS runs on the tensor cores (HGMMA
 instructions at every head dim, ``cuobjdump -sass``), then holds each
 kernel against its plain PyTorch version on the card: the attention
@@ -36,7 +36,13 @@ instances' registers (no spills, no stack frame); flash_prefill's
 device time a call at the serve runs' 14-token prompts (the planner's,
 kimi-k2's and hymba's heads) and at the intent gate's shapes (64, 128
 and 256 rows of a causal 64-token forward at the planner's heads, with
-SDPA's device time beside it). Then it serves
+SDPA's device time beside it); flash_prefill's backward
+(``flash_prefill_bwd``, which has no TPU counterpart) against its plain
+version (autograd through the plain forward) at the planner's training
+shapes (8 x 256 and 16 x 64), a 1,024-token row, kimi-k2's heads, head
+dim 32, a window and a softcap, with the same sha256 on a second call,
+its device time a call (by pass at the training shape) beside SDPA's
+backward, and its three passes' registers and spills. Then it serves
 planner-proxy-100m at full width through the launcher's serving
 function (dense monolithic and chunked, paged, speculative dense and
 paged, ``--draft-k 21`` (66 verify rows per kv head), paged with a pool
@@ -68,7 +74,17 @@ sequential harness's with the single-query gate, every engine turn must
 ride a prefix prefilled once, and a prefix hit's tokens must equal a
 full prefill's; the gated run again on a 4-replica intent-affinity
 cluster, whose row and gate decisions must be the single engine's; then
-the gate's losses on the card against the CPU's for 8 queries. Then the
+the gate's losses on the card against the CPU's for 8 queries. Then
+training at the planner's full width: ``launch.train`` for 30 steps of
+8 x 256 tokens without and with remat (the loss must fall, remat must
+equal no remat bitwise in every loss and parameter, flash_prefill must
+launch once a layer a step (twice with remat) and its backward once),
+with ms a step, tok/s, peak memory and one profiled step's busy share;
+one train_loss and its gradients on the card against the CPU; and the
+GeckOpt gate trained by ``launch.train_planner --full``, its accuracy on
+48 held-out tasks and its Table-2 row against the ungated agent, its
+checkpoint reloaded into a fresh model (the same batched decisions) and
+served by ``launch.serve --checkpoint``. Then the
 MoE families at their published widths with the depth cut
 (kimi-k2-1t-a32b: its dense first layer and one MoE layer of 384 experts
 top-8; arctic-480b: one MoE layer of 128 experts top-2), through the
@@ -123,6 +139,18 @@ Tolerances:
     plain version multiplies in fp32), about one bf16 rounding of each
     p, inside the same tolerance;
   * flash_prefill's rows in prefill and in extend: bitwise;
+  * flash_prefill_bwd vs its plain version (bf16 out, fp32 inside):
+    |kernel - plain| <= 2e-2 + 2e-2 * |plain| (BWD_ATOL, BWD_RTOL),
+    twice the forward's: the kernel recomputes p in fp32 but takes
+    D = rowsum(dO O) from the forward kernel's output, whose P V rounds
+    P to bf16, while the plain version differentiates its own fp32
+    forward; the gradients reach |dk| ~ 8, where one bf16 step is
+    0.031. Two calls: the same bits (no atomics, fixed sum orders);
+  * training: remat vs no remat, bitwise (every loss and parameter);
+    card vs CPU, one loss of the full-width planner within
+    TRAIN_LOSS_TOL = 0.05 (the forward's bf16 roundings over 12 layers,
+    then an fp32 logsumexp), each gradient leaf's relative error
+    reported;
   * within the decode family (decode, paged decode, verify, paged
     verify): bitwise (``torch.equal``), by design: the four kernels run
     one routine (decode_warp.cuh), whose per-row arithmetic does not
@@ -1628,6 +1656,288 @@ def geckopt_phases():
     emit("geckopt_gate_card_vs_cpu", **gate_card_vs_cpu(cfg, model, queries))
     return runs
 
+# ------------------------------------------------------------ training ----
+
+# flash_prefill's backward against its plain version (autograd through
+# attention_ref): recomputed fp32 p, and D from the forward kernel's bf16
+# output (whose P V rounds P to bf16)
+BWD_ATOL = BWD_RTOL = 2e-2
+# (B, S, (Hq, Hkv, hd), window, cap, family): the planner's train shapes
+# (launch.train's 8 x 256, train_planner's 16 x 64), a 1,024-token row,
+# kimi-k2's heads at head dim 128, head dim 32, a window and a softcap
+BWD_CASES = [(8, 256, (HQ, HKV, HD), 0, 0.0, "train"),
+             (16, 64, (HQ, HKV, HD), 0, 0.0, "gate"),
+             (1, 1024, (HQ, HKV, HD), 0, 0.0, "long"),
+             (1, 512, MOE_HEADS["kimi"] + (128,), 0, 0.0, "kimi"),
+             (2, 256, (HQ, HKV, 32), 0, 0.0, "hd32"),
+             (2, 512, (HQ, HKV, HD), 100, 0.0, "window"),
+             (2, 256, (HQ, HKV, HD), 0, 30.0, "cap")]
+BWD_PASSES = ("bwd_rows_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")
+
+
+def bwd_case(gen, B, S, heads, window, cap, family):
+    """flash_prefill_bwd against attention_bwd_ref on the forward
+    kernel's output: every dq, dk, dv within BWD_ATOL + BWD_RTOL |plain|,
+    each output's relative norm error, the same sha256 on a second call;
+    its CUDA-event and device times (the train shape also by pass) beside
+    the plain version's, SDPA's backward (none under a cap) and the
+    bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_prefill import flash_prefill, \
+        flash_prefill_bwd
+    from repro_torch.kernels.ref import attention_bwd_ref
+    from repro_torch.launch.decode_bench import digest
+    Hq, Hkv, hd = heads
+    q, k, v = _mk(gen, B, Hq, S, hd), _mk(gen, B, Hkv, S, hd), \
+        _mk(gen, B, Hkv, S, hd)
+    dout = _mk(gen, B, Hq, S, hd)
+    kw = dict(causal=True, window=window, cap=cap)
+    out = flash_prefill(q, k, v, **kw)
+    run = lambda: flash_prefill_bwd(q, k, v, out, dout, **kw)
+    got, again = run(), run()
+    ref = attention_bwd_ref(q, k, v, dout, **kw)
+    err, rel = {}, {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        check(bool(torch.isfinite(a.float()).all()), f"bwd {family}: "
+                                                     f"non-finite {name}")
+        diff = (a.float() - b.float()).abs()
+        err[name] = float(diff.max())
+        rel[name] = float((a.float() - b.float()).norm()
+                          / b.float().norm())
+        check(bool((diff <= BWD_ATOL + BWD_RTOL * b.float().abs()).all()),
+              f"bwd {family}: {name} differs from the plain version by "
+              f"{err[name]}")
+    bits = [digest(t) for t in got]
+    check(bits == [digest(t) for t in again],
+          f"bwd {family}: two calls give other bits")
+    pos = torch.arange(S, device="cuda")
+    mask = pos[None, :] <= pos[:, None]
+    if window:
+        mask &= pos[:, None] - pos[None, :] < window
+    pairs = B * int(mask.sum())                   # visible (q, k) a head
+    # five hd-long products a visible pair and q head; q, o, dout, k, v
+    # read once, dq, dk, dv written once
+    b_ms, b_by = bound(2 * hd * B * (4 * Hq * S + 4 * Hkv * S),
+                       10 * hd * Hq * pairs)
+    res = dict(family=family, B=B, S=S, heads=list(heads), window=window,
+               cap=cap, max_abs_err=max(err.values()), err=err,
+               rel_norm_err=rel, bits=bits, ms=cuda_ms(run),
+               device_ms=device_ms(run),
+               plain_ms=cuda_ms(lambda: attention_bwd_ref(q, k, v, dout,
+                                                          **kw), iters=3),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None,
+               library_device_ms=None)
+    if family == "train":
+        res["pass_device_ms"] = {p: device_ms(run, p) for p in BWD_PASSES}
+    if not cap:
+        qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+        o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                           enable_gqa=True)
+        lib = lambda: torch.autograd.grad(o, (qs, ks, vs), dout,
+                                          retain_graph=True)
+        res["library_ms"] = cuda_ms(lib)
+        res["library_device_ms"] = device_ms(lib)
+    return res
+
+
+def bwd_cases(gen, build_log: str):
+    """The backward at BWD_CASES and its three passes' registers and
+    spills by head dim (``-Xptxas -v``)."""
+    ptxas = {p: ptxas_instances(build_log, p) for p in BWD_PASSES}
+    return [bwd_case(gen, *c) for c in BWD_CASES], ptxas
+
+
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARM = 30, 8, 256, 5
+TRAIN_LOSS_TOL = 0.05
+GATE_CKPT = ROOT / "build" / "planner_gate.npz"
+
+
+def _train_args(steps: int, remat: bool, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    from repro_torch.launch.train import parse_args
+    return parse_args(["--steps", str(steps), "--batch", str(batch),
+                       "--seq", str(seq), "--log-every", "10"]
+                      + (["--remat"] if remat else []))
+
+
+def _profile_train_step(cfg, model):
+    """One more train step (fresh optimizer state) under torch.profiler:
+    its wall ms, device busy ms and share, and the device time of its
+    heaviest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.training.data import PackedLMDataset, synthetic_docs
+    from repro_torch.training.loop import make_train_step
+    from repro_torch.training.optimizer import adamw_init
+    step = make_train_step(cfg, lr=3e-4, remat=False)
+    opt = adamw_init(model)
+    batch = next(PackedLMDataset(synthetic_docs(cfg.vocab_size, seed=3),
+                                 TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size))
+    step(model, opt, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(model, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages() if "CUDA" in str(e.device_type)]
+    dev_t = lambda e: getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0.0))
+    busy = sum(dev_t(e) for e in dev) / 1e3
+    top = sorted(dev, key=dev_t, reverse=True)[:8]
+    return dict(wall_ms=1e3 * wall, busy_ms=busy,
+                busy_share=busy / (1e3 * wall),
+                kernels=sum(e.count for e in dev),
+                top=[dict(name=e.key[:80], ms=dev_t(e) / 1e3, count=e.count)
+                     for e in top])
+
+
+def train_card(cfg):
+    """``launch.train`` at full width, TRAIN_STEPS steps of TRAIN_BATCH x
+    TRAIN_SEQ tokens from seed 0's weights, without and with remat: the
+    last loss below the first, each kernel's launches a step (flash
+    prefill once a layer, twice with remat; its backward once a layer),
+    ms a step past TRAIN_WARM steps, tok/s, peak memory; remat and no
+    remat bitwise equal in every loss and parameter; one profiled
+    step."""
+    from repro_torch.kernels import backend as KB
+    from repro_torch.launch.train import train_run
+    from repro_torch.models.model import count_params, init_params
+    runs, models = {}, {}
+    for remat in (False, True):
+        model = init_params(cfg, seed=0,
+                            device="cuda").requires_grad_(True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        KB.reset_launches()
+        res = train_run(cfg, model, _train_args(TRAIN_STEPS, remat))
+        counts = KB.launch_counts()
+        per_step = {k: n / TRAIN_STEPS for k, n in counts.items() if n}
+        name = "remat" if remat else "no_remat"
+        layers = cfg.n_layers
+        check(per_step.get("flash_prefill_bwd") == layers
+              and per_step.get("flash_prefill")
+              == layers * (2 if remat else 1),
+              f"train {name}: launches a step {per_step}")
+        losses = res["losses"]
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"train {name}: loss {losses[0]} -> {losses[-1]}")
+        steady = res["step_ms"][TRAIN_WARM:]
+        ms = sum(steady) / len(steady)
+        runs[name] = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                          seq=TRAIN_SEQ, params=count_params(model),
+                          losses=losses, ms_per_step=ms,
+                          step_ms=res["step_ms"],
+                          tok_s=TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+                          launches=counts, launches_per_step=per_step,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                          peak_over_base_gb=(torch.cuda.max_memory_allocated()
+                                             - base) / 1e9,
+                          seconds=res["seconds"])
+        models[remat] = model
+    a, b = runs["no_remat"]["losses"], runs["remat"]["losses"]
+    first_loss = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                      None)
+    pb = dict(models[True].named_parameters())
+    first_leaf = next((n for n, p in models[False].named_parameters()
+                       if not torch.equal(p, pb[n])), None)
+    check(first_loss is None and first_leaf is None,
+          f"train: remat differs from no remat (first loss {first_loss}, "
+          f"first leaf {first_leaf})")
+    runs["remat_equal"] = True
+    runs["profile"] = _profile_train_step(cfg, models[False])
+    return runs
+
+
+def train_card_vs_cpu(cfg):
+    """One full-width train_loss and its gradients (B 2 x S 64, seed 0's
+    weights, drawn on the CPU for both) on the card and on the CPU: the
+    losses within TRAIN_LOSS_TOL; each leaf's relative gradient error
+    reported."""
+    from repro_torch.models.model import init_params, train_loss
+    from repro_torch.training.data import PackedLMDataset, synthetic_docs
+    batch = next(PackedLMDataset(synthetic_docs(cfg.vocab_size, seed=1), 2,
+                                 64, cfg.vocab_size))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = init_params(cfg, seed=0,
+                            device=dev).requires_grad_(True)
+        params = dict(model.named_parameters())
+        t0 = time.time()
+        loss = train_loss(model, batch, remat=False)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        out[dev] = (float(loss.detach()), {n: g.float().cpu() for n, g in
+                                           zip(params, grads)},
+                    time.time() - t0)
+    diff = abs(out["cuda"][0] - out["cpu"][0])
+    check(diff <= TRAIN_LOSS_TOL, f"train: card vs CPU loss differ by "
+                                  f"{diff}")
+    rel = {n: float((g - out["cpu"][1][n]).norm()
+                    / out["cpu"][1][n].norm().clamp(min=1e-30))
+           for n, g in out["cuda"][1].items()}
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    return dict(config=cfg.name, B=2, S=64, loss_card=out["cuda"][0],
+                loss_cpu=out["cpu"][0], loss_diff=diff, tol=TRAIN_LOSS_TOL,
+                grad_rel_err_max=max(rel.values()),
+                grad_rel_err_median=float(np.median(list(rel.values()))),
+                grad_rel_err_worst=worst, grad_rel_err=rel,
+                cpu_seconds=out["cpu"][2])
+
+
+def gate_training(cfg):
+    """``launch.train_planner --full`` on the card: the gate's accuracy on
+    the 48 held-out tasks and its Table-2 row against the ungated agent;
+    its checkpoint reloaded into a fresh model (``load_checkpoint``) gives
+    the in-memory gate's batched decisions on those tasks; ``launch.serve
+    --checkpoint`` serves 4 requests from it."""
+    from repro_torch.env.tasks import make_benchmark
+    from repro_torch.env.world import build_world
+    from repro_torch.kernels import backend as KB
+    from repro_torch.launch import train_planner as TP
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.serving.neural_planner import \
+        BatchedNeuralIntentClassifier
+    from repro_torch.training.checkpoint import load_checkpoint
+    KB.reset_launches()
+    res = TP.main(["--full", "--checkpoint", str(GATE_CKPT)])
+    counts = KB.launch_counts()
+    check(counts["flash_prefill_bwd"] == res["steps"] * cfg.n_layers,
+          f"gate training: {counts['flash_prefill_bwd']} backward launches")
+    check(all(np.isfinite(res["losses"])), "gate training: loss not finite")
+    tasks = make_benchmark(build_world(0), res["eval_tasks"], seed=2)
+    loaded = load_checkpoint(str(GATE_CKPT), cfg, "cuda")
+    again = [d[0] for d in BatchedNeuralIntentClassifier(cfg, loaded)
+             .classify_batch([t.query for t in tasks])]
+    check(again == res["decisions"], "gate: the reloaded checkpoint decides "
+                                     "otherwise")
+    served = serve_main(["--checkpoint", str(GATE_CKPT), "--requests", "4",
+                         "--max-new", "8", "--temperature", "0"])
+    check(served["requests"] == 4, "gate: serve --checkpoint failed")
+    return dict({k: v for k, v in res.items() if k != "decisions"},
+                loss_first=res["losses"][0], loss_last=res["losses"][-1],
+                launches=counts, reloaded_decisions_equal=True,
+                served_requests=served["requests"],
+                checkpoint_mb=GATE_CKPT.stat().st_size / 2 ** 20)
+
+
+def training_phases():
+    """The planner's training at full width: launch.train on the card
+    (remat and not), the card against the CPU, and the GeckOpt gate
+    trained, reloaded and served. Returns the runs."""
+    from repro_torch.configs import get_config
+    cfg = get_config(ARCH)
+    t0 = time.time()
+    runs = train_card(cfg)
+    for name in ("no_remat", "remat", "profile"):
+        emit(f"train_card_{name}", **runs[name])
+    runs["vs_cpu"] = train_card_vs_cpu(cfg)
+    emit("train_card_vs_cpu", **runs["vs_cpu"])
+    runs["gate"] = gate_training(cfg)
+    emit("gate_training", **runs["gate"])
+    emit("training_elapsed", seconds=time.time() - t0)
+    return runs
+
+
 # ---------------------------------- the sampler and the replica cluster ----
 
 SAMPLER_ROWS, SAMPLER_VOCAB, SAMPLER_T = 64, 8192, 0.8
@@ -2213,7 +2523,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.flash_decode_paged import flash_decode_paged
-    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.flash_prefill import flash_prefill, \
+        flash_prefill_bwd
     from repro_torch.kernels.flash_verify import flash_verify, \
         flash_verify_paged
     from repro_torch.kernels.moe_router import moe_router_topk
@@ -2275,6 +2586,12 @@ def main(argv=None) -> int:
         torch.Generator(device="cuda").manual_seed(2))
     for c in pre_gate:
         emit("kernel_prefill_gate", **c)
+    # the backward's cases, profiled early too, on their own draws
+    bwd, bwd_ptxas = bwd_cases(torch.Generator(device="cuda").manual_seed(3),
+                               logs["flash_prefill_bwd"])
+    emit("build_prefill_bwd_ptxas", **bwd_ptxas)
+    for c in bwd:
+        emit("kernel_prefill_bwd", **c)
     dec = [decode_case(KV_LENS, CACHE, gen)]
     for c in dec:
         emit("kernel_decode", **c)
@@ -2321,6 +2638,7 @@ def main(argv=None) -> int:
 
     runs, cluster = planner_phases()
     geckopt = geckopt_phases()
+    train = training_phases()
     moe = moe_phases()
     hymba = hymba_phases()
     xlstm = xlstm_phases()
@@ -2363,6 +2681,25 @@ def main(argv=None) -> int:
         # every run of the replica cluster together
         rows[-1]["cluster_launches"] = sum(
             r["launches"][fn.__name__] for r in cluster.values())
+    # the training run (launch.train, 30 steps, no remat)
+    rows[0]["train_launches"] = \
+        train["no_remat"]["launches"]["flash_prefill"]
+    # flash_prefill's backward: launches of that training run; times at its
+    # shape (8 x 256 at the planner's heads), device times by profiler
+    c = next(c for c in bwd if c["family"] == "train")
+    rows.append({"name": flash_prefill_bwd.__name__, "route": "cuda",
+                 "source": "src/repro_torch/csrc/flash_prefill_bwd.cu",
+                 "replaces": "none: no TPU kernel (the gradient of "
+                             "src/repro/kernels/flash_prefill.py:84, which "
+                             "the JAX package takes by jax.grad of its "
+                             "reference attention)",
+                 "launches": train["no_remat"]["launches"][
+                     "flash_prefill_bwd"],
+                 "max_abs_err": max(x["max_abs_err"] for x in bwd),
+                 "ms": c["ms"], "plain_ms": c["plain_ms"],
+                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                 "library_ms": c["library_ms"], "device_ms": c["device_ms"],
+                 "library_device_ms": c["library_device_ms"]})
     # the router: launches of the kimi-k2 dense serve; times at its decode
     # shape there (8 slots, 384 experts, top-8), with its device time a
     # call and the launch floor

@@ -5,14 +5,20 @@ The op names and call signatures are those of the JAX package's
 names. There is no backend switch: every op dispatches by the device of
 its tensors. A CUDA tensor goes to the hand-written Hopper kernel, a CPU
 tensor to the kernel's plain PyTorch version; nothing falls back.
+``attention`` with grad enabled goes through ``flash_prefill``'s
+autograd Function, whose backward is a kernel too (``flash_prefill_bwd``,
+no op of its own: the JAX package differentiates its reference).
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import torch
+
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.flash_decode_paged import flash_decode_paged
-from repro_torch.kernels.flash_prefill import flash_prefill
+from repro_torch.kernels.flash_prefill import FlashPrefillFn, \
+    flash_prefill, flash_prefill_bwd
 from repro_torch.kernels.flash_verify import flash_verify, \
     flash_verify_paged
 from repro_torch.kernels.mlstm_scan import mlstm_scan as _mlstm_scan
@@ -43,7 +49,8 @@ OPS: Tuple[str, ...] = tuple(OP_SURFACE)
 
 #: every ported kernel wrapper; each counts its launches in ``.launches``
 KERNELS = (flash_prefill, flash_decode, flash_decode_paged, flash_verify,
-           flash_verify_paged, moe_router_topk, ssm_scan, _mlstm_scan)
+           flash_verify_paged, moe_router_topk, ssm_scan, _mlstm_scan,
+           flash_prefill_bwd)
 
 
 def reset_launches() -> None:
@@ -57,6 +64,12 @@ def launch_counts() -> Dict[str, int]:
 
 def attention(q, k, v, *, causal=True, window=0, cap=0.0, scale=0.0,
               q_offset=0):
+    """With grad enabled and an input requiring it, the kernel's backward
+    (``flash_prefill_bwd``) is its gradient; otherwise the direct call."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashPrefillFn.apply(q, k, v, causal, window, cap, scale,
+                                    q_offset)
     return flash_prefill(q, k, v, causal=causal, window=window, cap=cap,
                          scale=scale, q_offset=q_offset)
 

@@ -2,11 +2,12 @@
 
 Ports of the oracles of the JAX package's ``kernels/ref.py`` for the
 attention kernels (dense, decode, paged decode, verify, paged verify),
-the MoE router and the selective scan: they materialise the full fp32
-score matrix (or probability row, or step the scan one timestep at a
-time) and are correctness references, not fast paths. On a CPU tensor
-the kernel wrappers run these; on the card they are what
-``chip_smoke.py`` holds the kernels against. The mLSTM scan's oracle
+the MoE router and the selective scan, and the gradient of the dense
+attention (``attention_bwd_ref``, by autograd): they materialise the
+full fp32 score matrix (or probability row, or step the scan one
+timestep at a time) and are correctness references, not fast paths.
+On a CPU tensor the kernel wrappers run these; on the card they are
+what ``chip_smoke.py`` holds the kernels against. The mLSTM scan's oracle
 comes with its kernel.
 """
 from __future__ import annotations
@@ -64,6 +65,19 @@ def attention_ref(q, k, v, *, causal=True, window=0, cap=0.0, kv_len=None,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v.float())
     return out.reshape(B, Hq, Sq, hd).to(q.dtype)
+
+
+def attention_bwd_ref(q, k, v, dout, *, causal=True, window=0, cap=0.0,
+                      q_offset=0, scale=0.0):
+    """The gradient of ``attention_ref`` (prefill: no ``kv_len``): dq, dk,
+    dv of ``dout`` (q's shape) by ``torch.autograd.grad`` through the
+    plain forward, in the inputs' dtypes. The plain version of
+    ``flash_prefill``'s backward kernel."""
+    with torch.enable_grad():
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = attention_ref(qg, kg, vg, causal=causal, window=window,
+                            cap=cap, q_offset=q_offset, scale=scale)
+        return torch.autograd.grad(out, (qg, kg, vg), dout.to(out.dtype))
 
 
 def decode_attention_ref(q, k_cache, v_cache, kv_len, *, cap=0.0,

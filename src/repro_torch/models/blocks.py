@@ -22,9 +22,11 @@ runs:
   mode="verify"  speculative verify: W = K+1 tokens per slot at per-slot
                  positions [pos_b, pos_b + W), dense or paged
   mode="train"   the JAX package's full-sequence training forward with no
-                 cache, forward only (under ``torch.no_grad()``) and for
-                 the ``"full"`` kind only: the intent gate scores
-                 (query, intent) rows with it (serving/neural_planner.py)
+                 cache, for the ``"full"`` kind only: the intent gate
+                 scores (query, intent) rows with it under
+                 ``torch.no_grad()`` (serving/neural_planner.py), and
+                 ``model.train_loss`` differentiates it (its attention's
+                 gradient is ``flash_prefill``'s backward kernel)
 
 JAX arrays are immutable; here the extend, decode and verify writes
 update the cache tensors IN PLACE (the engine clones a shared prefix
@@ -50,8 +52,9 @@ capacity (8) never drops a choice. The JAX package's verify routes all W
 rows as one group with capacity(W), which can drop choices once W > 8;
 at W <= 8 the two agree. Train mode runs prefill's arithmetic (the
 fixed-size row calls, so a row's bits do not depend on the batch) and
-keeps no K/V; a backward and every other kind raise
-``NotImplementedError`` naming the slice that brings them.
+keeps no K/V; over every kind but ``"full"`` it raises
+``NotImplementedError`` naming the queue item that brings it (A11.2:
+each of those kinds needs a backward kernel of its own).
 
 A sliding-window layer (``"hymba_w"``) keeps a ring of
 ``Sc = min(window, cache_len)`` rows: prefill attends over the window
@@ -226,8 +229,8 @@ def _ring_from_prefill(k, Sc: int):
 
 def _attn_sublayer(p: Block, x, cfg: ModelConfig, mode: str, cache, pos,
                    positions, block_tab, plan):
-    """Attention sub-layer of prefill, extend, decode and the forward-only
-    train mode. Returns (y, cache)."""
+    """Attention sub-layer of prefill, extend, decode and train mode.
+    Returns (y, cache)."""
     fixed = mode in FIXED_MODES
     window = cfg.window if p.kind in WINDOW_KINDS else 0
     if window and mode == "extend":
@@ -349,8 +352,8 @@ def _verify_block(p: Block, x, cfg: ModelConfig, cache, pos, positions,
 
 def _mode_not_ported(mode: str, what: str = "train") -> NotImplementedError:
     return NotImplementedError(
-        f"mode {mode!r}: {what} comes with the training slice (ROADMAP.md "
-        f"queue A11)")
+        f"mode {mode!r}: {what} comes with the training of the other "
+        f"families (ROADMAP.md queue A11.2)")
 
 
 def _xlstm_block(p: Block, x, cfg: ModelConfig, mode: str, cache):
@@ -386,8 +389,6 @@ def block_apply(p: Block, x, cfg: ModelConfig, *, mode: str, cache,
         raise _mode_not_ported(mode)
     if mode == "train" and p.kind != "full":
         raise _mode_not_ported(mode, f"train over {p.kind!r} layers")
-    if mode == "train" and torch.is_grad_enabled():
-        raise _mode_not_ported(mode, "a backward (train with grad)")
     if p.kind in XLSTM_KINDS:
         return _xlstm_block(p, x, cfg, mode, cache)
     if mode == "verify":

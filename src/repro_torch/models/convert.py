@@ -1,4 +1,5 @@
-"""Weight bridge: the JAX package's params into the port's ``Model``.
+"""Weight bridge: the JAX package's params into the port's ``Model``,
+and back.
 
 The JAX params tree (``models/model.py:34-65`` there) is nested dicts and
 lists whose layer leaves carry a leading stacked axis R per segment:
@@ -25,7 +26,8 @@ bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
 bf16 value exactly, and are cast back. ``load_jax_checkpoint`` reads the
 path-keyed npz that the JAX package's ``training/checkpoint.py`` writes
 (bf16 stored as fp32) with numpy alone. fp32 leaves are copied as they
-are, bit for bit.
+are, bit for bit. ``params_to_numpy`` is the inverse: a model's
+weights as that tree, layer leaves stacked over R, bf16 as fp32.
 """
 from __future__ import annotations
 
@@ -121,3 +123,45 @@ def load_jax_checkpoint(path: str) -> Dict[str, Any]:
             return [out[str(i)] for i in range(len(out))]
         return out
     return listify(root)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _put(tree: Dict[str, Any], path, leaf) -> None:
+    for part in path[:-1]:
+        tree = tree.setdefault(part, {})
+    tree[path[-1]] = leaf
+
+
+def params_to_numpy(model: Model) -> Dict[str, Any]:
+    """The JAX params tree of ``model``'s weights, numpy leaves:
+    ``segments[si][ui]`` holds each leaf of unit kind ui stacked over the
+    segment's R layers; bf16 leaves as fp32 (exact), fp32 leaves as they
+    are. ``params_from_numpy`` of it rebuilds the model bit for bit."""
+    named = dict(model.named_parameters())
+    tree: Dict[str, Any] = {}
+    for name, t in named.items():
+        if not name.startswith("layers."):
+            _put(tree, name.split("."), _np(t))
+    segments = []
+    offset = 0
+    for unit, R in model.cfg.segments:
+        seg = []
+        for ui in range(len(unit)):
+            first = f"layers.{offset + ui}."
+            leaves: Dict[str, Any] = {}
+            for name in named:
+                if not name.startswith(first):
+                    continue
+                key = name[len(first):]
+                _put(leaves, key.split("."), np.stack([
+                    _np(named[f"layers.{offset + r * len(unit) + ui}."
+                              f"{key}"]) for r in range(R)]))
+            seg.append(leaves)
+        segments.append(seg)
+        offset += len(unit) * R
+    tree["segments"] = segments
+    return tree

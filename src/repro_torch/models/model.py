@@ -1,4 +1,5 @@
-"""The served model: init / prefill / extend / decode / verify.
+"""The model: init / prefill / extend / decode / verify, and training's
+loss (``train_loss``).
 
 Port of the JAX package's ``models/model.py`` for the dense planner
 (``"full"`` layers, tied head), the MoE families (``"moe"`` and
@@ -28,6 +29,11 @@ package's head is: ``_logits`` sets
 no caller's TF32 setting can reach it. At kimi-k2's vocab the fp32 copy
 of ``lm_head`` is a 4.7 GB temporary per call: keeping it would hold
 4.7 GB more, and a bf16 product would be another function.
+
+``train_loss`` is the JAX package's training forward and loss over a
+``"full"`` stack, differentiable (its attention's gradient on the card
+is ``flash_prefill``'s backward kernel); ``forward_hidden`` is the same
+forward without the loss, under ``no_grad``, for the intent gate.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from typing import List
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.models import layers as L
@@ -216,6 +223,57 @@ def forward_hidden(model: Model, batch):
                            pos=0, positions=positions)
     return L.rmsnorm(model.final_norm.scale, x, model.cfg.norm_eps,
                      fixed=True)
+
+
+def xent_chunked(model: Model, x, labels, chunk: int = 256):
+    """Mean next-token cross-entropy of final-normed hidden states x
+    (B,S,d) against labels (B,S) (< 0: no label), the fp32 head taken
+    over ``chunk`` positions at a time so (B,S,V) logits never
+    materialise: the JAX package's ``xent_chunked``."""
+    B, S, _ = x.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"xent_chunked: {S} positions are not a multiple "
+                         f"of the {chunk}-position chunk")
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(S // chunk):
+        cols = slice(c * chunk, (c + 1) * chunk)
+        logits = _logits(model, x[:, cols])                  # (B,C,V) fp32
+        lc = labels[:, cols]
+        picked = torch.gather(logits, -1, lc.clamp(min=0)[..., None])[..., 0]
+        mask = (lc >= 0).float()
+        tot = tot + torch.sum((torch.logsumexp(logits, dim=-1) - picked)
+                              * mask)
+        cnt = cnt + torch.sum(mask)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def _train_block(blk: Block, x, positions, cfg: ModelConfig):
+    return block_apply(blk, x, cfg, mode="train", cache=None, pos=0,
+                       positions=positions)[0]
+
+
+def train_loss(model: Model, batch, remat: bool = True):
+    """The training forward and its scalar LM loss, differentiable: the
+    JAX package's ``train_loss`` for a ``"full"`` stack (its MoE aux term
+    is 0 there; ``block_apply`` refuses train mode over every other kind).
+    ``remat`` recomputes each block in the backward
+    (``torch.utils.checkpoint``, non-reentrant), as the JAX package wraps
+    each unit in ``jax.checkpoint``. Tokens and labels move to the
+    model's device."""
+    tokens = _tokens(model, batch)
+    labels = torch.as_tensor(batch["labels"], dtype=torch.long,
+                             device=model.device)
+    x, positions = _embed_inputs(model, tokens)
+    for blk in model.layers:
+        if remat:
+            x = checkpoint(_train_block, blk, x, positions, model.cfg,
+                           use_reentrant=False)
+        else:
+            x = _train_block(blk, x, positions, model.cfg)
+    x = L.rmsnorm(model.final_norm.scale, x, model.cfg.norm_eps, fixed=True)
+    return xent_chunked(model, x, labels)
 
 
 @torch.no_grad()

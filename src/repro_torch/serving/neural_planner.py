@@ -19,8 +19,10 @@ logsumexp and the picked label), so a row's loss has the same bits at
 every batch size and the two classifiers decide alike exactly. The
 per-position sums run on the host in a fixed order.
 
-The JAX package's ``make_intent_dataset`` (training batches for the
-gate) waits for the training slice (ROADMAP.md queue A11).
+``make_intent_dataset`` builds (query -> intent) LM training pairs from
+the task generator, the JAX package's draws as numpy batches;
+``launch/train_planner.py`` trains the gate on them and plugs the result
+into the Table-2 harness.
 """
 from __future__ import annotations
 
@@ -52,6 +54,21 @@ def encode_pair(query: str, intent: str, seq_len: int) -> Tuple[np.ndarray,
     # labels are next-token: shift left by one
     labs = np.concatenate([labs[1:], [-1]]).astype(np.int32)
     return tokens, labs
+
+
+def make_intent_dataset(tasks, seq_len: int = 64, batch: int = 16):
+    """An endless iterator of {"tokens", "labels"} (batch, seq_len) int32
+    numpy batches of ``encode_pair`` rows, drawn by ``default_rng(0)``
+    as the JAX package draws them."""
+    pairs = [encode_pair(t.query, t.intent, seq_len) for t in tasks]
+    rng = np.random.default_rng(0)
+
+    def batches():
+        while True:
+            idx = rng.integers(0, len(pairs), batch)
+            yield {"tokens": np.stack([pairs[i][0] for i in idx]),
+                   "labels": np.stack([pairs[i][1] for i in idx])}
+    return batches()
 
 
 def _label_nll(model: Model, x2, labels):

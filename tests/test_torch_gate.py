@@ -130,6 +130,10 @@ def test_forward_matches_the_reference_stack(pair):
 
 
 def test_train_mode_stays_forward_only_and_dense():
+    """Train mode covers the ``"full"`` kind only (other kinds raise
+    naming A11.2); under grad it is differentiable (the training slice,
+    ``model.train_loss``), and the gate's ``forward_hidden`` stays
+    forward-only (no graph)."""
     cfg = get_smoke_config("xlstm-125m")
     model = TM.init_params(cfg, seed=0, device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
@@ -137,7 +141,10 @@ def test_train_mode_stays_forward_only_and_dense():
     planner = TM.init_params(get_smoke_config("planner-proxy-100m"), seed=0,
                              device="cpu")
     from repro_torch.models.blocks import block_apply
-    x = torch.zeros(1, 4, planner.cfg.d_model, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="backward.*A11"):
-        block_apply(planner.layers[0], x, planner.cfg, mode="train",
-                    cache=None, pos=0, positions=torch.arange(4)[None])
+    x = torch.zeros(1, 4, planner.cfg.d_model, dtype=torch.bfloat16,
+                    requires_grad=True)
+    y, _ = block_apply(planner.layers[0], x, planner.cfg, mode="train",
+                       cache=None, pos=0, positions=torch.arange(4)[None])
+    assert y.requires_grad and y.shape == x.shape
+    assert TM.forward_hidden(planner, {"tokens": [[1, 2, 3, 4]]}).grad_fn \
+        is None

@@ -189,10 +189,12 @@ def test_cpu_wrappers_do_not_count_launches():
     KB.mlstm_scan(torch.randn(1, 1, 3, 32), torch.randn(1, 1, 3, 32),
                   torch.randn(1, 1, 3, 32), torch.randn(1, 1, 3),
                   torch.randn(1, 1, 3), None)
+    qg = q.clone().requires_grad_(True)
+    KB.attention(qg, k, v).sum().backward()      # the backward's plain version
     assert KB.launch_counts() == {
         "flash_prefill": 0, "flash_decode": 0, "flash_decode_paged": 0,
         "flash_verify": 0, "flash_verify_paged": 0, "moe_router_topk": 0,
-        "ssm_scan": 0, "mlstm_scan": 0}
+        "ssm_scan": 0, "mlstm_scan": 0, "flash_prefill_bwd": 0}
 
 
 def test_wrappers_refuse_other_devices():

@@ -220,8 +220,9 @@ def test_no_card_and_no_device_raises():
 
 @pytest.mark.parametrize("mode", ["train", "verify"])
 def test_unported_modes_raise(pair, mode):
-    """Train waits for its slice; verify is ported (a 2-row window
-    against a dense B=1 cache)."""
+    """Both are ported: verify (a 2-row window against a dense B=1
+    cache) and train (differentiable over a ``"full"`` layer); train
+    over another kind raises naming its queue item."""
     _, _, model = pair
     from repro_torch.models.blocks import block_apply, block_cache_init
     x = torch.zeros(1, 2, 256, dtype=torch.bfloat16)
@@ -233,6 +234,10 @@ def test_unported_modes_raise(pair, mode):
                                positions=positions)
         assert y.shape == x.shape and bool(torch.isfinite(y.float()).all())
         return
+    y, _ = block_apply(model.layers[0], x.requires_grad_(True), model.cfg,
+                       mode=mode, cache=None, pos=0, positions=positions)
+    assert y.shape == x.shape and y.requires_grad
+    xl = TM.init_params(get_smoke_config("xlstm-125m"), seed=0, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        block_apply(model.layers[0], x, model.cfg, mode=mode, cache=None,
+        block_apply(xl.layers[0], x, xl.cfg, mode=mode, cache=None,
                     pos=0, positions=positions)
