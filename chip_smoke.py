@@ -2,7 +2,7 @@
 
   python3 chip_smoke.py [--kernels-only]
 
-Builds the port's nine Hopper kernels from ``src/repro_torch/csrc/``
+Builds the port's twelve Hopper kernels from ``src/repro_torch/csrc/``
 and checks that flash_prefill's SASS runs on the tensor cores (HGMMA
 instructions at every head dim, ``cuobjdump -sass``), then holds each
 kernel against its plain PyTorch version on the card: the attention
@@ -42,7 +42,17 @@ version (autograd through the plain forward) at the planner's training
 shapes (8 x 256 and 16 x 64), a 1,024-token row, kimi-k2's heads, head
 dim 32, a window and a softcap, with the same sha256 on a second call,
 its device time a call (by pass at the training shape) beside SDPA's
-backward, and its three passes' registers and spills. Then it serves
+backward, and its three passes' registers and spills; and the backwards
+of the router, the selective scan and the mLSTM scan (none has a TPU
+counterpart) against their plain versions (autograd through the plain
+forwards) at their training shapes (arctic's cut router (1,024, 16, 2),
+arctic's and kimi-k2's full E, tied logits; hymba's (2, 2,048, 1,600,
+16), a 1,300-step sequence from a given state with its seam (split at
+700, the state fed forward and dh0 fed back: bitwise but for dA), n =
+8; xlstm's (8, 4, 256, 192) and a 1,024-step sequence, each from a
+fresh and from a given state), each with the same sha256 on a second
+call, its device time a call (by kernel for the scans) and the
+registers and spills of each of their kernels. Then it serves
 planner-proxy-100m at full width through the launcher's serving
 function (dense monolithic and chunked, paged, speculative dense and
 paged, ``--draft-k 21`` (66 verify rows per kv head), paged with a pool
@@ -84,7 +94,18 @@ one train_loss and its gradients on the card against the CPU; and the
 GeckOpt gate trained by ``launch.train_planner --full``, its accuracy on
 48 held-out tasks and its Table-2 row against the ungated agent, its
 checkpoint reloaded into a fresh model (the same batched decisions) and
-served by ``launch.serve --checkpoint``. Then the
+served by ``launch.serve --checkpoint``. Then the other families'
+training through ``launch.train.train_run``, 10 steps each from seed
+0's weights: arctic at its published widths cut to one MoE layer of 16
+of its 128 experts (4 x 256; AdamW's state of a full layer exceeds the
+card), hymba-1.5b at full width and depth (2 x 2,048, past its 1,024
+window) and xlstm-125m at full width and depth (8 x 256): the loss must
+fall, every kernel must launch once a layer that runs it a step (the
+forward twice with remat), and 3 steps with remat must equal 3 without
+bitwise in every loss and parameter; each with ms a step, tok/s and peak
+memory; then one train_loss and its gradients on the card against the
+CPU at the smoke configs (arctic cut to its one MoE layer, kimi-k2,
+hymba, xlstm; the MoE stacks on the tokens whose routes agree). Then the
 MoE families at their published widths with the depth cut
 (kimi-k2-1t-a32b: its dense first layer and one MoE layer of 384 experts
 top-8; arctic-480b: one MoE layer of 128 experts top-2), through the
@@ -92,9 +113,10 @@ same functions: dense, paged and (kimi) speculative dense and paged,
 tokens equal to the dense run's and an accept rate of 1.0; budgeted ==
 monolithic and prefix hit == miss, printed at the config's capacity
 factor and asserted at 100; a profile of kimi's decode step; card vs
-CPU on both MoE smoke configs. Then hymba-1.5b at full width and full
-depth (32 hybrid attention + SSM layers, 30 of them over 1,024-row
-sliding-window rings): the selective-scan kernel against its plain
+CPU on both MoE smoke configs. Then hymba-1.5b at full width, its depth
+cut to one unit of 16 hybrid attention + SSM layers (15 of them over
+1,024-row sliding-window rings; the training phase runs all 32): the
+selective-scan kernel against its plain
 version at hymba's prefill and decode shapes, with each output's sha256
 (so a later tree can be held to the same bits) and its seam contract
 (a scan split at any seam, or run one step per launch, gives the bits
@@ -107,8 +129,9 @@ printed); ~1,000-token prompts whose decode crosses every ring's wrap
 (decode logits against a windowed prefill within HIT_MISS_TOL); the
 refusals of paged KV, chunked prefill and speculative decoding; a
 profile of its decode step; card vs CPU on hymba-smoke. Then
-xlstm-125m at full width and full depth (12 layers: three units of
-three mLSTM layers, heads of 192, and one sLSTM layer): the mLSTM scan
+xlstm-125m at full width, its depth cut to one unit of 4 layers (three
+mLSTM layers, heads of 192, and one sLSTM layer; the training phase
+runs all 12): the mLSTM scan
 kernel against its plain version at xlstm's prefill and decode shapes,
 at head dims 32, 64 and 128, and on the full-width model's own scan
 inputs of a 1,024-token prefill, with each output's sha256 and its
@@ -147,10 +170,20 @@ Tolerances:
     forward; the gradients reach |dk| ~ 8, where one bf16 step is
     0.031. Two calls: the same bits (no atomics, fixed sum orders);
   * training: remat vs no remat, bitwise (every loss and parameter);
-    card vs CPU, one loss of the full-width planner within
-    TRAIN_LOSS_TOL = 0.05 (the forward's bf16 roundings over 12 layers,
-    then an fp32 logsumexp), each gradient leaf's relative error
-    reported;
+    card vs CPU, one loss of the full-width planner and of each smoke
+    config within TRAIN_LOSS_TOL = 0.05 (the forward's bf16 roundings,
+    then an fp32 logsumexp; an MoE stack's tokens whose routes differ
+    between the two devices take no label), each gradient leaf's
+    relative error reported;
+  * the router's backward vs its plain version (fp32): |kernel - plain|
+    <= ROUTER_BWD_TOL = 1e-6; the selective scan's: each output's
+    relative norm ||kernel - plain|| / ||plain|| <= SSM_BWD_REL = 1e-4
+    (the forward's tolerance; fp32 reverse recurrences and sums of up
+    to 4,096 terms in other orders); the mLSTM scan's: each output's
+    relative norm within MLSTM_TOL times the ratio ||scale|| / ||h|| of
+    the forward's conditioning scale to its output on the same inputs
+    (``mlstm_bwd_tolerance``: the forward's bound as a relative norm);
+    two calls of each: bitwise (no atomics, fixed sum orders);
   * within the decode family (decode, paged decode, verify, paged
     verify): bitwise (``torch.equal``), by design: the four kernels run
     one routine (decode_warp.cuh), whose per-row arithmetic does not
@@ -912,7 +945,7 @@ def ssm_cases(gen, build_log: str):
                 plain_ms=cuda_ms(lambda: selective_scan_ref(*args),
                                  iters=2, warmup=1),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                registers=_ptxas_registers(build_log, "ssm_scan")))
+                registers=_ptxas_registers(build_log, "ssm_scan_kernel")))
     dt, x, Bm, Cm, A, h0 = _ssm_inputs(gen, 1, 1300, 1600, 16)
     y, h = ssm_scan(dt, x, Bm, Cm, A, h0)
     part = lambda a, lo, hi: a[:, lo:hi].contiguous()
@@ -1069,7 +1102,7 @@ def mlstm_cases(gen, build_log: str):
                 plain_ms=cuda_ms(lambda: mlstm_scan_ref(*args, st),
                                  iters=2, warmup=1),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                registers=_ptxas_registers(build_log, "mlstm_scan")))
+                registers=_ptxas_registers(build_log, "mlstm_scan_kernel")))
     part = lambda a, lo, hi: a[:, :, lo:hi].contiguous()
     same = lambda x, y: all(torch.equal(a, b) for a, b in zip(x, y))
     args, st = _mlstm_inputs(gen, 1, 4, 1300, 192)
@@ -1747,6 +1780,227 @@ def bwd_cases(gen, build_log: str):
     return [bwd_case(gen, *c) for c in BWD_CASES], ptxas
 
 
+# ---------------------------- the backwards of the router and the scans ----
+
+# (T, E, k, draw): the cut arctic training path (16 experts), arctic's and
+# kimi-k2's full E, and a row set with tied logits (rounded to integers)
+ROUTER_BWD_CASES = [(1024, 16, 2, "randn"), (1024, 128, 2, "randn"),
+                    (2048, 384, 8, "randn"), (1024, 16, 2, "ties")]
+# |kernel - plain|: the plain version differentiates its own softmax
+# (the forward's weights are within 1.8e-7 of it) and leaves ~1e-9 on
+# the unchosen logits
+ROUTER_BWD_TOL = 1e-6
+# (B, S, di, n, h0): hymba-1.5b's training shape, a ragged 1,300-step
+# prompt from a given state, n = 8 (hymba-smoke's state) from a given one
+SSM_BWD_CASES = [(2, 2048, 1600, 16, "zeros"), (1, 1300, 1600, 16, "random"),
+                 (2, 300, 256, 8, "random")]
+# each output's relative norm ||kernel - plain|| / ||plain||: the
+# forward's tolerance (1e-4), the two scans' fp32 reverse recurrences and
+# sums over up to 4,096 terms (dA) in other orders
+SSM_BWD_REL = 1e-4
+# (B, H, S, hd): xlstm-125m's training shape and a 1,024-token sequence,
+# each from a fresh and from a given state
+MLSTM_BWD_CASES = [(8, 4, 256, 192), (1, 4, 1024, 192)]
+SSM_BWD_PASSES = ("ssm_scan_bwd_kernel", "ssm_scan_bwd_reduce")
+MLSTM_BWD_PASSES = ("mlstm_bwd_gates", "mlstm_bwd_columns",
+                    "mlstm_bwd_heads")
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).norm()
+                 / b.float().norm().clamp(min=1e-30))
+
+
+def _once(fn):
+    """(fn(), its ms by CUDA events over that one call): the slow plain
+    backwards are timed on the call that gives the reference."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _bwd_result(name, got, ref, again, run, plain_ms, bound_args, kernel,
+                extra, passes):
+    """The common record of a backward case: each output's max |diff| and
+    relative norm against the plain version, both calls' sha256 (asserted
+    equal), the CUDA-event ms a call, the device time a call of each of
+    its kernels (``pass_device_ms``, ``torch.profiler``) and their sum
+    (``device_ms``; None where a profile missed a kernel's events), the
+    plain version's time, the bound; library_ms None (no one PyTorch call
+    computes it)."""
+    from repro_torch.launch.decode_bench import digest
+    err, rel = {}, {}
+    for n, a, b in zip(name, got, ref):
+        check(bool(torch.isfinite(a).all()), f"{kernel}: non-finite {n}")
+        err[n] = float((a - b).abs().max())
+        rel[n] = _rel(a, b)
+    bits = [digest(t) for t in got]
+    check(bits == [digest(t) for t in again],
+          f"{kernel}: two calls give other bits")
+    b_ms, b_by = bound(*bound_args, FP32_FLOP_S)
+    by_pass = {k: device_ms(run, k, tries=5) for k in passes}
+    dev = (None if None in by_pass.values()
+           else sum(by_pass.values()))
+    return dict(extra, max_abs_err=max(err.values()), err=err,
+                rel_norm_err=rel, bits=bits, ms=cuda_ms(run),
+                device_ms=dev, pass_device_ms=by_pass, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def router_bwd_cases(gen):
+    """moe_router_bwd against router_topk_bwd_ref on the forward kernel's
+    weights and ids: every dlogit within ROUTER_BWD_TOL; its bound reads
+    w, idx and dw and writes the (T, E) row, ~3 k operations a token."""
+    from repro_torch.kernels.moe_router import moe_router_bwd, \
+        moe_router_topk
+    from repro_torch.kernels.ref import router_topk_bwd_ref
+    out = []
+    for T, E, k, draw in ROUTER_BWD_CASES:
+        logits = router_logits(gen, T, E, draw, "cuda")
+        w, idx = moe_router_topk(logits, k)
+        dw = torch.randn(T, k, generator=gen, device="cuda")
+        run = lambda: moe_router_bwd(logits, w, idx, dw)
+        got, again = run(), run()
+        ref, plain_ms = _once(lambda: router_topk_bwd_ref(logits, k, dw))
+        res = _bwd_result(
+            ("dlogits",), (got,), (ref,), (again,), run, plain_ms,
+            (T * k * 12 + T * E * 4, 3 * T * k), "moe_router_bwd",
+            dict(T=T, E=E, k=k, draw=draw), ("moe_router_bwd_kernel",))
+        check(res["max_abs_err"] <= ROUTER_BWD_TOL,
+              f"moe_router_bwd {(T, E, k, draw)}: differs from the plain "
+              f"version by {res['max_abs_err']}")
+        out.append(res)
+    return out
+
+
+def ssm_bwd_cases(gen):
+    """ssm_scan_bwd against selective_scan_bwd_ref at SSM_BWD_CASES (dy and
+    dh_last ~ N(0,1)): each output within SSM_BWD_REL relative norm; its
+    bound reads dt, x, dy, B_, C_, A, h0, dh_last once and writes every
+    gradient once (5 (B,S,di), 4 (B,S,n), 2 (di,n) and 3 (B,di,n)
+    tensors), ~12 n operations a (b, t, d). Then its seam: the
+    1,300-step case split at 700, the first part's state fed to the
+    second and the second part's dh0 fed back as the first's dh_last,
+    gives one backward's ddt, dx, dB_, dC_ and dh0 bitwise (dA, a sum over
+    t that the split reorders, within SSM_BWD_REL)."""
+    from repro_torch.kernels.ref import selective_scan_bwd_ref
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
+    names = ("ddt", "dx", "dB", "dC", "dA", "dh0")
+    out, seam = [], None
+    for B, S, di, n, h0k in SSM_BWD_CASES:
+        args = _ssm_inputs(gen, B, S, di, n, h0k == "random")
+        dy = torch.randn(B, S, di, generator=gen, device="cuda")
+        dh = torch.randn(B, di, n, generator=gen, device="cuda")
+        run = lambda: ssm_scan_bwd(*args, dy, dh)
+        got, again = run(), run()
+        ref, plain_ms = _once(lambda: selective_scan_bwd_ref(*args, dy,
+                                                             dh))
+        res = _bwd_result(
+            names, got, ref, again, run, plain_ms,
+            (4 * (5 * B * S * di + 4 * B * S * n + 2 * di * n
+                  + 3 * B * di * n), 12 * B * S * di * n),
+            "ssm_scan_bwd", dict(B=B, S=S, di=di, n=n, h0=h0k),
+            SSM_BWD_PASSES)
+        bad = {k: v for k, v in res["rel_norm_err"].items()
+               if v > SSM_BWD_REL}
+        check(not bad, f"ssm_scan_bwd {(B, S, di, n)}: {bad}")
+        out.append(res)
+        if S == 1300:
+            cut = 700
+            part = lambda a, lo, hi: a[:, lo:hi].contiguous()
+            dt, x, Bm, Cm, A, h0 = args
+            first = [part(a, 0, cut) for a in (dt, x, Bm, Cm)]
+            second = [part(a, cut, S) for a in (dt, x, Bm, Cm)]
+            _, h_cut = ssm_scan(*first, A, h0)
+            g2 = ssm_scan_bwd(*second, A, h_cut, part(dy, cut, S), dh)
+            g1 = ssm_scan_bwd(*first, A, h0, part(dy, 0, cut), g2[5])
+            for i, nm in enumerate(names[:4]):
+                check(torch.equal(torch.cat([g1[i], g2[i]], 1), got[i]),
+                      f"ssm_scan_bwd split at {cut}: {nm} differs")
+            check(torch.equal(g1[5], got[5]),
+                  f"ssm_scan_bwd split at {cut}: dh0 differs")
+            seam_rel = _rel(g1[4] + g2[4], got[4])
+            check(seam_rel <= SSM_BWD_REL,
+                  f"ssm_scan_bwd split at {cut}: dA {seam_rel}")
+            seam = dict(split_at=cut, bitwise=list(names[:4]) + ["dh0"],
+                        dA_rel_norm_err=seam_rel)
+    return out, seam
+
+
+def mlstm_bwd_tolerance(q, k, v, i_pre, f_pre, state) -> float:
+    """The relative-norm tolerance of the mLSTM backward on these inputs,
+    from the forward's conditioning-scaled bound: the forward holds each
+    output within MLSTM_TOL of its conditioning scale
+    (``mlstm_conditioning``: the sums of absolute terms of its two
+    reductions over the cancelled denominator), so in norm within
+    MLSTM_TOL ||scale|| / ||h|| of ||h||. The backward runs the same
+    recurrence in reverse through the same denominators and is held to
+    that relative bound: MLSTM_TOL times the ratio, at least MLSTM_TOL."""
+    from repro_torch.kernels.ref import mlstm_scan_ref
+    scale, _ = mlstm_conditioning(q, k, v, i_pre, f_pre, state)
+    with torch.no_grad():
+        h = mlstm_scan_ref(q, k, v, i_pre, f_pre, state)[0]
+    return MLSTM_TOL * max(1.0, float(scale.norm()
+                                      / h.norm().clamp(min=1e-30)))
+
+
+def mlstm_bwd_cases(gen):
+    """mlstm_scan_bwd against mlstm_scan_bwd_ref at MLSTM_BWD_CASES, each
+    from a fresh and from a given state (dh and the final state's
+    cotangents ~ N(0,1)): each output within ``mlstm_bwd_tolerance``
+    relative norm; its bound reads q, k, v, dh, i, f, the state and its
+    cotangents once and writes every gradient once (7 (B,H,S,hd), 4
+    (B,H,S) and 3 state-shaped tensors), ~12 hd^2 operations a (b, h,
+    t)."""
+    from repro_torch.kernels.mlstm_scan import mlstm_scan_bwd
+    from repro_torch.kernels.ref import mlstm_scan_bwd_ref
+    names = ("dq", "dk", "dv", "di", "df", "dC0", "dn0", "dm0")
+    out = []
+    for B, H, S, hd in MLSTM_BWD_CASES:
+        for random_state in (False, True):
+            args, st = _mlstm_inputs(gen, B, H, S, hd, random_state)
+            r = lambda *shape: torch.randn(*shape, generator=gen,
+                                           device="cuda")
+            dh = r(B, H, S, hd)
+            dst = (r(B, H, hd, hd), r(B, H, hd), r(B, H))
+            run = lambda: mlstm_scan_bwd(*args, st, dh, dst)
+            flat = lambda g: (*g[:5], *g[5])
+            got, again = flat(run()), flat(run())
+            ref, plain_ms = _once(lambda: mlstm_scan_bwd_ref(*args, st, dh,
+                                                             dst))
+            ref = flat(ref)
+            tol = mlstm_bwd_tolerance(*args, st)
+            res = _bwd_result(
+                names, got, ref, again, run, plain_ms,
+                (4 * (7 * B * H * S * hd + 4 * B * H * S
+                      + 3 * B * H * (hd * hd + hd + 1)),
+                 12 * B * H * S * hd * hd), "mlstm_scan_bwd",
+                dict(B=B, H=H, S=S, hd=hd,
+                     state="random" if random_state else "fresh",
+                     rel_tol=tol), MLSTM_BWD_PASSES)
+            bad = {k: v for k, v in res["rel_norm_err"].items() if v > tol}
+            check(not bad, f"mlstm_scan_bwd {(B, H, S, hd)}: {bad} "
+                           f"(tolerance {tol})")
+            out.append(res)
+    return out
+
+
+def bwd_kernels_ptxas(build_log: str) -> dict:
+    """Registers, stack and spills of the three backwards' kernels."""
+    out = {sym: scan_bench.ptxas_instances(build_log, sym)
+           for sym in ("moe_router_bwd_kernel",) + SSM_BWD_PASSES
+           + MLSTM_BWD_PASSES}
+    check(all(v and all(i.get("registers") for i in v)
+              for v in out.values()),
+          f"ptxas report lacks a backward kernel: {out}")
+    return out
+
+
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARM = 30, 8, 256, 5
 TRAIN_LOSS_TOL = 0.05
 GATE_CKPT = ROOT / "build" / "planner_gate.npz"
@@ -1850,18 +2104,49 @@ def train_card(cfg):
 
 
 def train_card_vs_cpu(cfg):
-    """One full-width train_loss and its gradients (B 2 x S 64, seed 0's
-    weights, drawn on the CPU for both) on the card and on the CPU: the
-    losses within TRAIN_LOSS_TOL; each leaf's relative gradient error
-    reported."""
+    """One train_loss and its gradients (B 2 x S 64, seed 0's weights,
+    built on the CPU and copied to the card) on the card and on the CPU:
+    the losses within TRAIN_LOSS_TOL; each leaf's relative gradient error
+    reported. A stack with MoE layers is held on the tokens whose routes
+    agree: a token whose experts differ between the two in any MoE layer
+    (a near-tie that the two devices' roundings break apart) gets label
+    -1 in both runs' batch."""
+    import copy
+    from repro_torch.kernels import backend as KB
     from repro_torch.models.model import init_params, train_loss
     from repro_torch.training.data import PackedLMDataset, synthetic_docs
     batch = next(PackedLMDataset(synthetic_docs(cfg.vocab_size, seed=1), 2,
                                  64, cfg.vocab_size))
+    cpu_model = init_params(cfg, seed=0, device="cpu")
+    models = {"cuda": copy.deepcopy(cpu_model).to("cuda"),
+              "cpu": cpu_model}
+    masked = 0
+    if "moe" in cfg.layer_kinds():
+        routes, orig = {}, KB.router_topk
+        for dev, model in models.items():
+            rec = []
+
+            def record(lg, k):
+                w, idx = orig(lg, k)
+                rec.append(torch.sort(idx, -1).values.cpu())
+                return w, idx
+            KB.router_topk = record
+            try:
+                with torch.no_grad():
+                    train_loss(model, batch, remat=False)
+            finally:
+                KB.router_topk = orig
+            routes[dev] = rec
+        differ = torch.zeros(2 * 64, dtype=torch.bool)
+        for a, b in zip(routes["cuda"], routes["cpu"]):
+            differ |= (a != b).any(-1)
+        labels = np.array(batch["labels"])
+        labels.reshape(-1)[differ.numpy()] = -1
+        batch = dict(batch, labels=labels)
+        masked = int(differ.sum())
     out = {}
-    for dev in ("cuda", "cpu"):
-        model = init_params(cfg, seed=0,
-                            device=dev).requires_grad_(True)
+    for dev, model in models.items():
+        model.requires_grad_(True)
         params = dict(model.named_parameters())
         t0 = time.time()
         loss = train_loss(model, batch, remat=False)
@@ -1870,13 +2155,14 @@ def train_card_vs_cpu(cfg):
                                            zip(params, grads)},
                     time.time() - t0)
     diff = abs(out["cuda"][0] - out["cpu"][0])
-    check(diff <= TRAIN_LOSS_TOL, f"train: card vs CPU loss differ by "
-                                  f"{diff}")
+    check(diff <= TRAIN_LOSS_TOL, f"train {cfg.name}: card vs CPU loss "
+                                  f"differ by {diff}")
     rel = {n: float((g - out["cpu"][1][n]).norm()
                     / out["cpu"][1][n].norm().clamp(min=1e-30))
            for n, g in out["cuda"][1].items()}
     worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
-    return dict(config=cfg.name, B=2, S=64, loss_card=out["cuda"][0],
+    return dict(config=cfg.name, layers=list(cfg.layer_kinds()), B=2, S=64,
+                tokens_masked=masked, loss_card=out["cuda"][0],
                 loss_cpu=out["cpu"][0], loss_diff=diff, tol=TRAIN_LOSS_TOL,
                 grad_rel_err_max=max(rel.values()),
                 grad_rel_err_median=float(np.median(list(rel.values()))),
@@ -1935,6 +2221,150 @@ def training_phases():
     runs["gate"] = gate_training(cfg)
     emit("gate_training", **runs["gate"])
     emit("training_elapsed", seconds=time.time() - t0)
+    return runs
+
+
+# ------------------------- training of the MoE, hymba and xlstm stacks ----
+
+FAMILY_STEPS, FAMILY_WARM, REMAT_STEPS = 10, 3, 3
+# the cut of arctic's training path: one MoE layer of 16 of its 128
+# experts at the published widths (~2.4 B parameters, ~28 GB with
+# AdamW's fp32 m and v; a full layer's 13.4 B would need ~160 GB)
+ARCTIC_TRAIN_EXPERTS = 16
+
+
+def family_train_config(name: str):
+    """(config, batch, seq) of a family's training path on the card:
+    arctic at its published widths cut to one MoE layer of
+    ARCTIC_TRAIN_EXPERTS experts, 4 x 256; hymba-1.5b at full width and
+    depth, 2 x 2,048 (past its 1,024 window); xlstm-125m at full width
+    and depth, 8 x 256."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    if name == "arctic":
+        cfg = moe_config("arctic-480b")
+        return cfg.replace(moe=dataclasses.replace(
+            cfg.moe, n_experts=ARCTIC_TRAIN_EXPERTS)), 4, 256
+    if name == "hymba":
+        return get_config(HYMBA), 2, 2048
+    return get_config(XLSTM), 8, 256
+
+
+def expected_launches(cfg, remat: bool) -> dict:
+    """Each kernel's launches a train step: every forward kernel once a
+    layer that runs it (twice with remat, whose backward recomputes the
+    block), every backward kernel once."""
+    kinds = cfg.layer_kinds()
+    f = 2 if remat else 1
+    per = {"flash_prefill": sum(k not in ("mlstm", "slstm") for k in kinds),
+           "moe_router_topk": kinds.count("moe"),
+           "ssm_scan": sum(k.startswith("hymba") for k in kinds),
+           "mlstm_scan": kinds.count("mlstm")}
+    out = {}
+    for fwd, n in per.items():
+        if n:
+            out[fwd] = f * n
+            out[fwd + "_bwd" if fwd != "moe_router_topk"
+                else "moe_router_bwd"] = n
+    return out
+
+
+def family_train(name: str):
+    """``launch.train.train_run`` of a family's training path from seed
+    0's weights (drawn once, copied for each run): FAMILY_STEPS steps
+    without remat (the loss finite and falling; each kernel's launches a
+    step as ``expected_launches``; ms a step past FAMILY_WARM steps,
+    tok/s, peak memory), then REMAT_STEPS steps without and with remat,
+    bitwise equal in every loss and parameter."""
+    import copy
+    import gc
+    from repro_torch.kernels import backend as KB
+    from repro_torch.launch.train import train_run
+    from repro_torch.models.model import count_params, init_params
+    cfg, batch, seq = family_train_config(name)
+    t0 = time.time()
+    # drawn on the card (the MoE experts by the card's generator), kept
+    # on the host between runs
+    base = init_params(cfg, seed=0, device="cuda").to("cpu")
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+
+    def run(steps, remat):
+        model = copy.deepcopy(base).to("cuda").requires_grad_(True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        KB.reset_launches()
+        res = train_run(cfg, model, _train_args(steps, remat, batch, seq))
+        counts = KB.launch_counts()
+        per_step = {k: n / steps for k, n in counts.items() if n}
+        want = expected_launches(cfg, remat)
+        check(per_step == want, f"train {name} (remat {remat}): launches "
+                                f"a step {per_step}, expected {want}")
+        losses = res["losses"]
+        check(all(np.isfinite(losses)), f"train {name}: loss {losses}")
+        steady = res["step_ms"][min(FAMILY_WARM, steps - 1):]
+        ms = sum(steady) / len(steady)
+        return model, dict(steps=steps, batch=batch, seq=seq, remat=remat,
+                           losses=losses, ms_per_step=ms,
+                           step_ms=res["step_ms"],
+                           tok_s=batch * seq / ms * 1e3, launches=counts,
+                           launches_per_step=per_step,
+                           peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                           seconds=res["seconds"])
+    model, main = run(FAMILY_STEPS, False)
+    check(main["losses"][-1] < main["losses"][0],
+          f"train {name}: loss {main['losses'][0]} -> "
+          f"{main['losses'][-1]}")
+    del model
+    gc.collect()
+    a, ra = run(REMAT_STEPS, False)
+    a = a.to("cpu")
+    b, rb = run(REMAT_STEPS, True)
+    pb = dict(b.to("cpu").named_parameters())
+    first_leaf = next((n for n, p in a.named_parameters()
+                       if not torch.equal(p, pb[n])), None)
+    check(ra["losses"] == rb["losses"] and first_leaf is None,
+          f"train {name}: remat differs from no remat (losses "
+          f"{ra['losses']} / {rb['losses']}, first leaf {first_leaf})")
+    out = dict(config=cfg.name, layers=len(cfg.layer_kinds()),
+               kinds=sorted(set(cfg.layer_kinds())), d_model=cfg.d_model,
+               params=count_params(base), init_seconds=init_s, **main,
+               remat_check=dict(steps=REMAT_STEPS, losses=ra["losses"],
+                                ms_per_step_no_remat=ra["ms_per_step"],
+                                ms_per_step_remat=rb["ms_per_step"],
+                                peak_gb_remat=rb["peak_gb"],
+                                launches_per_step_remat=rb[
+                                    "launches_per_step"],
+                                bitwise_equal=True))
+    if name == "arctic":
+        out["reduced"] = (f"1 of 35 layers, {ARCTIC_TRAIN_EXPERTS} of 128 "
+                          f"experts (AdamW state of a full layer exceeds "
+                          f"one card)")
+    del a, b, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_training_phases():
+    """The MoE, hymba and xlstm stacks trained on the card, each then
+    held against the CPU at its smoke configs. Returns the runs."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    t0 = time.time()
+    runs = {}
+    smoke = {"arctic": [dataclasses.replace(
+                 get_smoke_config("arctic-480b"), n_layers=1,
+                 segments=((("moe",), 1),)),
+                        get_smoke_config("kimi-k2-1t-a32b")],
+             "hymba": [get_smoke_config(HYMBA)],
+             "xlstm": [get_smoke_config(XLSTM)]}
+    for name in ("arctic", "hymba", "xlstm"):
+        runs[name] = family_train(name)
+        emit(f"train_{name}_card", **runs[name])
+        for cfg in smoke[name]:
+            emit(f"train_{name}_card_vs_cpu", **train_card_vs_cpu(cfg))
+    emit("family_training_elapsed", seconds=time.time() - t0)
     return runs
 
 
@@ -2373,7 +2803,8 @@ def refusals(cfg, model, names=("paged", "prefill_budget", "spec")):
 
 
 def hymba_phases():
-    """hymba-1.5b at full width and full depth: init, two serve runs,
+    """hymba-1.5b at full width, its depth cut to one unit of 16 layers
+    (``family_train`` runs all 32): init, two serve runs,
     recycled slots, prefix hit vs miss, ring-crossing prompts, the
     refusals, a decode profile; then card vs CPU on hymba-smoke. Returns
     the serve runs."""
@@ -2381,11 +2812,14 @@ def hymba_phases():
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models.model import count_params, init_params
     cfg = get_config(HYMBA)
+    cfg = cfg.replace(n_layers=16, segments=((cfg.segments[0][0], 1),))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     model = init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    emit("hymba_init", layers=len(cfg.layer_kinds()),
+    emit("hymba_init", depth_cut="16 of 32 layers: one unit (hymba_g + 15 "
+                                 "hymba_w), widths unchanged",
+         layers=len(cfg.layer_kinds()),
          windowed_layers=cfg.layer_kinds().count("hymba_w"),
          d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads,
                                      cfg.d_head],
@@ -2476,7 +2910,8 @@ def xlstm_equalities(cfg, model, prefix_len=1300, n=8, max_new=16):
 
 
 def xlstm_phases():
-    """xlstm-125m at full width and full depth: init, three serve runs
+    """xlstm-125m at full width, its depth cut to one unit of 4 layers
+    (``family_train`` runs all 12): init, three serve runs
     (dense, budgeted, dense again: equal tokens), recycled slots, the
     budgeted and prefix-hit equalities on 1,300-token prompts, the
     refusals, a decode profile; then card vs CPU on xlstm-smoke. Returns
@@ -2485,11 +2920,14 @@ def xlstm_phases():
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models.model import count_params, init_params
     cfg = get_config(XLSTM)
+    cfg = cfg.replace(n_layers=4, segments=((cfg.segments[0][0], 1),))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     model = init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    emit("xlstm_init", layers=list(cfg.layer_kinds()), d_model=cfg.d_model,
+    emit("xlstm_init", depth_cut="4 of 12 layers: one unit (3 mLSTM + 1 "
+                                 "sLSTM), widths unchanged",
+         layers=list(cfg.layer_kinds()), d_model=cfg.d_model,
          heads=cfg.n_heads,
          mlstm_head_dim=model.layers[0].mlstm.wq.shape[0] // cfg.n_heads,
          vocab=cfg.vocab_size, params=count_params(model),
@@ -2527,9 +2965,10 @@ def main(argv=None) -> int:
         flash_prefill_bwd
     from repro_torch.kernels.flash_verify import flash_verify, \
         flash_verify_paged
-    from repro_torch.kernels.moe_router import moe_router_topk
-    from repro_torch.kernels.ssm_scan import ssm_scan
-    from repro_torch.kernels.mlstm_scan import mlstm_scan
+    from repro_torch.kernels.moe_router import moe_router_bwd, \
+        moe_router_topk
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
+    from repro_torch.kernels.mlstm_scan import mlstm_scan, mlstm_scan_bwd
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2592,6 +3031,20 @@ def main(argv=None) -> int:
     emit("build_prefill_bwd_ptxas", **bwd_ptxas)
     for c in bwd:
         emit("kernel_prefill_bwd", **c)
+    # the training slice's other backwards, early too, each on its own
+    # draws
+    router_bwd = router_bwd_cases(
+        torch.Generator(device="cuda").manual_seed(4))
+    for c in router_bwd:
+        emit("kernel_router_bwd", **c)
+    ssm_bwd, ssm_bwd_seam = ssm_bwd_cases(
+        torch.Generator(device="cuda").manual_seed(5))
+    for c in ssm_bwd:
+        emit("kernel_ssm_scan_bwd", **c)
+    emit("kernel_ssm_scan_bwd_seam", **ssm_bwd_seam)
+    mlstm_bwd = mlstm_bwd_cases(torch.Generator(device="cuda").manual_seed(6))
+    for c in mlstm_bwd:
+        emit("kernel_mlstm_scan_bwd", **c)
     dec = [decode_case(KV_LENS, CACHE, gen)]
     for c in dec:
         emit("kernel_decode", **c)
@@ -2631,6 +3084,7 @@ def main(argv=None) -> int:
     emit("kernel_mlstm_scan_seams", **mlstm_seams)
     mlstm_model = mlstm_model_cases()
     emit("kernel_mlstm_scan_model_inputs", **mlstm_model)
+    emit("build_bwd_ptxas", **bwd_kernels_ptxas(build_log))
     if args.kernels_only:
         (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
             RESULTS, indent=1, default=str))
@@ -2639,6 +3093,7 @@ def main(argv=None) -> int:
     runs, cluster = planner_phases()
     geckopt = geckopt_phases()
     train = training_phases()
+    family = family_training_phases()
     moe = moe_phases()
     hymba = hymba_phases()
     xlstm = xlstm_phases()
@@ -2681,9 +3136,12 @@ def main(argv=None) -> int:
         # every run of the replica cluster together
         rows[-1]["cluster_launches"] = sum(
             r["launches"][fn.__name__] for r in cluster.values())
-    # the training run (launch.train, 30 steps, no remat)
-    rows[0]["train_launches"] = \
+    # the training runs without remat: the planner's 30 steps and the
+    # families' 10 (arctic's and hymba's attention)
+    rows[0]["train_launches"] = (
         train["no_remat"]["launches"]["flash_prefill"]
+        + sum(family[f]["launches"].get("flash_prefill", 0)
+              for f in family))
     # flash_prefill's backward: launches of that training run; times at its
     # shape (8 x 256 at the planner's heads), device times by profiler
     c = next(c for c in bwd if c["family"] == "train")
@@ -2742,6 +3200,36 @@ def main(argv=None) -> int:
                  "ms": c["ms"], "plain_ms": c["plain_ms"],
                  "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                  "library_ms": None})
+    # each forward kernel's launches in its family's 10-step training run
+    for row in rows:
+        fam = {"moe_router_topk": "arctic", "ssm_scan": "hymba",
+               "mlstm_scan": "xlstm"}.get(row["name"])
+        if fam:
+            row["train_launches"] = family[fam]["launches"][row["name"]]
+    # the three backwards: launches of their family's 10-step training
+    # run, times at that run's shape (arctic's cut router (1024, 16, 2),
+    # hymba's (2, 2048, 1600, 16), xlstm's (8, 4, 256, 192) from a fresh
+    # state)
+    for fn, cases, rep, fam, pick in (
+            (moe_router_bwd, router_bwd, "moe_router.py:47", "arctic",
+             lambda c: (c["T"], c["E"], c["k"], c["draw"]) == (
+                 1024, ARCTIC_TRAIN_EXPERTS, 2, "randn")),
+            (ssm_scan_bwd, ssm_bwd, "ssm_scan.py:52", "hymba",
+             lambda c: (c["B"], c["S"]) == (2, 2048)),
+            (mlstm_scan_bwd, mlstm_bwd, "mlstm_scan.py:68", "xlstm",
+             lambda c: (c["B"], c["S"], c["state"]) == (8, 256, "fresh"))):
+        c = next(c for c in cases if pick(c))
+        rows.append({"name": fn.__name__, "route": "cuda",
+                     "source": f"src/repro_torch/csrc/{fn.__name__}.cu",
+                     "replaces": f"none: no TPU kernel (the gradient of "
+                                 f"src/repro/kernels/{rep})",
+                     "launches": family[fam]["launches"][fn.__name__],
+                     "max_abs_err": max(x["max_abs_err"] for x in cases),
+                     "max_rel_norm_err": max(
+                         max(x["rel_norm_err"].values()) for x in cases),
+                     "ms": c["ms"], "plain_ms": c["plain_ms"],
+                     "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                     "library_ms": None, "device_ms": c["device_ms"]})
     emit("elapsed", seconds=time.time() - T_START)
     RESULTS["kernels"] = rows
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(

@@ -21,6 +21,16 @@ does. On a CUDA tensor the wrapper launches the kernel (or raises); on a
 CPU tensor it runs the plain version, ``ref.mlstm_scan_ref``. The
 kernel's operand checks (``check_shapes``) apply on both devices, so a
 caller that the card would refuse fails on the CPU too.
+
+Its gradient is ``mlstm_scan_bwd``, a kernel with no TPU counterpart
+(``csrc/mlstm_scan_bwd.cu``: three launches from one C entry point, the
+gates and n stepped forward a head a warp, the columns of dC stepped in
+reverse over C recomputed from checkpoints, then a head a block for the
+sums across column tiles and the gates' reverse chain), whose plain
+version is ``ref.mlstm_scan_bwd_ref``. ``MlstmScanFn`` joins the two for
+training: its forward is ``mlstm_scan`` as it is, its backward the
+backward kernel (on the CPU both plain versions); ``backend.mlstm_scan``
+goes through it only when grad is enabled and an input requires it.
 """
 from __future__ import annotations
 
@@ -30,7 +40,8 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import mlstm_scan_ref, mlstm_zero_state
+from repro_torch.kernels.ref import mlstm_scan_bwd_ref, mlstm_scan_ref, \
+    mlstm_zero_state
 
 HEAD_DIMS = (32, 64, 128, 192)  # the head dims the kernel is built for
 # columns of C per block (the kernel is built for 8 and 16): 8 in a
@@ -41,6 +52,14 @@ TILE_COLS = {"scan": 8, "step": 16}
 # q, ks, v, i, f, C0, n0, m0, h, C1, n1, m1, n_tiles, m_tiles; BH, S, hd,
 # columns a tile; stream
 _ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# the backward kernel: columns of dC a block, timesteps between two
+# checkpoints of C
+BWD_COLS, BWD_CHECKPOINT = 8, 8
+# q, ks, v, i, f, C0, n0, m0, dh, dC1, dn1, dm1; dq, dk, dv, di, df, dC0,
+# dn0, dm0; gates, n_steps, C_ck, p_scal, p_dq, p_dk; BH, S, hd; scale;
+# stream
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 26 + [ctypes.c_int] * 3
+                 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def tile_cols(S: int) -> int:
@@ -139,3 +158,75 @@ def mlstm_scan_tile_states(q, k, v, i_pre, f_pre, state=None, *,
 
 
 mlstm_scan.launches = 0
+
+
+def bwd_scratch_shapes(B: int, H: int, S: int, hd: int):
+    """Shapes of the backward kernel's fp32 scratch: each step's gates
+    (fw, iw, exp(-m), n . q, the denominator, logsigmoid(f) + m_prev, m)
+    and n, C at every BWD_CHECKPOINT-th step, and each column tile's
+    per-step partials (the three scalar sums, dq's and dk's rows)."""
+    BH, T = B * H, hd // BWD_COLS
+    ck = -(-S // BWD_CHECKPOINT)
+    return ((BH, 7, S), (BH, S, hd), (BH, ck, hd, hd), (BH, T, 3, S),
+            (BH, T, S, hd), (BH, T, S, hd))
+
+
+def mlstm_scan_bwd(q, k, v, i_pre, f_pre, state, dh, dstate, *,
+                   scale: float = 0.0):
+    """The gradient of ``mlstm_scan``: (dq, dk, dv, di_pre, df_pre, (dC0,
+    dn0, dm0)) fp32 in the inputs' shapes, from the forward's inputs
+    (``state`` the initial state, None fresh) and the cotangents of h
+    (B,H,S,hd) and of the final state ``dstate`` = (dC, dn, dm)."""
+    state, scale = _prepare(q, k, v, i_pre, f_pre, state, scale)
+    B, H, S, hd = q.shape
+    for name, t, shape in (("dh", dh, q.shape),
+                           ("dC", dstate[0], state[0].shape),
+                           ("dn", dstate[1], state[1].shape),
+                           ("dm", dstate[2], state[2].shape)):
+        _build.check_tensor("mlstm_scan_bwd", name, t, torch.float32,
+                            len(shape), q.device)
+        if t.shape != shape:
+            raise ValueError(f"mlstm_scan_bwd: {name} {tuple(t.shape)} != "
+                             f"{tuple(shape)}")
+    if q.device.type == "cpu":
+        return mlstm_scan_bwd_ref(q, k, v, i_pre, f_pre, state, dh, dstate,
+                                  scale=scale)
+    ks = (k * scale).contiguous()
+    grads = tuple(torch.empty_like(t)
+                  for t in (q, k, v, i_pre, f_pre, *state))
+    scratch = tuple(torch.empty(shape, dtype=torch.float32, device=q.device)
+                    for shape in bwd_scratch_shapes(B, H, S, hd))
+    fn = _build.entry("mlstm_scan_bwd", "mlstm_scan_bwd_f32", _BWD_ARGTYPES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(*(t.data_ptr() for t in (q, ks, v, i_pre, f_pre, *state, dh,
+                                         *dstate) + grads + scratch),
+                B * H, S, hd, float(scale), stream)
+    _build.check_rc("mlstm_scan_bwd", rc)
+    mlstm_scan_bwd.launches += 1
+    return (*grads[:5], grads[5:])
+
+
+mlstm_scan_bwd.launches = 0
+
+
+class MlstmScanFn(torch.autograd.Function):
+    """``mlstm_scan`` with the backward kernel as its gradient: (h, C, n,
+    m) of (q, k, v, i_pre, f_pre, C0, n0, m0) at ``scale``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, i_pre, f_pre, C0, n0, m0, scale):
+        h, (C, n, m) = mlstm_scan(q, k, v, i_pre, f_pre, (C0, n0, m0),
+                                  scale=scale)
+        ctx.save_for_backward(q, k, v, i_pre, f_pre, C0, n0, m0)
+        ctx.scale = scale
+        return h, C, n, m
+
+    @staticmethod
+    def backward(ctx, dh, dC, dn, dm):
+        q, k, v, i_pre, f_pre, C0, n0, m0 = ctx.saved_tensors
+        dq, dk, dv, di, df, dstate = mlstm_scan_bwd(
+            q, k, v, i_pre, f_pre, (C0, n0, m0), dh.contiguous(),
+            (dC.contiguous(), dn.contiguous(), dm.contiguous()),
+            scale=ctx.scale)
+        return (dq, dk, dv, di, df, *dstate, None)

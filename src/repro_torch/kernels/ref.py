@@ -8,7 +8,11 @@ full fp32 score matrix (or probability row, or step the scan one
 timestep at a time) and are correctness references, not fast paths.
 On a CPU tensor the kernel wrappers run these; on the card they are
 what ``chip_smoke.py`` holds the kernels against. The mLSTM scan's oracle
-comes with its kernel.
+comes with its kernel. The gradients of the router, the selective scan
+and the mLSTM scan (``router_topk_bwd_ref``, ``selective_scan_bwd_ref``,
+``mlstm_scan_bwd_ref``) are ``torch.autograd.grad`` through these
+oracles, as ``attention_bwd_ref`` is: the plain versions of the three
+backward kernels.
 """
 from __future__ import annotations
 
@@ -193,6 +197,17 @@ def router_topk_ref(logits, k: int):
     return w, idx[:, :k].to(torch.int32), probs
 
 
+def router_topk_bwd_ref(logits, k: int, dw):
+    """The gradient of ``router_topk_ref``'s weights with respect to the
+    logits: (T,E) fp32 from ``dw`` (T,k), by ``torch.autograd.grad``
+    through the plain forward. The ids have no gradient. The plain
+    version of ``moe_router_bwd``'s kernel."""
+    with torch.enable_grad():
+        lg = logits.detach().float().requires_grad_(True)
+        w, _, _ = router_topk_ref(lg, k)
+        return torch.autograd.grad(w, lg, dw.float())[0]
+
+
 def selective_scan_ref(dt, x, B_, C_, A, h0=None):
     """Sequential selective-scan oracle, in fp32.
 
@@ -215,6 +230,19 @@ def selective_scan_ref(dt, x, B_, C_, A, h0=None):
     y = (torch.stack(ys, dim=1) if ys else
          torch.zeros((Bsz, 0, di), dtype=torch.float32, device=x.device))
     return y, h
+
+
+def selective_scan_bwd_ref(dt, x, B_, C_, A, h0, dy, dh_last):
+    """The gradient of ``selective_scan_ref`` from ``dy`` (B,S,di) and
+    ``dh_last`` (B,di,n): (ddt, dx, dB_, dC_, dA, dh0) in the inputs'
+    shapes, fp32, by ``torch.autograd.grad`` through the plain forward.
+    The plain version of ``ssm_scan_bwd``'s kernel."""
+    with torch.enable_grad():
+        ins = [t.detach().float().requires_grad_(True)
+               for t in (dt, x, B_, C_, A, h0)]
+        y, h = selective_scan_ref(*ins)
+        return torch.autograd.grad((y, h), ins, (dy.float(),
+                                                 dh_last.float()))
 
 
 def mlstm_scan_ref(q, k, v, i_pre, f_pre, state=None, *, scale=0.0):
@@ -254,6 +282,24 @@ def mlstm_scan_ref(q, k, v, i_pre, f_pre, state=None, *, scale=0.0):
     h = (torch.stack(hs, dim=2) if hs else
          torch.zeros((B, H, 0, hd), dtype=torch.float32, device=q.device))
     return h, (C, n, m)
+
+
+def mlstm_scan_bwd_ref(q, k, v, i_pre, f_pre, state, dh, dstate, *,
+                       scale=0.0):
+    """The gradient of ``mlstm_scan_ref`` from ``dh`` (B,H,S,hd) and the
+    final state's cotangents ``dstate`` = (dC, dn, dm): (dq, dk, dv,
+    di_pre, df_pre, (dC0, dn0, dm0)) in the inputs' shapes, fp32, by
+    ``torch.autograd.grad`` through the plain forward (the ``max``
+    branches, the stabiliser m and the ``exp(-m)`` floor of the
+    denominator included, as computed). The plain version of
+    ``mlstm_scan_bwd``'s kernel."""
+    with torch.enable_grad():
+        ins = [t.detach().float().requires_grad_(True)
+               for t in (q, k, v, i_pre, f_pre, *state)]
+        h, st = mlstm_scan_ref(*ins[:5], tuple(ins[5:]), scale=scale)
+        g = torch.autograd.grad((h, *st), ins,
+                                (dh.float(), *(t.float() for t in dstate)))
+        return (*g[:5], tuple(g[5:]))
 
 
 def mlstm_zero_state(B: int, H: int, hd: int, device):

@@ -18,6 +18,16 @@ On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
 tensor it runs the plain version, ``ref.selective_scan_ref``. The
 kernel's operand checks (``check_shapes``) apply on both devices, so a
 caller that the card would refuse fails on the CPU too.
+
+Its gradient is ``ssm_scan_bwd``, a kernel with no TPU counterpart
+(``csrc/ssm_scan_bwd.cu``: the forward's lanes, h checkpointed every
+32-step tile and each tile's states recomputed in reverse, then a
+fixed-order second pass for the sums across channel blocks and the
+batch), whose plain version is ``ref.selective_scan_bwd_ref``.
+``SsmScanFn`` joins the two for training: its forward is ``ssm_scan`` as
+it is, its backward the backward kernel (on the CPU both plain
+versions); ``backend.selective_scan`` goes through it only when grad is
+enabled and an input requires it.
 """
 from __future__ import annotations
 
@@ -26,11 +36,18 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import selective_scan_ref
+from repro_torch.kernels.ref import selective_scan_bwd_ref, \
+    selective_scan_ref
 
 STATE_SIZES = (8, 16)     # the d_state values the kernel is built for
 # dt, x, B_, C_, A, h0, y, h_last; B, S, di, n; stream
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# the backward kernel's blocks, timesteps a checkpoint tile
+BWD_THREADS, BWD_TILE = 128, 32
+# dt, x, B_, C_, A, h0, dy, dh_last; ddt, dx, dB_, dC_, dA, dh0; h_ck,
+# pB, pC, pA; B, S, di, n; stream
+_BWD_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 4 + \
+    [ctypes.c_void_p]
 
 
 def check_shapes(dt, x, B_, C_, A, h0):
@@ -80,3 +97,65 @@ def ssm_scan(dt, x, B_, C_, A, h0=None):
 
 
 ssm_scan.launches = 0
+
+
+def bwd_scratch_shapes(B: int, S: int, di: int, n: int):
+    """Shapes of the backward kernel's fp32 scratch: the state at the
+    start of each BWD_TILE-step tile (B, tiles, di, n), each channel block's
+    partial dB_ and dC_ (B, blocks, S, n), and each batch row's dA (B,
+    di, n)."""
+    blocks = -(-di // (BWD_THREADS // n))
+    tiles = -(-S // BWD_TILE)
+    return ((B, tiles, di, n), (B, blocks, S, n), (B, blocks, S, n),
+            (B, di, n))
+
+
+def ssm_scan_bwd(dt, x, B_, C_, A, h0, dy, dh_last):
+    """The gradient of ``ssm_scan``: (ddt, dx, dB_, dC_, dA, dh0) fp32 in
+    the shapes of dt, x, B_, C_, A and h0, from the forward's inputs and
+    the cotangents of y (B,S,di) and h_last (B,di,n)."""
+    if dt.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ssm_scan_bwd: no kernel for device {dt.device}")
+    check_shapes(dt, x, B_, C_, A, h0)
+    Bsz, S, di = dt.shape
+    n = A.shape[1]
+    for name, t, shape in (("dy", dy, (Bsz, S, di)),
+                           ("dh_last", dh_last, (Bsz, di, n))):
+        _build.check_tensor("ssm_scan_bwd", name, t, torch.float32, 3,
+                            dt.device)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"ssm_scan_bwd: {name} {tuple(t.shape)} != "
+                             f"{shape}")
+    if dt.device.type == "cpu":
+        return selective_scan_bwd_ref(dt, x, B_, C_, A, h0, dy, dh_last)
+    grads = tuple(torch.empty_like(t) for t in (dt, x, B_, C_, A, h0))
+    scratch = tuple(torch.empty(shape, dtype=torch.float32,
+                                device=dt.device)
+                    for shape in bwd_scratch_shapes(Bsz, S, di, n))
+    fn = _build.entry("ssm_scan_bwd", "ssm_scan_bwd_f32", _BWD_ARGTYPES)
+    with torch.cuda.device(dt.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(*(t.data_ptr() for t in (dt, x, B_, C_, A, h0, dy, dh_last)
+                  + grads + scratch), Bsz, S, di, n, stream)
+    _build.check_rc("ssm_scan_bwd", rc)
+    ssm_scan_bwd.launches += 1
+    return grads
+
+
+ssm_scan_bwd.launches = 0
+
+
+class SsmScanFn(torch.autograd.Function):
+    """``ssm_scan`` with the backward kernel as its gradient: (y, h_last)
+    of (dt, x, B_, C_, A, h0)."""
+
+    @staticmethod
+    def forward(ctx, dt, x, B_, C_, A, h0):
+        y, h_last = ssm_scan(dt, x, B_, C_, A, h0)
+        ctx.save_for_backward(dt, x, B_, C_, A, h0)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        return ssm_scan_bwd(*ctx.saved_tensors, dy.contiguous(),
+                            dh_last.contiguous())

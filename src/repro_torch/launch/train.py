@@ -7,13 +7,15 @@ data, on the card unless ``--device cpu`` is given.
 The command line is the JAX launcher's (``repro.launch.train``) plus
 ``--device``. One card is the local mesh, so ``--local`` changes
 nothing; ``--multi-pod`` (the production mesh) raises
-``NotImplementedError``: sharding is ROADMAP.md queue A13. Only the
-``"full"`` stacks train (planner-proxy-100m); the other families raise
-naming queue A11.2. It prints the loss and tok/s every ``--log-every``
-steps as the JAX launcher does and, with ``--checkpoint``, saves the
-weights in the JAX package's npz format, which ``launch.serve
---checkpoint`` serves. ``main`` is the command line; ``train_run`` trains
-any ``(cfg, model, args)`` in place and returns the run's numbers.
+``NotImplementedError``: sharding is ROADMAP.md queue A13. Every family
+the port serves trains: the planner (planner-proxy-100m), the MoE stacks
+(arctic-480b, kimi-k2-1t-a32b; the loss includes their load-balance
+terms), hymba-1.5b and xlstm-125m. It prints the loss and tok/s every
+``--log-every`` steps as the JAX launcher does and, with
+``--checkpoint``, saves the weights in the JAX package's npz format,
+which ``launch.serve --checkpoint`` serves. ``main`` is the command
+line; ``train_run`` trains any ``(cfg, model, args)`` in place and
+returns the run's numbers.
 """
 from __future__ import annotations
 

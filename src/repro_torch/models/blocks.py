@@ -22,11 +22,13 @@ runs:
   mode="verify"  speculative verify: W = K+1 tokens per slot at per-slot
                  positions [pos_b, pos_b + W), dense or paged
   mode="train"   the JAX package's full-sequence training forward with no
-                 cache, for the ``"full"`` kind only: the intent gate
-                 scores (query, intent) rows with it under
-                 ``torch.no_grad()`` (serving/neural_planner.py), and
-                 ``model.train_loss`` differentiates it (its attention's
-                 gradient is ``flash_prefill``'s backward kernel)
+                 cache, over every kind: the intent gate scores (query,
+                 intent) rows with it under ``torch.no_grad()``
+                 (serving/neural_planner.py), and ``model.train_loss``
+                 differentiates it (the gradients of its attention,
+                 router, selective scan and mLSTM scan are those
+                 kernels' backward kernels); it returns (x, aux), aux the
+                 MoE layer's load-balance term (0 for every other kind)
 
 JAX arrays are immutable; here the extend, decode and verify writes
 update the cache tensors IN PLACE (the engine clones a shared prefix
@@ -52,9 +54,8 @@ capacity (8) never drops a choice. The JAX package's verify routes all W
 rows as one group with capacity(W), which can drop choices once W > 8;
 at W <= 8 the two agree. Train mode runs prefill's arithmetic (the
 fixed-size row calls, so a row's bits do not depend on the batch) and
-keeps no K/V; over every kind but ``"full"`` it raises
-``NotImplementedError`` naming the queue item that brings it (A11.2:
-each of those kinds needs a backward kernel of its own).
+keeps no K/V and no state: a hymba layer's SSM and an xLSTM layer start
+from a fresh state, as the JAX package's train mode does.
 
 A sliding-window layer (``"hymba_w"``) keeps a ring of
 ``Sc = min(window, cache_len)`` rows: prefill attends over the window
@@ -306,11 +307,15 @@ def _attn_sublayer(p: Block, x, cfg: ModelConfig, mode: str, cache, pos,
     return L.out_proj(p.attn, out), cache
 
 
-def _mlp_tail(p: Block, x, cfg: ModelConfig, fixed: bool = False):
+def _mlp_tail(p: Block, x, cfg: ModelConfig, fixed: bool = False,
+              with_aux: bool = False):
+    """The MLP (or MoE FFN) sub-layer: (x_out, the MoE layer's aux term
+    when ``with_aux``, else None)."""
     h2 = L.rmsnorm(p.norm2.scale, x, cfg.norm_eps, fixed)
     if p.kind == "moe":
-        return x + M.moe_ffn(p.moe, h2, cfg, fixed=fixed)[0]
-    return x + L.mlp(p.mlp, h2, fixed)
+        y, aux = M.moe_ffn(p.moe, h2, cfg, fixed=fixed, with_aux=with_aux)
+        return x + y, aux
+    return x + L.mlp(p.mlp, h2, fixed), None
 
 
 def _verify_block(p: Block, x, cfg: ModelConfig, cache, pos, positions,
@@ -346,51 +351,51 @@ def _verify_block(p: Block, x, cfg: ModelConfig, cache, pos, positions,
     ys = []
     for w, r in enumerate(rows):
         a = out[:, :, w].contiguous()[:, :, None]       # decode's layout
-        ys.append(_mlp_tail(p, r + L.out_proj(p.attn, a), cfg))
+        ys.append(_mlp_tail(p, r + L.out_proj(p.attn, a), cfg)[0])
     return torch.cat(ys, dim=1), cache
-
-
-def _mode_not_ported(mode: str, what: str = "train") -> NotImplementedError:
-    return NotImplementedError(
-        f"mode {mode!r}: {what} comes with the training of the other "
-        f"families (ROADMAP.md queue A11.2)")
 
 
 def _xlstm_block(p: Block, x, cfg: ModelConfig, mode: str, cache):
     """An mLSTM or sLSTM layer: ``x + block(norm1(x))``, its state fresh
-    at prefill and carried at extend and decode."""
+    at prefill and train and carried at extend and decode. Returns
+    (x_out, the state after the last step)."""
     if mode == "verify":
         raise NotImplementedError(
             "verify over recurrent xLSTM state (it cannot be rolled back "
             "by KV-length truncation)")
     kind = p.kind
-    fixed = mode in ("prefill", "extend")
-    if mode == "prefill":
+    if mode in ("prefill", "train"):
         init = (X.mlstm_state_init if kind == "mlstm"
                 else X.slstm_state_init)
         state = init(cfg, x.shape[0], x.device)
     else:
         state = cache[kind]
     fn = X.mlstm_block if kind == "mlstm" else X.slstm_block
-    y, cache[kind] = fn(getattr(p, kind),
-                        L.rmsnorm(p.norm1.scale, x, cfg.norm_eps, fixed),
-                        cfg, state, fixed)
-    return x + y, cache
+    fixed = mode in FIXED_MODES
+    y, state = fn(getattr(p, kind),
+                  L.rmsnorm(p.norm1.scale, x, cfg.norm_eps, fixed), cfg,
+                  state, fixed)
+    return x + y, state
 
 
 def block_apply(p: Block, x, cfg: ModelConfig, *, mode: str, cache,
                 pos, positions, block_tab=None,
                 plan: Optional[WritePlan] = None):
-    """Returns (x_out, cache). ``block_tab`` (decode and verify): the
-    (B, mb) int32 block table of a paged cache, on x's device. ``plan``:
-    the step's ``write_plan``, computed once by the model for all layers
-    (computed here when None)."""
+    """Returns (x_out, cache), or in train mode (x_out, aux): the MoE
+    layer's load-balance term, a 0-d fp32 tensor (0 for every other
+    kind). ``block_tab`` (decode and verify): the (B, mb) int32 block
+    table of a paged cache, on x's device. ``plan``: the step's
+    ``write_plan``, computed once by the model for all layers (computed
+    here when None)."""
     if mode not in MODES:
-        raise _mode_not_ported(mode)
-    if mode == "train" and p.kind != "full":
-        raise _mode_not_ported(mode, f"train over {p.kind!r} layers")
+        raise NotImplementedError(f"mode {mode!r} (modes: {MODES})")
+    train = mode == "train"
     if p.kind in XLSTM_KINDS:
-        return _xlstm_block(p, x, cfg, mode, cache)
+        x, state = _xlstm_block(p, x, cfg, mode, cache)
+        if train:
+            return x, _zero_aux(x)
+        cache[p.kind] = state
+        return x, cache
     if mode == "verify":
         if p.kind in WINDOW_KINDS:
             raise NotImplementedError(
@@ -406,10 +411,21 @@ def block_apply(p: Block, x, cfg: ModelConfig, *, mode: str, cache,
     attn_y, cache = _attn_sublayer(p, h, cfg, mode, cache, pos, positions,
                                    block_tab, plan)
     if p.kind in HYMBA_KINDS:
-        ssm_y, cache["ssm"] = S.ssm_forward(
-            p.ssm, h, cfg, None if mode == "prefill" else cache["ssm"],
-            fixed)
-        y = 0.5 * (L.rmsnorm(p.norm_a.scale, attn_y, cfg.norm_eps, fixed)
-                   + L.rmsnorm(p.norm_s.scale, ssm_y, cfg.norm_eps, fixed))
-        return _mlp_tail(p, x + y, cfg, fixed), cache
-    return _mlp_tail(p, x + attn_y, cfg, fixed), cache
+        ssm_y, state = S.ssm_forward(
+            p.ssm, h, cfg,
+            None if mode in ("prefill", "train") else cache["ssm"], fixed)
+        if not train:
+            cache["ssm"] = state
+        attn_y = 0.5 * (L.rmsnorm(p.norm_a.scale, attn_y, cfg.norm_eps,
+                                  fixed)
+                        + L.rmsnorm(p.norm_s.scale, ssm_y, cfg.norm_eps,
+                                    fixed))
+    x, aux = _mlp_tail(p, x + attn_y, cfg, fixed, with_aux=train)
+    if train:
+        return x, _zero_aux(x) if aux is None else aux
+    return x, cache
+
+
+def _zero_aux(x):
+    """The aux term of a block without an MoE layer."""
+    return torch.zeros((), dtype=torch.float32, device=x.device)

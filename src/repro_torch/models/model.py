@@ -30,10 +30,12 @@ no caller's TF32 setting can reach it. At kimi-k2's vocab the fp32 copy
 of ``lm_head`` is a 4.7 GB temporary per call: keeping it would hold
 4.7 GB more, and a bf16 product would be another function.
 
-``train_loss`` is the JAX package's training forward and loss over a
-``"full"`` stack, differentiable (its attention's gradient on the card
-is ``flash_prefill``'s backward kernel); ``forward_hidden`` is the same
-forward without the loss, under ``no_grad``, for the intent gate.
+``train_loss`` is the JAX package's training forward and loss over any
+of these stacks, differentiable, with the MoE layers' load-balance
+terms added (on the card the gradients of its attention, router,
+selective scan and mLSTM scan are backward kernels);
+``forward_hidden`` is the same forward without the loss, under
+``no_grad``, for the intent gate.
 """
 from __future__ import annotations
 
@@ -214,8 +216,7 @@ def forward_hidden(model: Model, batch):
     ``_apply_stack(mode="train")`` then the final norm), forward only:
     (B, S, d) final-normed hidden states of ``batch["tokens"]`` from
     position 0, no cache. Every product and norm runs in fixed-size row
-    calls, so a row's bits do not depend on B. Dense ``"full"`` stacks
-    only (``blocks.block_apply``)."""
+    calls, so a row's bits do not depend on B."""
     tokens = _tokens(model, batch)
     x, positions = _embed_inputs(model, tokens)
     for blk in model.layers:
@@ -250,30 +251,36 @@ def xent_chunked(model: Model, x, labels, chunk: int = 256):
 
 
 def _train_block(blk: Block, x, positions, cfg: ModelConfig):
+    """One block in train mode: (x, its MoE aux term, 0 for other
+    kinds)."""
     return block_apply(blk, x, cfg, mode="train", cache=None, pos=0,
-                       positions=positions)[0]
+                       positions=positions)
 
 
 def train_loss(model: Model, batch, remat: bool = True):
-    """The training forward and its scalar LM loss, differentiable: the
-    JAX package's ``train_loss`` for a ``"full"`` stack (its MoE aux term
-    is 0 there; ``block_apply`` refuses train mode over every other kind).
-    ``remat`` recomputes each block in the backward
-    (``torch.utils.checkpoint``, non-reentrant), as the JAX package wraps
-    each unit in ``jax.checkpoint``. Tokens and labels move to the
-    model's device."""
+    """The training forward and its scalar loss, differentiable: the JAX
+    package's ``train_loss``, the LM loss plus the sum of the MoE layers'
+    load-balance terms (each ``load_balance_loss * aux_loss_weight``,
+    added in layer order; 0 in a stack without MoE layers). ``remat``
+    recomputes each block in the backward (``torch.utils.checkpoint``,
+    non-reentrant), as the JAX package wraps each unit in
+    ``jax.checkpoint``: the block returns its aux term through the
+    checkpoint, so remat and no remat sum the same terms in the same
+    order. Tokens and labels move to the model's device."""
     tokens = _tokens(model, batch)
     labels = torch.as_tensor(batch["labels"], dtype=torch.long,
                              device=model.device)
     x, positions = _embed_inputs(model, tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=model.device)
     for blk in model.layers:
         if remat:
-            x = checkpoint(_train_block, blk, x, positions, model.cfg,
-                           use_reentrant=False)
+            x, a = checkpoint(_train_block, blk, x, positions, model.cfg,
+                              use_reentrant=False)
         else:
-            x = _train_block(blk, x, positions, model.cfg)
+            x, a = _train_block(blk, x, positions, model.cfg)
+        aux = aux + a
     x = L.rmsnorm(model.final_norm.scale, x, model.cfg.norm_eps, fixed=True)
-    return xent_chunked(model, x, labels)
+    return xent_chunked(model, x, labels) + aux
 
 
 @torch.no_grad()

@@ -26,7 +26,10 @@ function (the JAX package's ``_dispatch_gather``):
     weights cast to the activation dtype, in choice order.
 
 The load-balance loss is computed only when a caller asks for it
-(``with_aux``): no serve mode needs it.
+(``with_aux``): training does (``model.train_loss`` adds it), no serve
+mode does. Under grad the routing weights' gradient is the router's
+backward kernel (``KB.router_topk`` goes through ``MoeRouterFn``); the
+expert products and the dispatch are differentiated by autograd.
 """
 from __future__ import annotations
 

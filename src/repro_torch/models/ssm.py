@@ -11,7 +11,9 @@ which cuDNN runs in TF32 on the card), ``dt`` is the softplus in the
 activation dtype, then fp32, the scan runs in fp32 through the kernel op
 surface (``KB.selective_scan``: the Hopper ``ssm_scan`` on the card, its
 sequential plain version on the CPU), then ``y + x D``, ``y silu(z)``,
-cast to bf16, and ``out_proj``.
+cast to bf16, and ``out_proj``. Under grad (training) the scan's
+gradient is its backward kernel (``KB.selective_scan`` goes through
+``SsmScanFn``).
 
 The JAX reference scans in chunks with an associative scan; the port's
 scan is sequential everywhere, so the two sum the state in other orders

@@ -22,9 +22,11 @@ non-reference path (``mlstm_seq`` with a kernel backend), the sequential
 recurrence; the JAX reference backend runs the chunkwise form
 (``_mlstm_chunk``: the same function, its numerator summed in another
 order), so the two differ by rounding, which the tests hold with stated
-tolerances. The sLSTM has no TPU kernel: its input projection is one
-product over all S rows (the rows are independent), its recurrent
-``R h`` a per-step loop, as JAX's ``lax.scan`` is.
+tolerances. Under grad (training) the scan's gradient is its backward
+kernel (``KB.mlstm_scan`` goes through ``MlstmScanFn``). The sLSTM has
+no TPU kernel: its input projection is one product over all S rows (the
+rows are independent), its recurrent ``R h`` a per-step loop, as JAX's
+``lax.scan`` is, differentiated by autograd as it is.
 
 ``fixed`` (prefill and extend) runs every row product and norm in
 fixed-size calls (``layers.matmul_rows``, ``layers.rmsnorm``), so a

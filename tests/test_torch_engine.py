@@ -234,5 +234,6 @@ def test_engine_runs_no_kernel_on_cpu(pair):
         "flash_prefill": 0, "flash_decode": 0, "flash_decode_paged": 0,
         "flash_verify": 0, "flash_verify_paged": 0,
         "moe_router_topk": 0, "ssm_scan": 0, "mlstm_scan": 0,
-        "flash_prefill_bwd": 0}
+        "flash_prefill_bwd": 0, "moe_router_bwd": 0, "ssm_scan_bwd": 0,
+        "mlstm_scan_bwd": 0}
     assert model.device == torch.device("cpu")

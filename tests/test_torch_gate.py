@@ -130,14 +130,14 @@ def test_forward_matches_the_reference_stack(pair):
 
 
 def test_train_mode_stays_forward_only_and_dense():
-    """Train mode covers the ``"full"`` kind only (other kinds raise
-    naming A11.2); under grad it is differentiable (the training slice,
-    ``model.train_loss``), and the gate's ``forward_hidden`` stays
-    forward-only (no graph)."""
+    """Train mode covers every kind (an xlstm-smoke stack's hidden states
+    come out, with no graph); under grad it is differentiable (the
+    training slices, ``model.train_loss``), and the gate's
+    ``forward_hidden`` stays forward-only (no graph)."""
     cfg = get_smoke_config("xlstm-125m")
     model = TM.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        TM.forward_hidden(model, {"tokens": [[1, 2, 3, 4]]})
+    hid = TM.forward_hidden(model, {"tokens": [[1, 2, 3, 4]]})
+    assert hid.shape == (1, 4, cfg.d_model) and hid.grad_fn is None
     planner = TM.init_params(get_smoke_config("planner-proxy-100m"), seed=0,
                              device="cpu")
     from repro_torch.models.blocks import block_apply

@@ -194,7 +194,8 @@ def test_cpu_wrappers_do_not_count_launches():
     assert KB.launch_counts() == {
         "flash_prefill": 0, "flash_decode": 0, "flash_decode_paged": 0,
         "flash_verify": 0, "flash_verify_paged": 0, "moe_router_topk": 0,
-        "ssm_scan": 0, "mlstm_scan": 0, "flash_prefill_bwd": 0}
+        "ssm_scan": 0, "mlstm_scan": 0, "flash_prefill_bwd": 0,
+        "moe_router_bwd": 0, "ssm_scan_bwd": 0, "mlstm_scan_bwd": 0}
 
 
 def test_wrappers_refuse_other_devices():

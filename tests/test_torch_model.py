@@ -221,8 +221,9 @@ def test_no_card_and_no_device_raises():
 @pytest.mark.parametrize("mode", ["train", "verify"])
 def test_unported_modes_raise(pair, mode):
     """Both are ported: verify (a 2-row window against a dense B=1
-    cache) and train (differentiable over a ``"full"`` layer); train
-    over another kind raises naming its queue item."""
+    cache) and train (differentiable over a ``"full"`` layer, and over
+    every other kind since the training of the other families: here an
+    mLSTM layer, with its aux term 0)."""
     _, _, model = pair
     from repro_torch.models.blocks import block_apply, block_cache_init
     x = torch.zeros(1, 2, 256, dtype=torch.bfloat16)
@@ -238,6 +239,8 @@ def test_unported_modes_raise(pair, mode):
                        mode=mode, cache=None, pos=0, positions=positions)
     assert y.shape == x.shape and y.requires_grad
     xl = TM.init_params(get_smoke_config("xlstm-125m"), seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        block_apply(xl.layers[0], x, xl.cfg, mode=mode, cache=None,
-                    pos=0, positions=positions)
+    xs = torch.zeros(1, 2, xl.cfg.d_model, dtype=torch.bfloat16,
+                     requires_grad=True)
+    y, aux = block_apply(xl.layers[0], xs, xl.cfg, mode=mode, cache=None,
+                         pos=0, positions=positions)
+    assert y.shape == xs.shape and y.requires_grad and float(aux) == 0.0
