@@ -70,8 +70,8 @@ launcher's ``serve_cluster`` (the JAX launcher's cluster example: 32
 bursty sessions of up to 2 turns, skew 0.7, 16 new tokens at T = 0.8,
 8 slots and a 2,048-row cache a replica, replicas sharing the model):
 1 replica under round robin, 4 under each of the three routers, then
-intent affinity with paged KV, with speculative decoding dense and
-paged, and with SLA spill; every served request's tokens must equal the
+intent affinity with paged KV, with speculative decoding (--draft-k 2)
+dense and paged, and with SLA spill; every served request's tokens must equal the
 1-replica run's, affinity's prefix-hit ratio must beat round robin's,
 and each run must launch its attention kernels. Then the
 GeckOpt path at the planner's full width, through
@@ -123,7 +123,7 @@ version at hymba's prefill and decode shapes, with each output's sha256
 of one scan); the window variant of the prefill kernel and the decode
 kernel over a ring at hymba's heads (25/5 of 64); two serve runs that
 must serve the same tokens, the recycled slots' requests against a
-fresh engine (bitwise); prefix hits on a 1,300-token prefix against
+fresh engine (bitwise); prefix hits on a 1,100-token prefix against
 misses (admission logits within HIT_MISS_TOL, tokens that agree
 printed); ~1,000-token prompts whose decode crosses every ring's wrap
 (decode logits against a windowed prefill within HIT_MISS_TOL); the
@@ -143,7 +143,23 @@ recycled slots' requests against a fresh engine; budgeted prefill and 8
 prefix hits on a 1,300-token prefix against monolithic prefill
 (admission logits and tokens bitwise); the refusals of paged KV and
 speculative decoding; a profile of its decode step; card vs CPU on
-xlstm-smoke. It prints one JSON line per phase. It fails (non-zero exit, no result line) when
+xlstm-smoke. Then the dense families: qwen1.5-32b at its published
+widths (40/40 heads of 128: G = 1, q/k/v biases, an untied head of
+152,064 ids), its depth cut to 4 of 64 layers, served monolithic, paged
+with a pool that preempts, speculative (--draft-k 4, self-draft accept
+rate 1.0) and budgeted (1,024), every run's tokens equal, budgeted and
+prefix-hit equalities on 1,300-token prompts and a decode profile;
+starcoder2-3b (30 ``"local"`` layers, 24/2 heads, GELU MLP) and
+gemma2-2b (``"local"`` / ``"full"`` x 13, 8/4 heads of 256, softcaps 50
+and 30) at full width and depth: two dense serve runs, the recycled
+slots' requests against a fresh engine, the refusals of paged KV,
+chunked prefill and speculative decoding, and gemma2's ring crossing
+(prompts of 4,040-4,082 tokens whose decode crosses its 4,096-row rings,
+decode logits against a windowed prefill); card vs CPU on the four
+smoke configs. The attention kernels' cases include head dims 16
+(qwen1.5-110b-smoke's 8/2) and 256 (gemma2's 8/4, its cap and window)
+and qwen's G = 1. Every phase line carries ``t``, the seconds since the
+start. It prints one JSON line per phase. It fails (non-zero exit, no result line) when
 no card is present, when it does not run from a checkout of the
 repository, or when any phase fails. ``--kernels-only`` stops after the
 kernel cases (a quick check of a kernel change; it prints no result
@@ -271,13 +287,22 @@ B_SLOTS, HQ, HKV, HD, CACHE, BS, WIN = 8, 12, 4, 64, 2048, 16, 5
 # of 8: K copied by the block's threads), 24 (a multiple of 8 that does
 # not divide a tile; its tables cover 2,064 rows) and 256 (past a tile)
 OTHER_BS = (8, 12, 24, 256)
+# the head dims the attention kernels are built for
+ATTN_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def emit(phase: str, **kw):
-    """Print one phase's JSON line; chip_smoke.json keeps every entry of
+    """Print one phase's JSON line with the seconds since the start
+    (``t``) and append it to chiprun_out/chip_smoke.jsonl (which keeps
+    the lines of a run that fails); chip_smoke.json keeps every entry of
     a phase that repeats (a kernel's cases) in a list."""
+    kw["t"] = round(time.time() - T_START, 2)
     RESULTS.setdefault(phase, []).append(kw)
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    line = json.dumps({"phase": phase, **kw}, default=str)
+    print(line, flush=True)
+    OUT_DIR.mkdir(exist_ok=True)
+    with open(OUT_DIR / "chip_smoke.jsonl", "a") as f:
+        f.write(line + "\n")
 
 
 def check(ok: bool, msg: str):
@@ -312,17 +337,18 @@ def _mk(gen, *shape):
 
 
 def prefill_case(Sq, Sk, q_offset, gen, heads=(HQ, HKV, HD), window=0,
-                 device=False, batch=1):
+                 device=False, batch=1, cap=0.0):
     """flash_prefill against its plain version on ``batch`` rows, with its
-    CUDA-event time beside the plain version's and SDPA's and the bound;
-    ``device`` adds its device time a call (``torch.profiler``)."""
+    CUDA-event time beside the plain version's and SDPA's (none under a
+    softcap: no one call computes it) and the bound; ``device`` adds its
+    device time a call (``torch.profiler``)."""
     from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.ref import attention_ref
     import torch.nn.functional as F
     Hq, Hkv, hd = heads
     q, k, v = _mk(gen, batch, Hq, Sq, hd), _mk(gen, batch, Hkv, Sk, hd), \
         _mk(gen, batch, Hkv, Sk, hd)
-    kw = dict(causal=True, q_offset=q_offset, window=window)
+    kw = dict(causal=True, q_offset=q_offset, window=window, cap=cap)
     out = flash_prefill(q, k, v, **kw)
     ref = attention_ref(q, k, v, **kw)
     err = err_ok(out, ref)
@@ -333,21 +359,20 @@ def prefill_case(Sq, Sk, q_offset, gen, heads=(HQ, HKV, HD), window=0,
         mask &= qpos[:, None] - kpos[None, :] < window
     ms = cuda_ms(lambda: flash_prefill(q, k, v, **kw))
     plain = cuda_ms(lambda: attention_ref(q, k, v, **kw), iters=5)
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, enable_gqa=True))
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+    lib = None if cap else cuda_ms(sdpa)
     pairs = batch * int(mask.sum())               # this run's (q,k) pairs
     keys = min(Sk, q_offset + Sq)
     nbytes = 2 * hd * batch * (2 * Hq * Sq + 2 * Hkv * keys)
     b_ms, b_by = bound(nbytes, 4 * hd * Hq * pairs)
     out = dict(B=batch, Sq=Sq, Sk=Sk, q_offset=q_offset, window=window,
-               heads=list(heads), max_abs_err=err, ms=ms, plain_ms=plain,
-               library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+               cap=cap, heads=list(heads), max_abs_err=err, ms=ms,
+               plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
     if device:
         out["device_ms"] = device_ms(lambda: flash_prefill(q, k, v, **kw),
                                      "flash_prefill_kernel")
-        out["library_device_ms"] = device_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                   enable_gqa=True))
+        out["library_device_ms"] = None if cap else device_ms(sdpa)
     return out
 
 
@@ -644,11 +669,12 @@ MOE_HEADS = {"kimi": (64, 8), "arctic": (56, 8)}
 # shuffled tables with sentinel tails at every block size (BS and
 # OTHER_BS), the dense kernels on the gathered view: every group size the
 # served configs have (the planner's 3, hymba's 5, arctic's 7, kimi's 8),
-# verify windows W 1, 5, 9, 22 (--draft-k 0, 4, 8, 21), head dims 32, 64,
-# 128, plain and softcapped, over ragged slots that include an empty one
+# verify windows W 1, 5, 9, 22 (--draft-k 0, 4, 8, 21), head dims 16, 32,
+# 64, 128, 256, plain and softcapped, over ragged slots that include an
+# empty one
 # and ones shorter than W
 SWEEP_G, SWEEP_W, SWEEP_HD, SWEEP_CAP = (3, 5, 7, 8), (1, 5, 9, 22), \
-    (32, 64, 128), (0.0, 30.0)
+    (16, 32, 64, 128, 256), (0.0, 30.0)
 SWEEP_KV = [0, 1, 2048, 300, 1025, 21, 777, 1300]
 
 
@@ -710,8 +736,9 @@ def verify_over_64_cases(gen):
 
 # prefill == extend, bitwise: the rows of one 1,300-token prefill against
 # extends at these (q_offset, Sq) over a 2,048-row cache whose rows past
-# the extend hold stale finite values; head dims 64, 128 and 32 with the
-# planner's, kimi-k2's and arctic's heads; causal, window 1,024, softcap
+# the extend hold stale finite values; head dims 64, 128, 32, 16 and 256
+# with the planner's, kimi-k2's, arctic's, qwen1.5-110b-smoke's and
+# gemma2's heads; causal, window 1,024, softcap
 PREFILL_S = 1300
 EXTENDS = [(1, 276), (63, 1), (64, 64), (700, 276), (1024, 276), (1292, 8)]
 PREFILL_VARIANTS = {"causal": {}, "window": dict(window=1024),
@@ -727,7 +754,9 @@ def prefill_extend_cases(gen):
     from repro_torch.kernels.ref import attention_ref
     out = []
     for hd, (hq, hkv) in ((HD, (HQ, HKV)), (128, MOE_HEADS["kimi"]),
-                          (32, MOE_HEADS["arctic"])):
+                          (32, MOE_HEADS["arctic"]),
+                          (16, DENSE_HEADS["qwen110_smoke"][:2]),
+                          (256, DENSE_HEADS["gemma2"][:2])):
         for name, kw in PREFILL_VARIANTS.items():
             q = _mk(gen, 1, hq, PREFILL_S, hd)
             kc, vc = _mk(gen, 1, hkv, CACHE, hd), _mk(gen, 1, hkv, CACHE, hd)
@@ -777,6 +806,47 @@ def head_dim_cases(gen):
     return out
 
 
+# the dense A12 families' heads (Hq, Hkv, hd): qwen1.5-110b-smoke's 8/2
+# of 16, gemma2-2b's 8/4 of 256 (attention softcap 50, window 4,096) and
+# qwen1.5-32b's MHA 40/40 of 128 (G = 1)
+DENSE_HEADS = {"qwen110_smoke": (8, 2, 16), "gemma2": (8, 4, 256),
+               "qwen32": (40, 40, 128)}
+GEMMA2_CAP, GEMMA2_WINDOW = 50.0, 4096
+
+
+def dense_head_cases(gen):
+    """The five attention kernels at the dense families' heads: prefill at
+    Sq = Sk = 1,024 and an extend at q_offset 700 over 2,048 keys,
+    causal, windowed and capped (at hd 256 gemma2's cap 50 and its 4,096
+    window over 5,120 keys, more than the window); the decode family
+    over 8 ragged slots of a 2,048 cache with its three bitwise
+    equalities; at qwen1.5-32b's G = 1 the same decode cases and the
+    plain prefills. The first prefill case of each has its device time
+    a call."""
+    out = []
+    for fam, heads in DENSE_HEADS.items():
+        tag = dict(family=fam, hd=heads[2])
+        pre = [(1024, 1024, 0, {}), (1024, 2048, 700, {})]
+        if fam == "gemma2":
+            pre += [(1024, 1024, 0, dict(cap=GEMMA2_CAP)),
+                    (1024, 5120, 4096, dict(cap=GEMMA2_CAP,
+                                            window=GEMMA2_WINDOW))]
+        elif fam == "qwen110_smoke":
+            pre += [(1024, 1024, 0, dict(cap=30.0)),
+                    (1024, 2048, 1024, dict(window=1024))]
+        for i, (sq, sk, off, kw) in enumerate(pre):
+            out.append(("kernel_prefill",
+                        dict(prefill_case(sq, sk, off, gen, heads,
+                                          device=i == 0, **kw), **tag)))
+        out.append(("kernel_decode",
+                    dict(decode_case(KV_LENS, CACHE, gen, heads), **tag)))
+        out.append(("kernel_decode_paged",
+                    dict(paged_decode_case(gen, heads), **tag)))
+        for name, c in verify_cases(gen, heads).items():
+            out.append((f"kernel_{name[6:]}", dict(c, **tag)))
+    return out
+
+
 def _ptxas_registers(log: str, symbol: str) -> list:
     """The 'Used N registers' figures nvcc reports for kernels whose
     mangled name contains ``symbol``."""
@@ -820,7 +890,7 @@ def prefill_sass(build: Path) -> dict:
                 counts[fn] = 0
         elif fn and "HGMMA" in line:
             counts[fn] += 1
-    check(sorted(counts) == ["hd128", "hd32", "hd64"]
+    check(sorted(counts) == sorted(f"hd{h}" for h in ATTN_HEAD_DIMS)
           and all(counts.values()),
           f"flash_prefill's SASS lacks HGMMA instructions: {counts}")
     return counts
@@ -1218,7 +1288,7 @@ MOE_MODES = {
         ("paged", PAGED, 32, _MOE + ("flash_decode_paged",))]}
 
 
-def serve_runs(arch, cfg, model, modes):
+def serve_runs(arch, cfg, model, modes, prompts=None):
     """``model`` (built for ``cfg``) through the launcher's serving
     function once per mode: 8 slots, cache 2048, 16 requests, T=0. Each
     run has the launch counts of its own run and must launch the mode's
@@ -1226,8 +1296,9 @@ def serve_runs(arch, cfg, model, modes):
     ``max_new``), a spec run's self-draft accept rate must be exactly 1.0
     and a pool that preempts must resume as often. The planner's closing
     dense run brackets the others, so their times compare with a dense
-    run that is not the process's first serve. Returns the runs and the
-    first mode's outputs by request id."""
+    run that is not the process's first serve. ``prompts`` replaces the
+    launcher's request prompts. Returns the runs and the first mode's
+    outputs by request id."""
     from repro_torch.kernels import backend as KB
     from repro_torch.launch.serve import parse_args, serve
     runs, ref = {}, None
@@ -1236,7 +1307,7 @@ def serve_runs(arch, cfg, model, modes):
         res = serve(cfg, model, parse_args(
             ["--arch", arch, "--max-batch", "8", "--cache-len", "2048",
              "--requests", "16", "--max-new", str(max_new),
-             "--temperature", "0"] + extra))
+             "--temperature", "0"] + extra), prompts)
         counts = KB.launch_counts()
         check(res["requests"] == 16, f"{arch} {name}: served "
                                      f"{res['requests']}")
@@ -1410,7 +1481,7 @@ def profile_decode(cfg, model, steps: int, trace: str, **kw):
     return res
 
 
-def profile_spec(cfg, model, rounds: int = 4, **kw):
+def profile_spec(cfg, model, rounds: int = 2, **kw):
     """Where a full-width speculative round's time goes: the host clock
     around the draft's steps (``spec.draft`` + ``spec.catch_up``, each
     ending in a synchronize) against the whole round, and device time
@@ -2439,6 +2510,10 @@ def sampler_card_vs_cpu():
 # at the planner's full width: 32 sessions, bursty, skew 0.7, up to 2
 # turns, 16 new tokens at T = 0.8, 8 slots a replica, cache 2,048;
 # (name, replicas, router, extra flags, kernels the run must launch)
+# the cluster's spec runs draft 2 tokens a round (the planner's serve runs
+# take 4 and 21): at T = 0.8 a round of k drafts and a k+1-row verify
+# emits ~1 token, so k 4 made each of the two runs ~5x a plain one
+CLUSTER_SPEC = ["--spec-decode", "--draft-k", "2"]
 CLUSTER_FLAGS = ["--requests", "32", "--profile", "bursty", "--skew", "0.7",
                  "--turns", "2", "--max-new", "16", "--temperature", "0.8",
                  "--max-batch", "8", "--cache-len", "2048"]
@@ -2450,9 +2525,9 @@ CLUSTER_RUNS = [
     ("affinity_4", 4, "intent_affinity", [], _DENSE),
     ("affinity_4_paged", 4, "intent_affinity", PAGED,
      ("flash_prefill", "flash_decode_paged")),
-    ("affinity_4_spec", 4, "intent_affinity", SPEC,
+    ("affinity_4_spec", 4, "intent_affinity", CLUSTER_SPEC,
      ("flash_prefill", "flash_verify")),
-    ("affinity_4_paged_spec", 4, "intent_affinity", PAGED + SPEC,
+    ("affinity_4_paged_spec", 4, "intent_affinity", PAGED + CLUSTER_SPEC,
      ("flash_prefill", "flash_verify_paged")),
     ("affinity_4_sla_spill", 4, "intent_affinity", ["--sla-spill"], _DENSE)]
 
@@ -2649,17 +2724,18 @@ def _t0():
     return SamplerConfig(temperature=0.0)
 
 
-def recycled_slots(cfg, model, outputs):
+def recycled_slots(cfg, model, outputs, prompts=None):
     """The 16-request serve's last wave (requests 8-15, served in slots
     that served requests 0-7 first) against a fresh engine serving those
     8 prompts alone: equal tokens (decode runs at B = max_batch either
     way, so a slot's rows depend on its neighbours only if state
-    leaks)."""
+    leaks). ``prompts``: the serve's, where not the launcher's."""
     from repro_torch.launch.serve import request_prompts
     from repro_torch.serving.engine import InferenceEngine
     eng = InferenceEngine(cfg, model, max_batch=8, cache_len=2048)
+    prompts = request_prompts(cfg, 16) if prompts is None else prompts
     rids = [eng.add_request(p, max_new_tokens=64, sampler=_t0())
-            for p in request_prompts(cfg, 16)[8:]]
+            for p in prompts[8:]]
     done = {r.request_id: r.output for r in eng.run_until_done()}
     same = [done[r] == outputs[8 + i] for i, r in enumerate(rids)]
     check(all(same), f"{cfg.name}: recycled slots' tokens differ from a "
@@ -2680,10 +2756,11 @@ def _recording_engine(cfg, model, rec: dict, **kw):
     return eng
 
 
-def hymba_hit_miss(cfg, model, prefix_len=1300, n=8, max_new=16):
-    """8 prompts of a 1,300-token prefix plus 8-36 tokens, served as
+def hymba_hit_miss(cfg, model, prefix_len=1100, n=4, max_new=16):
+    """4 prompts of a 1,100-token prefix plus 8-20 tokens, served as
     prefix hits (``register_prefix``: the 1,024-token head prefilled, the
-    276-token tail decoded through the rings; each suffix decoded) and as
+    76-token tail decoded through the rings, past the 1,024-row window;
+    each suffix decoded) and as
     misses (one windowed prefill each). Admission logits within
     HIT_MISS_TOL and HIT_MISS_REL; the count of equal tokens is printed
     (two computations, in JAX too: not asserted)."""
@@ -2732,19 +2809,24 @@ def hymba_hit_miss(cfg, model, prefix_len=1300, n=8, max_new=16):
     return res
 
 
-def hymba_long(cfg, model):
-    """8 prompts of 980-1,022 tokens and 64 new tokens each, so every
-    slot's decode crosses position 1,024 in each hymba_w ring; the
-    logits of request 0's decode at position len + 62 (past the wrap)
-    against one windowed prefill of its prompt and its first 63 tokens,
-    within HIT_MISS_TOL and HIT_MISS_REL."""
+def ring_long(cfg, model, first=980, cache_len=2048):
+    """8 prompts of ``first`` to ``first`` + 42 tokens and 64 new tokens
+    each, so every slot's decode crosses position ``cfg.window`` in each
+    sliding-window ring (hymba's 1,024 from 980 tokens; gemma2's 4,096
+    from 4,040, at a cache that holds them); the logits of request 0's
+    decode at position len + 62 (past the wrap) against one windowed
+    prefill of its prompt and its first 63 tokens, within HIT_MISS_TOL
+    and HIT_MISS_REL."""
     from repro_torch.kernels import backend as KB
     from repro_torch.models.model import prefill
     from repro_torch.serving import engine as E
     rng = np.random.default_rng(8)
-    prompts = [rng.integers(6, cfg.vocab_size, 980 + 6 * i).tolist()
+    prompts = [rng.integers(6, cfg.vocab_size, first + 6 * i).tolist()
                for i in range(8)]
-    eng = E.InferenceEngine(cfg, model, max_batch=8, cache_len=2048)
+    check(first < cfg.window < first + 42 + 64 <= cache_len,
+          f"{cfg.name}: prompts of {first} tokens do not cross the "
+          f"{cfg.window}-row ring within a {cache_len}-row cache")
+    eng = E.InferenceEngine(cfg, model, max_batch=8, cache_len=cache_len)
     step_logits, orig = [], E.decode_step
 
     def record(*a, **kw):
@@ -2763,11 +2845,12 @@ def hymba_long(cfg, model):
         E.decode_step = orig
     wall = time.time() - t0
     out0 = done[rids[0]].output
-    check(len(out0) == 64, f"hymba long: request 0 stopped at {len(out0)}")
-    lg, _ = prefill(model, {"tokens": [prompts[0] + out0[:63]]}, 2048)
+    check(len(out0) == 64, f"{cfg.name} long: request 0 stopped at "
+                           f"{len(out0)}")
+    lg, _ = prefill(model, {"tokens": [prompts[0] + out0[:63]]}, cache_len)
     diff, rel = logit_gap(step_logits[62], lg[0].float().cpu())
     check(diff <= HIT_MISS_TOL and rel <= HIT_MISS_REL,
-          f"hymba long: ring-crossing decode logits differ from a "
+          f"{cfg.name} long: ring-crossing decode logits differ from a "
           f"windowed prefill by {diff} (relative {rel})")
     st = eng.throughput_stats()
     return dict(prompt_tokens=[len(p) for p in prompts],
@@ -2783,8 +2866,8 @@ def hymba_long(cfg, model):
 def refusals(cfg, model, names=("paged", "prefill_budget", "spec")):
     """The engine modes ``names`` raise on ``cfg``'s stack: paged KV,
     chunked prefill and speculative decoding on hymba (recurrent state
-    and rings), paged KV and speculative decoding on xlstm (recurrent
-    state): JAX's reasons."""
+    and rings), starcoder2 and gemma2 (rings), paged KV and speculative
+    decoding on xlstm (recurrent state): JAX's reasons."""
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.serving.specdec import SpecConfig
     modes = {"paged": lambda: dict(kv_mode="paged"),
@@ -2832,7 +2915,7 @@ def hymba_phases():
         emit(f"hymba_serve_{name}", **r)
     emit("hymba_recycled", **recycled_slots(cfg, model, outputs))
     emit("hymba_hit_miss", **hymba_hit_miss(cfg, model))
-    emit("hymba_long", **hymba_long(cfg, model))
+    emit("hymba_long", **ring_long(cfg, model))
     emit("hymba_refusals", **refusals(cfg, model))
     emit("hymba_decode_profile", **profile_decode(
         cfg, model, 5, "hymba_decode_trace.json"))
@@ -2950,6 +3033,105 @@ def xlstm_phases():
     return runs
 
 
+# ------------------------ the dense families qwen1.5, starcoder2, gemma2 ----
+
+QWEN = "qwen1.5-32b"
+QWEN_LAYERS = 4
+# (name, extra serve flags, new tokens, kernels the run must launch)
+QWEN_MODES = [
+    ("monolithic", [], 64, _DENSE),
+    ("paged_tight", PAGED + ["--kv-blocks", "24"], 64,
+     ("flash_prefill", "flash_decode_paged")),
+    ("spec", SPEC, 61, ("flash_prefill", "flash_verify")),
+    ("budget_1024", ["--prefill-budget", "1024"], 64, _DENSE)]
+WINDOW_MODES = [("dense", [], 64, _DENSE), ("dense_again", [], 64, _DENSE)]
+# gemma2's ring crossing: prompts of 4,040-4,082 tokens, 64 new tokens
+# each, at a cache that holds them
+GEMMA2_LONG, GEMMA2_LONG_CACHE = 4040, 4224
+DENSE_SMOKE = ("qwen1.5-32b", "qwen1.5-110b", "starcoder2-3b", "gemma2-2b")
+
+
+def dense_init(arch: str, cfg, note: str):
+    """``cfg``'s model on the card, its init timed (the weights are drawn
+    in fp32 on the host, ``layers.normal_param``) and emitted."""
+    from repro_torch.models.model import count_params, init_params
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    model = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    emit(f"dense_init_{arch}", depth=note, layers=len(cfg.layer_kinds()),
+         kinds=sorted(set(cfg.layer_kinds())), d_model=cfg.d_model,
+         heads=[cfg.n_heads, cfg.n_kv_heads, cfg.d_head], d_ff=cfg.d_ff,
+         mlp_act=cfg.mlp_act, window=cfg.window, qkv_bias=cfg.qkv_bias,
+         caps=[cfg.attn_softcap, cfg.final_softcap], vocab=cfg.vocab_size,
+         params=count_params(model), init_seconds=time.time() - t0,
+         weights_gb=torch.cuda.memory_allocated() / 1e9)
+    return model
+
+
+def dense_phases():
+    """qwen1.5-32b at its published widths, its depth cut to 4 of 64
+    layers (64 layers are ~65 GB of weights; with a 2,048-row cache for
+    8 slots they pass the card): the serve runs (monolithic, paged with a
+    pool that preempts, spec k 4, budget 1,024: equal tokens), budgeted
+    and prefix-hit equalities, a decode profile; starcoder2-3b and
+    gemma2-2b at full width and depth: two dense serve runs, recycled
+    slots, the refusals of paged, budget and spec, and for gemma2 the
+    ring crossing; each model freed before the next; then card vs CPU on
+    the four smoke configs. Returns each arch's serve runs."""
+    import gc
+    from repro_torch.configs import get_config, get_smoke_config
+    results = {}
+    for arch in (QWEN, "starcoder2-3b", "gemma2-2b"):
+        cfg = get_config(arch)
+        if arch == QWEN:
+            cfg = cfg.replace(n_layers=QWEN_LAYERS,
+                              segments=((("full",), QWEN_LAYERS),))
+            note = (f"{QWEN_LAYERS} of 64 layers, widths unchanged")
+        else:
+            note = "not cut"
+        model = dense_init(arch, cfg, note)
+        prompts = None
+        if arch == "gemma2-2b":
+            # random weights at gemma2's sqrt(d) embedding scale echo a
+            # prompt's last token, and the launcher's prompts end in
+            # <eos>: served as they are, every request ends at its first
+            # token; the same texts without the <eos> decode on
+            from repro_torch.launch.serve import request_prompts
+            prompts = [p[:-1] for p in request_prompts(cfg, 16)]
+        runs, outputs = serve_runs(arch, cfg, model, QWEN_MODES
+                                   if arch == QWEN else WINDOW_MODES,
+                                   prompts)
+        for name, r in runs.items():
+            emit(f"dense_serve_{arch}_{name}", **r)
+        if arch == QWEN:
+            t0 = time.time()
+            eq = equality_runs(cfg, model, 1300, 8, 32)
+            for name in ("budget_1024", "prefix_hit"):
+                check(eq[name]["tokens_differing"] == 0,
+                      f"{arch} {name}: tokens differ from monolithic "
+                      f"prefill")
+            emit(f"dense_equalities_{arch}", seconds=time.time() - t0, **eq)
+            emit(f"dense_decode_profile_{arch}", **profile_decode(
+                cfg, model, 5, "qwen_decode_trace.json"))
+        else:
+            emit(f"dense_recycled_{arch}",
+                 **recycled_slots(cfg, model, outputs, prompts))
+            emit(f"dense_refusals_{arch}", **refusals(cfg, model))
+        if arch == "gemma2-2b":
+            emit(f"dense_long_{arch}", **ring_long(
+                cfg, model, GEMMA2_LONG, GEMMA2_LONG_CACHE))
+        emit(f"dense_memory_{arch}",
+             max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+        results[arch] = runs
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in DENSE_SMOKE:
+        emit(f"card_vs_cpu_{arch}", **card_vs_cpu(get_smoke_config(arch)))
+    return results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
@@ -2958,6 +3140,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    (OUT_DIR / "chip_smoke.jsonl").unlink(missing_ok=True)
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.flash_decode_paged import flash_decode_paged
@@ -2990,8 +3173,12 @@ def main(argv=None) -> int:
         "\n".join(f"== {k}\n{v}" for k, v in logs.items())
         + f"\n== flash_prefill SASS: HGMMA instructions by head dim "
           f"(cuobjdump -sass)\n{json.dumps(hgmma)}\n")
+    # registers and spills by head dim (a spill is recorded, not failed:
+    # hd 256 keeps 128 fp32 accumulators a thread)
     emit("build_prefill_sass", hgmma=hgmma,
          registers=_ptxas_registers(logs["flash_prefill"], "flash_prefill"),
+         instances=ptxas_instances(logs["flash_prefill"],
+                                   "flash_prefill_kernel"),
          ptxas=[ln.strip() for ln in logs["flash_prefill"].splitlines()
                 if "Used" in ln or "smem" in ln or "spill" in ln])
     decode_ptxas = {k: ptxas_instances(logs[src], f"{k}_kernel")
@@ -3000,7 +3187,7 @@ def main(argv=None) -> int:
                                     "flash_decode_paged"),
                                    ("flash_verify", "flash_verify"),
                                    ("flash_verify_paged", "flash_verify"))}
-    check(all(sorted(i["hd"] for i in v) == [32, 64, 128]
+    check(all(sorted(i["hd"] for i in v) == list(ATTN_HEAD_DIMS)
               and all(i.get("registers") for i in v)
               for v in decode_ptxas.values()),
           f"ptxas report lacks the decode instances: {decode_ptxas}")
@@ -3057,6 +3244,7 @@ def main(argv=None) -> int:
     hd_cases += verify_over_64_cases(gen)
     hd_cases += block_size_cases(gen)
     hd_cases.append(("kernel_decode", wide_group_case(gen)))
+    hd_cases += dense_head_cases(gen)
     for phase, c in hd_cases:
         emit(phase, **c)
     emit("kernel_decode_family_sweep", **decode_family_sweep(gen))
@@ -3097,6 +3285,7 @@ def main(argv=None) -> int:
     moe = moe_phases()
     hymba = hymba_phases()
     xlstm = xlstm_phases()
+    dense = dense_phases()
 
     # each kernel's launches come from the run of the path it serves;
     # its times from its case at the main path's widest shape (the
@@ -3136,6 +3325,10 @@ def main(argv=None) -> int:
         # every run of the replica cluster together
         rows[-1]["cluster_launches"] = sum(
             r["launches"][fn.__name__] for r in cluster.values())
+        # each dense family's serve runs together
+        rows[-1]["dense_launches"] = {
+            arch: sum(x["launches"][fn.__name__] for x in r.values())
+            for arch, r in dense.items()}
     # the training runs without remat: the planner's 30 steps and the
     # families' 10 (arctic's and hymba's attention)
     rows[0]["train_launches"] = (

@@ -33,7 +33,9 @@
 // what the card changes):
 //
 //   * a warp owns one row for the whole walk over the keys: m, l and acc
-//     live in its registers (HD/32 fp32 of acc per lane); no row state
+//     live in its registers (HD/32 fp32 of acc per lane; at HD 16 lanes
+//     l and l + 16 both hold column l % 16, and lane l < 16 writes it);
+//     no row state
 //     passes through shared memory and no block barrier separates rows.
 //     Its key limit is uniform over the warp, so are its loops and
 //     branches;
@@ -44,11 +46,14 @@
 //     shared memory as a broadcast. Tile i - 1's P.V and tile
 //     i's scores run in one stretch of code (a phase), so their
 //     independent chains interleave;
-//   * a block holds up to block_warps warps (8 at HD 128, else 4), which
-//     share every staged K/V tile. K and V tiles alternate through a
-//     ring of NSTAGE = 4 entries filled by the copy engine, one phase
-//     ahead, so the consumer spends no instructions on loads; one block
-//     barrier per phase frees the entries of the phase before. Only keys
+//   * a block holds up to block_warps warps (8 at HD 128 and 256, else
+//     4), which share every staged K/V tile. K and V tiles alternate
+//     through a ring of nstage = 4 entries filled by the copy engine, one
+//     phase ahead, so the consumer spends no instructions on loads (3 at
+//     HD 256, where 4 entries of 64 KB exceed the 227 KB a block may
+//     hold: a phase's K tile then lands during that phase, its V tile
+//     one phase ahead); one block barrier per phase frees the entries of
+//     the phase before. Only keys
 //     below the block's largest limit are loaded. The dense source
 //     issues a K tile as HD / PC swizzled TMA boxes of NT rows and a V
 //     tile as one bulk copy, from thread 0; the paged source issues a
@@ -82,32 +87,39 @@ namespace decode_warp {
 using namespace tma;
 
 constexpr int NT = 128;            // keys a tile
-constexpr int NSTAGE = 4;          // ring entries (K and V tiles alternate)
 constexpr float NEG_INF = -1e30f;
 
-// Warps a block of head dim HD holds at most: 8 at HD 128, where the
-// ring (128 KB) lets one block reside on an SM, so an SM still runs 8
-// warps; 4 below, where two or more blocks reside on an SM and smaller
-// blocks spread a kv head's rows over more SMs.
+// Ring entries (K and V tiles alternate) at head dim HD: 4, one phase
+// ahead; 3 at HD 256, whose 64 KB entries would pass 227 KB at 4.
 template <int HD>
-__host__ __device__ constexpr int block_warps() { return HD == 128 ? 8 : 4; }
+__host__ __device__ constexpr int nstage() { return HD == 256 ? 3 : 4; }
+
+// Warps a block of head dim HD holds at most: 8 at HD 128 and 256, where
+// the ring (128 / 192 KB) lets one block reside on an SM, so an SM still
+// runs 8 warps; 4 below, where two or more blocks reside on an SM and
+// smaller blocks spread a kv head's rows over more SMs.
+template <int HD>
+__host__ __device__ constexpr int block_warps() { return HD >= 128 ? 8 : 4; }
 
 // K tiles arrive by TMA in boxes of PC = min(HD, 64) columns and NT rows
-// (two boxes at HD 128), swizzled by the copy engine: the 16-byte chunk
-// c of a box row r lands at chunk c ^ (r mod 8) (128-byte rows, HD >= 64)
-// or c ^ ((r / 2) mod 4) (64-byte rows, HD 32), so eight lanes reading
-// chunk t of eight consecutive keys hit eight different bank groups. V
-// tiles arrive as one plain copy (lanes read one row at a time).
+// (two boxes at HD 128, four at 256), swizzled by the copy engine: the
+// 16-byte chunk c of a box row r lands at chunk c ^ (r mod 8) (128-byte
+// rows, HD >= 64), c ^ ((r / 2) mod 4) (64-byte rows, HD 32) or
+// c ^ ((r / 4) mod 2) (32-byte rows, HD 16), so the lanes reading chunk
+// t of consecutive keys hit different bank groups. V tiles arrive as one
+// plain copy (lanes read one row at a time).
 template <int HD>
 struct KBox {
   static constexpr int PC = HD < 64 ? HD : 64;        // box columns
   static constexpr int CPB = PC / 8;                   // chunks a box row
   static constexpr CUtensorMapSwizzle SWIZZLE =
-      PC == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+      PC == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : PC == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
   // element offset of chunk t of key row r in a staged K tile
   __device__ static __forceinline__ int at(int r, int t) {
     const int b = t / CPB, c = t % CPB;
-    const int pc = PC == 64 ? c ^ (r & 7) : c ^ ((r >> 1) & 3);
+    const int pc = PC == 64 ? c ^ (r & 7)
+        : PC == 32 ? c ^ ((r >> 1) & 3) : c ^ ((r >> 2) & 1);
     return b * NT * PC + r * PC + pc * 8;
   }
 };
@@ -117,7 +129,7 @@ struct KBox {
 // buffers of its p row.
 template <int HD>
 __host__ __device__ constexpr size_t smem_bytes(int nw) {
-  return 1024 + (size_t)NSTAGE * NT * HD * sizeof(__nv_bfloat16)
+  return 1024 + (size_t)nstage<HD>() * NT * HD * sizeof(__nv_bfloat16)
       + (size_t)nw * (HD + 2 * NT) * sizeof(float);
 }
 
@@ -145,7 +157,9 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // Where a tile's K/V rows come from. A source is called by every thread
 // of the block: start(n) once, when the block's largest key limit n is
-// known, then, after the ring's barriers are set up, k / v for each tile
+// known (thread_copies() says whether the block's threads copy K
+// themselves, so that only a block barrier shows it to every warp),
+// then, after the ring's barriers are set up, k / v for each tile
 // below n in the ring's entry order (K of tile 0, V of tile 0, K of tile
 // 1, ...): stage the tile's keys
 // [k0, min(k0 + NT, n)) into the ring slot dst (K at KBox's positions, V
@@ -163,6 +177,7 @@ struct DenseSource {
   const __nv_bfloat16* vc;
 
   __device__ __forceinline__ void start(int) {}
+  __device__ __forceinline__ bool thread_copies() const { return false; }
   __device__ __forceinline__ void k(__nv_bfloat16* dst, uint64_t* bar,
                                     int k0, int) {
     if (threadIdx.x != 0) return;
@@ -193,9 +208,10 @@ struct DenseSource {
 // 8-row period, as KBox::at assumes), by HD / PC TMA boxes of g rows
 // through the pool's tensor map tk, (HD, bs, nb * Hkv), plane
 // blk * Hkv + hk. Where g < 8 the block's threads copy K's 16-byte chunks
-// to KBox::at's positions themselves (the next phase's block barrier
-// orders them before their reads; the entry's barrier completes at
-// once). Row boxes at or past n are not loaded. Thread 0 sets each
+// to KBox::at's positions themselves (a block barrier orders them
+// before their reads: the next phase's in a 4-entry ring, one right
+// after the fill in a 3-entry ring, which fills a phase's own K tile;
+// the entry's barrier completes at once). Row boxes at or past n are not loaded. Thread 0 sets each
 // entry's byte count; a copy may land before it, which leaves the
 // barrier's phase open.
 //
@@ -218,6 +234,9 @@ struct PagedSource {
   int cur = 0, cur_r = 0, nxt = 0, nxt_r = 0;
 
   __device__ __forceinline__ bool boxes() const { return g >= 8; }
+  // K copied by the block's threads (no TMA box starts off the
+  // swizzle's 8-row period)
+  __device__ __forceinline__ bool thread_copies() const { return !boxes(); }
   __device__ __forceinline__ int clamp(int blk) const {
     return blk < 0 ? 0 : (blk >= nb ? nb - 1 : blk);
   }
@@ -314,14 +333,17 @@ struct PagedSource {
 // independent fmaf chains interleave; then tile i's softmax. Ring entry
 // 2i holds K of tile i, entry 2i + 1 V of tile i; phase i needs entries
 // 2i - 1 and 2i, and loads entries up to 2i + NSTAGE - 2 (one phase
-// ahead at NSTAGE = 4) into the slots that phase i - 1 has released.
+// ahead at NSTAGE = 4; entry 2i itself at 3) into the slots that phase
+// i - 1 has released.
 template <int HD, class Source>
 __device__ __forceinline__ void attend_warps(
     const __nv_bfloat16* __restrict__ qp, __nv_bfloat16* __restrict__ op,
     Source& src, int G, int W, int kv_len, int Sk, float cap, float scale) {
+  constexpr int NSTAGE = nstage<HD>();
   constexpr int CPR = HD / 8;      // 16-byte chunks of a K/V row
   constexpr int TILE = NT * HD;    // elements of a ring slot
-  constexpr int CW = HD / 32;      // P.V columns a lane owns
+  constexpr int CW = HD < 32 ? 1 : HD / 32;   // P.V columns a lane owns
+  constexpr int LC = HD / CW;      // lanes with their own columns
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ uint64_t bars[NSTAGE];   // one per ring slot
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(
@@ -388,7 +410,7 @@ __device__ __forceinline__ void attend_warps(
     for (int c = 0; c < CW; ++c) a[c] = 0.f;
     const __nv_bfloat16* kt = ring + ((2 * ph) % NSTAGE) * TILE;
     const __nv_bfloat16* vt =
-        ring + ((2 * ph + NSTAGE - 1) % NSTAGE) * TILE + lane * CW;
+        ring + ((2 * ph + NSTAGE - 1) % NSTAGE) * TILE + (lane % LC) * CW;
     const float* pp = sP + ((ph + 1) & 1) * NT;    // tile ph - 1's p
 
     // scores: keys k0 + 32c + lane, c = 0..3; chunk t of their K rows and
@@ -422,11 +444,17 @@ __device__ __forceinline__ void attend_warps(
     // P.V: a[c] = fmaf(p_j, v_jc, a[c]) for key j of the tile, in slices
     // of 8 keys whose V words and p (registers vb) are loaded one step
     // before their fmafs
-    constexpr int VW = CW == 4 ? 2 : 1;       // 32-bit V words a step
+    constexpr int VW = CW >= 4 ? CW / 2 : 1;  // 32-bit V words a step
     struct VBuf { uint32_t v[8][VW]; float4 p[2]; };
     auto vword = [&](int j, uint32_t* w) {
       const __nv_bfloat16* r = vt + j * HD;
-      if constexpr (CW == 4) {
+      if constexpr (CW == 8) {
+        const uint4 u = *reinterpret_cast<const uint4*>(r);
+        w[0] = u.x;
+        w[1] = u.y;
+        w[2] = u.z;
+        w[3] = u.w;
+      } else if constexpr (CW == 4) {
         const uint2 u = *reinterpret_cast<const uint2*>(r);
         w[0] = u.x;
         w[VW - 1] = u.y;
@@ -444,7 +472,13 @@ __device__ __forceinline__ void attend_warps(
     };
     auto vstep = [&](const uint32_t* w, float pj) {
       float v[CW];
-      if constexpr (CW == 4) {
+      if constexpr (CW == 8) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          v[2 * i] = bf_lo(w[i]);
+          v[2 * i + 1] = bf_hi(w[i]);
+        }
+      } else if constexpr (CW == 4) {
         v[0] = bf_lo(w[0]); v[1] = bf_hi(w[0]);
         v[2] = bf_lo(w[VW - 1]); v[3] = bf_hi(w[VW - 1]);
       } else if constexpr (CW == 2) {
@@ -465,21 +499,35 @@ __device__ __forceinline__ void attend_warps(
     };
 
     if constexpr (sc) {
-      // 16 slices: K chunk u / KE (every KE-th slice) and, where a tile
-      // ph - 1 is to finish (a scored tile ph >= 1 means it is whole for
-      // this row), its keys 8u .. 8u + 7
-      constexpr int KE = 16 / CPR;
+      // 16 slices: K chunk u / KE (every KE-th slice; at HD 256 chunks
+      // 2u and 2u + 1) and, where a tile ph - 1 is to finish (a scored
+      // tile ph >= 1 means it is whole for this row), its keys 8u .. 8u + 7
+      constexpr int KE = CPR >= 16 ? 1 : 16 / CPR;   // slices a chunk
+      constexpr int KPS = CPR > 16 ? CPR / 16 : 1;    // chunks a slice
       KBuf kb[2];
       VBuf vb[2];
       kload(0, kb[0]);
       if constexpr (pv) vload(0, vb[0]);
 #pragma unroll
       for (int u = 0; u < 16; ++u) {
-        if (u + 1 < 16) {
-          if ((u + 1) % KE == 0) kload((u + 1) / KE, kb[((u + 1) / KE) & 1]);
-          if constexpr (pv) vload(8 * (u + 1), vb[(u + 1) & 1]);
+        if constexpr (KPS == 1) {
+          if (u + 1 < 16) {
+            if ((u + 1) % KE == 0)
+              kload((u + 1) / KE, kb[((u + 1) / KE) & 1]);
+            if constexpr (pv) vload(8 * (u + 1), vb[(u + 1) & 1]);
+          }
+          if (u % KE == 0) kfma(kb[(u / KE) & 1]);
+        } else {
+          if constexpr (pv) {
+            if (u + 1 < 16) vload(8 * (u + 1), vb[(u + 1) & 1]);
+          }
+#pragma unroll
+          for (int c = 0; c < KPS; ++c) {
+            const int t = u * KPS + c;
+            if (t + 1 < CPR) kload(t + 1, kb[(t + 1) & 1]);
+            kfma(kb[t & 1]);
+          }
         }
-        if (u % KE == 0) kfma(kb[(u / KE) & 1]);
         if constexpr (pv) vfma(vb[u & 1]);
       }
     } else {
@@ -536,6 +584,11 @@ __device__ __forceinline__ void attend_warps(
   for (int ph = 0; ph <= ntile; ++ph) {
     __syncthreads();               // phase ph - 1 is done with its slots
     fill(2 * ph + NSTAGE - 2);     // into the slots phase ph - 1 released
+    // a 3-entry ring fills this phase's K tile here: where the block's
+    // threads copy it themselves, a barrier shows their copies to all
+    if constexpr (NSTAGE < 4) {
+      if (src.thread_copies()) __syncthreads();
+    }
     if (ph > 0) landed(2 * ph - 1);
     if (ph < ntile) landed(2 * ph);
     const int k0 = ph * NT;
@@ -549,7 +602,7 @@ __device__ __forceinline__ void attend_warps(
     }
   }
 
-  if (active) {
+  if (active && lane < LC) {
     __nv_bfloat16* o = op + ((long long)g * W + w) * HD + lane * CW;
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
@@ -615,9 +668,11 @@ cudaError_t launch(Kernel kernel, const KPlanes& kl, int B, int Hkv, int G,
 template <class Launch>
 inline cudaError_t dispatch_hd(int hd, Launch launch) {
   switch (hd) {
+    case 16: return launch(std::integral_constant<int, 16>{});
     case 32: return launch(std::integral_constant<int, 32>{});
     case 64: return launch(std::integral_constant<int, 64>{});
     case 128: return launch(std::integral_constant<int, 128>{});
+    case 256: return launch(std::integral_constant<int, 256>{});
     default: return cudaErrorInvalidValue;
   }
 }

@@ -18,13 +18,13 @@
 // with the paged source), so paged and dense decode agree bit for bit:
 //   * a warp owns a q row for the whole walk over the keys, with m, l
 //     and acc in registers; the grid is (kv head, slot, blocks of at
-//     most 4 of the kv head's G warps; 8 at head dim 128), so the rows
-//     of a (kv head, slot) walk their keys side by side on separate
-//     warp schedulers;
+//     most 4 of the kv head's G warps; 8 at head dims 128 and 256), so
+//     the rows of a (kv head, slot) walk their keys side by side on
+//     separate warp schedulers;
 //   * the warps of a block share the slot's 128-key K/V tiles, which
-//     the copy engine brings through a 4-entry ring (K and V alternate;
-//     K by swizzled TMA tensor copies, V by one bulk copy), one phase
-//     ahead of the arithmetic;
+//     the copy engine brings through a 4-entry ring (3 at head dim
+//     256; K and V alternate; K by swizzled TMA tensor copies, V by one
+//     bulk copy), one phase ahead of the arithmetic;
 //   * the block loops over tiles only up to kv_len[b]. The TPU kernel
 //     reads the whole cache and masks it; tiles past kv_len would
 //     change nothing (alpha = 1, p = 0), so stopping early gives the
@@ -58,9 +58,9 @@ flash_decode_kernel(const __grid_constant__ CUtensorMap tk,
 
 }  // namespace
 
-// q: (B,Hq,hd), caches: (B,Hkv,Sk,hd) bf16 contiguous, hd in {32, 64,
-// 128}; kv_len: (B,) int32 on the device; out: (B,Hq,hd) bf16. Launches
-// on `stream` and returns cudaGetLastError().
+// q: (B,Hq,hd), caches: (B,Hkv,Sk,hd) bf16 contiguous, hd in {16, 32,
+// 64, 128, 256}; kv_len: (B,) int32 on the device; out: (B,Hq,hd) bf16.
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int flash_decode_bf16(const void* q, const void* k_cache,
                                  const void* v_cache, const void* kv_len,
                                  void* out, int B, int Hq, int Hkv, int Sk,

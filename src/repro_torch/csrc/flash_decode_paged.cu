@@ -56,9 +56,9 @@ flash_decode_paged_kernel(const __grid_constant__ CUtensorMap tk,
 
 }  // namespace
 
-// q: (B,Hq,hd); pages: (nb,Hkv,bs,hd) bf16 contiguous, hd in {32, 64,
-// 128}; block_tab: (B,mb) int32; kv_len: (B,) int32, all on the device;
-// out: (B,Hq,hd) bf16.
+// q: (B,Hq,hd); pages: (nb,Hkv,bs,hd) bf16 contiguous, hd in {16, 32,
+// 64, 128, 256}; block_tab: (B,mb) int32; kv_len: (B,) int32, all on the
+// device; out: (B,Hq,hd) bf16.
 // Launches on `stream` and returns cudaGetLastError().
 extern "C" int flash_decode_paged_bf16(const void* q, const void* k_pages,
                                        const void* v_pages,

@@ -45,7 +45,16 @@
 //     64 columns; 64 bytes at hd 32) in the 128/64-byte swizzle that
 //     TMA writes and the wgmma descriptors name; hd is a template
 //     parameter and the panels a multiple of it, so a larger hd is one
-//     more instance (hd 256: four panels and an m64n256 P V product);
+//     more instance: hd 256 is four panels and an m64n256 P V product
+//     (128 fp32 accumulators a thread), its 32 KB Q tile and three
+//     64 KB K/V stages 225 KB of the 227 KB a block may hold (the stage
+//     count is the most, up to 3, that the head dim's tiles fit: the
+//     arithmetic does not depend on it);
+//   * hd 16 runs the hd-32 tiles: the tensor maps are 16 columns wide
+//     and their 32-column boxes read the columns past 16 as zeros (TMA's
+//     fill past a tensor's edge), so S takes one k step, P V adds exact
+//     zeros to 16 unwritten output columns, and every row is still one
+//     fixed computation;
 //   * ragged Sq and Sk are masked in the kernel; any Sq, any Sk.
 //
 // The contract that chunked prefill and prefix hits rest on: a q row at
@@ -82,14 +91,20 @@ using namespace tma;
 
 constexpr int BQ = 64;        // q rows per block: one warpgroup's M
 constexpr int BK = 64;        // keys per k tile, tiles from key 0
-constexpr int STAGES = 3;     // K/V tiles in flight
 constexpr int NTH = 128;      // one warpgroup
+constexpr int SMEM_MAX = 232448;   // shared memory a block may hold
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Shared memory of head dim HD: a tile of R rows is NP panels of R rows
-// of SW bytes (PC columns), each panel swizzled over SW bytes; the Q
-// tile, then STAGES (K tile, V tile) pairs, 1,024-byte aligned.
+// The head dim the tiles of head dim HD hold: hd 16 runs the hd-32
+// tiles, its columns past 16 zeros.
+template <int HD>
+__host__ __device__ constexpr int tile_hd() { return HD < 32 ? 32 : HD; }
+
+// Shared memory of tile head dim HD: a tile of R rows is NP panels of R
+// rows of SW bytes (PC columns), each panel swizzled over SW bytes; the
+// Q tile, then STAGES (K tile, V tile) pairs, 1,024-byte aligned, with
+// 1 KB of the block's shared memory left for its barriers.
 template <int HD>
 struct Layout {
   static_assert(HD % 32 == 0, "panels of 64 or 128 bytes");
@@ -98,6 +113,9 @@ struct Layout {
   static constexpr int NP = HD / PC;
   static constexpr int Q_BYTES = BQ * HD * 2;
   static constexpr int T_BYTES = BK * HD * 2;
+  static constexpr int FIT = (SMEM_MAX - 2048 - Q_BYTES) / (2 * T_BYTES);
+  static constexpr int STAGES = FIT < 3 ? FIT : 3;   // K/V tiles in flight
+  static_assert(STAGES >= 2, "two K/V stages at least");
   static constexpr int SMEM = 1024 + Q_BYTES + STAGES * 2 * T_BYTES;
   // wgmma descriptor layout type: 1 = 128-byte, 2 = 64-byte swizzle
   static constexpr uint64_t MODE = SW == 128 ? 1 : 2;
@@ -162,6 +180,11 @@ __device__ __forceinline__ void reg_fence(float* r) {
     ACC4(d, 28)
 #define ACC64(d) ACC32(d), ACC4(d, 32), ACC4(d, 36), ACC4(d, 40),      \
     ACC4(d, 44), ACC4(d, 48), ACC4(d, 52), ACC4(d, 56), ACC4(d, 60)
+// registers b .. b + 63 of d (the second half of m64n256's 128)
+#define ACC16_AT(d, b) ACC4(d, b), ACC4(d, b + 4), ACC4(d, b + 8),    \
+    ACC4(d, b + 12)
+#define ACC64_AT(d, b) ACC16_AT(d, b), ACC16_AT(d, b + 16),            \
+    ACC16_AT(d, b + 32), ACC16_AT(d, b + 48)
 
 // D (64 x N, fp32): wgmma_ss_n64 sets (scale_d = 0) or adds A (64 x 16,
 // shared, K-major) B^T (B 64 x 16, shared, K-major); wgmma_rs_nN adds
@@ -221,13 +244,34 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : ACC64(d), ACC64_AT(d, 64)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
 template <int HD>
 __device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
                                          uint64_t db) {
   if constexpr (HD == 32) wgmma_rs_n32(o, a, db);
   else if constexpr (HD == 64) wgmma_rs_n64(o, a, db);
-  else wgmma_rs_n128(o, a, db);
+  else if constexpr (HD == 128) wgmma_rs_n128(o, a, db);
+  else wgmma_rs_n256(o, a, db);
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -242,14 +286,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // K/V tile `i` of a block's loop (keys [k0, k0 + BK) of kv head row
-// `kvh`) into ring stage i % STAGES, arming its barrier.
+// `kvh`) into ring stage i % STAGES, arming its barrier (HD: the tile
+// head dim).
 template <int HD>
 __device__ __forceinline__ void load_kv(uint8_t* sKV, uint64_t* bar_kv,
                                         const CUtensorMap* tk,
                                         const CUtensorMap* tv, int i,
                                         int k0, int kvh) {
   using L = Layout<HD>;
-  const int s = i % STAGES;
+  const int s = i % L::STAGES;
   uint8_t* sk = sKV + s * 2 * L::T_BYTES;
   bar_expect(&bar_kv[s], 2 * L::T_BYTES);
 #pragma unroll
@@ -270,8 +315,10 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
                      __nv_bfloat16* __restrict__ out, int Hq, int Hkv,
                      int Sq, int Sk, int q_offset, int causal, int window,
                      float cap, float scale) {
-  using L = Layout<HD>;
-  constexpr int NO = HD / 2;           // O registers a thread
+  constexpr int TH = tile_hd<HD>();    // the tiles' head dim
+  using L = Layout<TH>;
+  constexpr int STAGES = L::STAGES;
+  constexpr int NO = TH / 2;           // O registers a thread
   constexpr int KS = BK / 16;          // k steps of P V
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar_q;
@@ -307,7 +354,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
       tma_load(sQ + p * BQ * L::SW, &tq, &bar_q, p * L::PC, q0,
                b * Hq + hq);
     for (int i = 0; i < min(STAGES, n); ++i)
-      load_kv<HD>(sKV, bar_kv, &tk, &tv, i, (t0 + i) * BK, kvh);
+      load_kv<TH>(sKV, bar_kv, &tk, &tv, i, (t0 + i) * BK, kvh);
   }
   __syncwarp();
 
@@ -329,7 +376,8 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
     const uint8_t* sV = sK + L::T_BYTES;
     bar_wait(&bar_kv[s], (i / STAGES) & 1);
 
-    // S = Q K^T. The first k step overwrites sc (scale_d = 0); zeroing
+    // S = Q K^T (at hd 16 one k step: the tiles' other 16 columns are
+    // zeros). The first k step overwrites sc (scale_d = 0); zeroing
     // it here anyway tells the compiler that the last tile's p are dead:
     // with sc carried across tiles ptxas gave 146/115/100 registers at
     // hd 128/64/32 instead of 128/96/82.
@@ -340,8 +388,8 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss_n64(sc, desc_kmajor<HD, BQ>(sQ, kk),
-                   desc_kmajor<HD, BK>(sK, kk), kk > 0);
+      wgmma_ss_n64(sc, desc_kmajor<TH, BQ>(sQ, kk),
+                   desc_kmajor<TH, BK>(sK, kk), kk > 0);
     wg_commit();
     wg_wait0();
     reg_fence<32>(sc);
@@ -415,7 +463,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
     reg_fence<NO>(o);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) wgmma_pv<HD>(o, pa[kk], desc_v<HD>(sV, kk));
+    for (int kk = 0; kk < KS; ++kk) wgmma_pv<TH>(o, pa[kk], desc_v<TH>(sV, kk));
     wg_commit();
     wg_wait0();
     reg_fence<NO>(o);
@@ -423,7 +471,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
     // every thread is past this stage's tiles: refill it STAGES ahead
     __syncthreads();
     if (tid == 0 && i + STAGES < n)
-      load_kv<HD>(sKV, bar_kv, &tk, &tv, i + STAGES, k0 + STAGES * BK, kvh);
+      load_kv<TH>(sKV, bar_kv, &tk, &tv, i + STAGES, k0 + STAGES * BK, kvh);
     __syncwarp();
   }
 
@@ -435,6 +483,8 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
   __nv_bfloat16* op = out + ((long long)(b * Hq + hq) * Sq + r0) * HD
                       + 2 * t;
+  // columns 8 j + 2 t, + 1; at hd 16 the tiles' columns past 16 are not
+  // written
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) {
     if (r0 < Sq)
@@ -449,11 +499,12 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
 // --------------------------------------------------------------- host ----
 
 // A (hd, rows, heads) bf16 tensor map whose box is one panel of
-// `box_rows` rows of one head; out-of-range rows read as zeros.
+// `box_rows` rows of one head; out-of-range rows read as zeros, and so
+// do the columns past 16 of hd 16's 32-column box.
 template <int HD>
 bool make_map(PFN_cuTensorMapEncodeTiled_v12000 enc, CUtensorMap* map,
               const void* ptr, int rows, int heads, int box_rows) {
-  using L = Layout<HD>;
+  using L = Layout<tile_hd<HD>()>;
   const cuuint64_t dims[3] = {(cuuint64_t)HD, (cuuint64_t)rows,
                               (cuuint64_t)heads};
   const cuuint64_t strides[2] = {(cuuint64_t)HD * 2,
@@ -472,7 +523,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int Hq, int Hkv, int Sq, int Sk, int q_offset,
                    int causal, int window, float cap, float scale,
                    cudaStream_t stream) {
-  using L = Layout<HD>;
+  using L = Layout<tile_hd<HD>()>;
   PFN_cuTensorMapEncodeTiled_v12000 enc = encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
   CUtensorMap mq, mk, mv;
@@ -494,25 +545,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // q: (B,Hq,Sq,hd), k/v: (B,Hkv,Sk,hd), out: (B,Hq,Sq,hd); all bf16,
-// contiguous, 16-byte aligned; hd in {32, 64, 128}. Launches on `stream`
-// and returns cudaGetLastError() (an empty cache, Sk = 0, writes zeros).
+// contiguous, 16-byte aligned; hd in {16, 32, 64, 128, 256}. Launches on
+// `stream` and returns cudaGetLastError() (an empty cache, Sk = 0, writes
+// zeros).
 extern "C" int flash_prefill_bf16(const void* q, const void* k,
                                   const void* v, void* out, int B, int Hq,
                                   int Hkv, int Sq, int Sk, int hd,
                                   int q_offset, int causal, int window,
                                   float cap, float scale, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
-  if (hd != 32 && hd != 64 && hd != 128) return (int)cudaErrorInvalidValue;
+  if (hd != 16 && hd != 32 && hd != 64 && hd != 128 && hd != 256)
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   if (Sk == 0)
     return (int)cudaMemsetAsync(out, 0, (size_t)B * Hq * Sq * hd * 2, st);
-  if (hd == 32)
-    return (int)launch<32>(q, k, v, out, B, Hq, Hkv, Sq, Sk, q_offset,
-                           causal, window, cap, scale, st);
-  if (hd == 64)
-    return (int)launch<64>(q, k, v, out, B, Hq, Hkv, Sq, Sk, q_offset,
-                           causal, window, cap, scale, st);
-  return (int)launch<128>(q, k, v, out, B, Hq, Hkv, Sq, Sk, q_offset,
-                          causal, window, cap, scale, st);
+  switch (hd) {
+    case 16:
+      return (int)launch<16>(q, k, v, out, B, Hq, Hkv, Sq, Sk, q_offset,
+                             causal, window, cap, scale, st);
+    case 32:
+      return (int)launch<32>(q, k, v, out, B, Hq, Hkv, Sq, Sk, q_offset,
+                             causal, window, cap, scale, st);
+    case 64:
+      return (int)launch<64>(q, k, v, out, B, Hq, Hkv, Sq, Sk, q_offset,
+                             causal, window, cap, scale, st);
+    case 128:
+      return (int)launch<128>(q, k, v, out, B, Hq, Hkv, Sq, Sk, q_offset,
+                              causal, window, cap, scale, st);
+    default:
+      return (int)launch<256>(q, k, v, out, B, Hq, Hkv, Sq, Sk, q_offset,
+                              causal, window, cap, scale, st);
+  }
 }

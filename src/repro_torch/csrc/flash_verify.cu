@@ -19,8 +19,9 @@
 // Both run decode_warp.cuh's routine, which flash_decode and
 // flash_decode_paged run too (as W = 1): a warp owns one row for the
 // whole walk over the keys, with m, l and acc in registers; the warps of
-// a block (at most 4; 8 at head dim 128) share the slot's 128-key K/V
-// tiles, which the copy engine brings through a 4-entry ring; the grid is
+// a block (at most 4; 8 at head dims 128 and 256) share the slot's
+// 128-key K/V tiles, which the copy engine brings through a 4-entry ring
+// (3 at head dim 256); the grid is
 // (kv head, slot, blocks of the kv head's warps), so any G and W work
 // (kimi's 72 rows at W = 9 are 72 warps in 9 blocks) and the rows of the
 // longest slot are spread over several SMs. flash_verify fills the ring
@@ -78,8 +79,8 @@ flash_verify_paged_kernel(const __grid_constant__ CUtensorMap tk,
 
 }  // namespace
 
-// q: (B,Hq,W,hd), caches: (B,Hkv,Sk,hd) bf16 contiguous, hd in {32, 64,
-// 128}; kv_len: (B,) int32 on the device; out: (B,Hq,W,hd) bf16.
+// q: (B,Hq,W,hd), caches: (B,Hkv,Sk,hd) bf16 contiguous, hd in {16, 32,
+// 64, 128, 256}; kv_len: (B,) int32 on the device; out: (B,Hq,W,hd) bf16.
 // Launches on `stream` and returns cudaGetLastError().
 extern "C" int flash_verify_bf16(const void* q, const void* k_cache,
                                  const void* v_cache, const void* kv_len,
@@ -98,9 +99,9 @@ extern "C" int flash_verify_bf16(const void* q, const void* k_cache,
   });
 }
 
-// q: (B,Hq,W,hd); pages: (nb,Hkv,bs,hd) bf16 contiguous, hd in {32, 64,
-// 128}; block_tab: (B,mb) int32; kv_len: (B,) int32, all on the device;
-// out: (B,Hq,W,hd) bf16. Launches on `stream` and returns
+// q: (B,Hq,W,hd); pages: (nb,Hkv,bs,hd) bf16 contiguous, hd in {16, 32,
+// 64, 128, 256}; block_tab: (B,mb) int32; kv_len: (B,) int32, all on the
+// device; out: (B,Hq,W,hd) bf16. Launches on `stream` and returns
 // cudaGetLastError().
 extern "C" int flash_verify_paged_bf16(const void* q, const void* k_pages,
                                        const void* v_pages,

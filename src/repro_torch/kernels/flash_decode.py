@@ -10,7 +10,7 @@ up to the slot's ``kv_len``, and 0 (not NaN) for ``kv_len == 0``. Its
 routine, ``csrc/decode_warp.cuh``, is the whole decode family's (dense
 and paged decode and verify differ only in the source that fills the
 ring), so the four kernels agree bit for bit; any number of q heads per
-kv head; head dims 32, 64 and 128.
+kv head; head dims 16, 32, 64, 128 and 256.
 
 On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
 tensor it runs the plain version, ``ref.decode_attention_ref``.
@@ -25,7 +25,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import decode_attention_ref
 
-HEAD_DIMS = (32, 64, 128)     # the head dims the kernels are built for
+#: the head dims the kernels are built for
+HEAD_DIMS = (16, 32, 64, 128, 256)
 # q, k_cache, v_cache, kv_len, out; B, Hq, Hkv, Sk, hd; cap, scale; stream
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_float] * 2 + [ctypes.c_void_p])

@@ -8,7 +8,8 @@ Replaces the JAX package's Pallas TPU kernel ``flash_prefill``
 (``wgmma``; P rounded to bf16 for P V), Q and a ring of 64-key K/V tiles
 loaded by TMA, fp32 m/l/acc, and row arithmetic that does not depend on
 the row's place in its tile, so prefill and extend give the same bits
-for a row at the same position; head dims 32, 64 and 128.
+for a row at the same position; head dims 16 (the hd-32 tiles with the
+columns past 16 read as zeros), 32, 64, 128 and 256.
 
 On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
 tensor it runs the plain version, ``ref.attention_ref``.
@@ -33,7 +34,12 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import attention_bwd_ref, attention_ref
 
-HEAD_DIMS = (32, 64, 128)     # the head dims the kernel is built for
+#: the head dims the kernel is built for
+HEAD_DIMS = (16, 32, 64, 128, 256)
+#: the head dims the backward is built for; 16 and 256 (qwen1.5-110b-
+#: smoke's and gemma2's) come with their families' training (ROADMAP.md
+#: queue A11.3)
+BWD_HEAD_DIMS = (32, 64, 128)
 # q, k, v, out; B, Hq, Hkv, Sq, Sk, hd, q_offset, causal, window;
 # cap, scale; stream
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
@@ -59,6 +65,17 @@ def check_shapes(q, k, v):
                          f"{tuple(q.shape)} k {tuple(k.shape)} v "
                          f"{tuple(v.shape)} (head dim in {HEAD_DIMS}, "
                          f"Hq % Hkv == 0)")
+
+
+def check_bwd_shapes(q, k, v):
+    """``check_shapes``, and raise NotImplementedError unless the head dim
+    is one the backward kernel is built for (BWD_HEAD_DIMS)."""
+    check_shapes(q, k, v)
+    if q.shape[3] not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_prefill_bwd: head dim {q.shape[3]} (built for "
+            f"{BWD_HEAD_DIMS}; the others come with ROADMAP.md queue "
+            f"A11.3, training of the A12 families)")
 
 
 def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0,
@@ -106,7 +123,7 @@ def flash_prefill_bwd(q, k, v, out, dout, *, causal: bool = True,
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill_bwd: no kernel for device "
                          f"{q.device}")
-    check_shapes(q, k, v)
+    check_bwd_shapes(q, k, v)
     for name, t in (("out", out), ("dout", dout)):
         _build.check_tensor("flash_prefill_bwd", name, t, torch.bfloat16, 4,
                             q.device)

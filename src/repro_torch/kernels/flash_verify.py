@@ -5,8 +5,8 @@ Replaces the JAX package's Pallas TPU kernels ``flash_verify`` and
 ``flash_verify_paged`` (``src/repro/kernels/flash_verify.py``). The CUDA
 source, ``csrc/flash_verify.cu``, carries the design notes. Both run
 flash_decode's routine (``csrc/decode_warp.cuh``): a warp per row,
-blocks of at most four warps (eight at head dim 128) over (kv head,
-slot, row blocks), so any G and W work, the slot's K/V tiles shared by a
+blocks of at most four warps (eight at head dims 128 and 256) over (kv
+head, slot, row blocks), so any G and W work, the slot's K/V tiles shared by a
 block's warps through a ring the copy engine fills, from the dense cache
 or through the block table. Row w at key limit ``kv_len - W + w + 1``
 runs exactly flash_decode's operations for that limit in both, so every

@@ -1,11 +1,13 @@
 """Time the decode family's kernels on the card at chip_smoke.py's cases.
 
   PYTHONPATH=<tree>/src python3 src/repro_torch/launch/decode_bench.py \
-      [--label NAME] [--iters N]
+      [--label NAME] [--iters N] [--prefill]
 
 For each case (8 ragged slots of a 2,048-row cache: the planner's heads
-12/4 of 64, kimi-k2's 64/8 of 128, arctic's 56/8 of 32; hymba's 25/5 of
-64 over full and partly filled 1,024-row rings) it times flash_decode
+12/4 of 64, kimi-k2's 64/8 of 128, arctic's 56/8 of 32, qwen1.5-32b's
+40/40 of 128, and where the tree's kernels take them qwen1.5-110b-
+smoke's 8/2 of 16 and gemma2-2b's 8/4 of 256; hymba's 25/5 of 64 over
+full and partly filled 1,024-row rings) it times flash_decode
 (and flash_verify at W = 5, 9 and 22, where chip_smoke.py has them) and
 their paged twins, over an identity block table on the same cache and
 over shuffled tables with sentinel tails that hold the same rows in
@@ -17,7 +19,10 @@ view). It prints one JSON line per case with the sha256 of each
 kernel's output bytes (``bits``, ``paged_bits`` and ``paged_bits_bs<N>``),
 so two trees timed in one call can also be held to the same bits; every
 paged output of a case is also the dense output's bits, as the slots'
-rows are the same.
+rows are the same. With ``--prefill`` it prints instead the sha256 and
+device time of flash_prefill at the same families' heads (Sq = Sk =
+1,024 causal, an extend of 1,024 rows at 700 over 2,048 keys, a
+1,024-key window and a softcap of 30 at Sq = Sk = 1,300).
 
 It imports ``repro_torch`` from ``PYTHONPATH``, so one copy of this
 script times the kernels of any tree that has the same wrapper
@@ -43,7 +48,13 @@ CASES = [("planner", 12, 4, 64, 2048, KV_LENS, (5, 22)),
          ("kimi", 64, 8, 128, 2048, KV_LENS, (5, 9)),
          ("arctic", 56, 8, 32, 2048, KV_LENS, (5,)),
          ("hymba_full", 25, 5, 64, 1024, HYMBA_RINGS[0], ()),
-         ("hymba_ragged", 25, 5, 64, 1024, HYMBA_RINGS[1], ())]
+         ("hymba_ragged", 25, 5, 64, 1024, HYMBA_RINGS[1], ()),
+         ("qwen32", 40, 40, 128, 2048, KV_LENS, (5,)),
+         ("qwen110_smoke", 8, 2, 16, 2048, KV_LENS, (5,)),
+         ("gemma2", 8, 4, 256, 2048, KV_LENS, ())]
+# flash_prefill's cases: (Sq, Sk, q_offset, window, cap)
+PREFILL_CASES = [(1024, 1024, 0, 0, 0.0), (1024, 2048, 700, 0, 0.0),
+                 (1300, 1300, 0, 1024, 0.0), (1300, 1300, 0, 0, 30.0)]
 BS = 16
 # the shuffled tables' block sizes: the engine's 16, 8, 12 and 24 (not
 # dividing a 128-key tile; tables then cover a few rows past the cache),
@@ -167,8 +178,11 @@ def run(iters: int, label: str) -> list:
     gen = torch.Generator(device="cuda").manual_seed(0)
     mk = lambda *shape: torch.randn(*shape, generator=gen,
                                     device="cuda").to(torch.bfloat16)
+    from repro_torch.kernels.flash_decode import HEAD_DIMS
     out = []
     for fam, Hq, Hkv, hd, Sk, kv, windows in CASES:
+        if hd not in HEAD_DIMS:       # a tree whose kernels lack hd
+            continue
         B = len(kv)
         kc, vc, q = mk(B, Hkv, Sk, hd), mk(B, Hkv, Sk, hd), mk(B, Hq, hd)
         (kp, tab), (vp, _) = identity_pool(kc, BS), identity_pool(vc, BS)
@@ -216,10 +230,38 @@ def run(iters: int, label: str) -> list:
     return out
 
 
+def prefill_run(iters: int, label: str) -> list:
+    """flash_prefill's sha256 and device time at PREFILL_CASES for each
+    family of CASES whose head dim the tree's kernel takes."""
+    from repro_torch.kernels.flash_prefill import HEAD_DIMS, flash_prefill
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    mk = lambda *shape: torch.randn(*shape, generator=gen,
+                                    device="cuda").to(torch.bfloat16)
+    out, seen = [], set()
+    for fam, Hq, Hkv, hd, *_ in CASES:
+        if hd not in HEAD_DIMS or (Hq, Hkv, hd) in seen:
+            continue
+        seen.add((Hq, Hkv, hd))
+        for Sq, Sk, off, window, cap in PREFILL_CASES:
+            q, k, v = mk(1, Hq, Sq, hd), mk(1, Hkv, Sk, hd), mk(1, Hkv, Sk,
+                                                               hd)
+            fn = lambda: flash_prefill(q, k, v, causal=True, q_offset=off,
+                                       window=window, cap=cap)
+            rec = dict(label=label, kernel="flash_prefill", family=fam,
+                       heads=[Hq, Hkv, hd], Sq=Sq, Sk=Sk, q_offset=off,
+                       window=window, cap=cap, bits=digest(fn()))
+            rec.update(timed("kernel", fn, "flash_prefill_kernel", iters))
+            out.append(rec)
+            print(json.dumps(rec), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", default="")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--prefill", action="store_true",
+                    help="flash_prefill's bits and times instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("decode_bench: no CUDA device", file=sys.stderr)
@@ -228,7 +270,7 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(json.dumps({"label": args.label, "card": card}), flush=True)
-    run(args.iters, args.label)
+    (prefill_run if args.prefill else run)(args.iters, args.label)
     return 0
 
 

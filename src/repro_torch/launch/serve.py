@@ -16,14 +16,16 @@ metrics beside the wall seconds:
 The command line is the JAX launcher's (``repro.launch.serve``) plus
 ``--device``; ``--arch`` takes the port's ids (``configs.ALL_IDS``: the
 planner, the MoE families arctic-480b and kimi-k2-1t-a32b, the hybrid
-attention + SSM hymba-1.5b and the recurrent xlstm-125m).
+attention + SSM hymba-1.5b, the recurrent xlstm-125m and the dense
+qwen1.5-32b, qwen1.5-110b, starcoder2-3b and gemma2-2b).
 ``--backend`` is gone: the device decides which attention runs (Hopper
 kernels on CUDA tensors, their plain versions on the CPU).
 ``--kv-mode paged`` (with ``--kv-blocks``, ``--block-size``) serves from
 the paged block pool; ``--spec-decode`` drafts ``--draft-k`` tokens per
 slot with a self-draft (the target's own weights: the repo ships no
 trained draft) and verifies them in one target forward. hymba's
-sliding-window rings and SSM state take none of these three: for it
+sliding-window rings and SSM state take none of these three, nor do
+starcoder2's and gemma2's rings (``"local"`` layers): for them
 ``--kv-mode paged``, ``--prefill-budget`` and ``--spec-decode`` fail
 with the engine's ``ValueError``, as in the JAX launcher. xlstm takes
 ``--prefill-budget`` (its state extends without padding) and refuses
@@ -41,7 +43,8 @@ hands it to ``serve``, which runs the engine (or, with ``--replicas``,
 depth-cut full-width config, say) and returns the run's numbers as a
 dict. Prompts are encoded into the model's vocabulary: the
 engine's tokenizer folded into the config's ``vocab_size`` where that is
-smaller than the tokenizer's (the MoE smoke configs' 512 ids).
+smaller than the tokenizer's (the smoke configs' 512 ids); the full
+configs' vocabularies (32,001 to 256,000 ids) hold it whole.
 """
 from __future__ import annotations
 
@@ -330,10 +333,11 @@ def serve_cluster(cfg, model, args, spec=None) -> dict:
             "cluster": cluster}
 
 
-def serve(cfg, model, args) -> dict:
+def serve(cfg, model, args, prompts=None) -> dict:
     """Serve ``args.requests`` requests with ``model`` (built for ``cfg``)
     under the engine settings of ``args`` (on a cluster with
-    ``--replicas``); returns the run's numbers."""
+    ``--replicas``); returns the run's numbers. ``prompts`` (id lists)
+    replaces the launcher's request prompts."""
     device = model.device
     # no trained draft checkpoint ships with the repo: self-draft (perfect
     # agreement) stands in for a distilled small model, as in the JAX
@@ -354,7 +358,8 @@ def serve(cfg, model, args) -> dict:
             args.cache_len = need
     else:
         prefixes = {}
-        prompts = [(p, None) for p in request_prompts(cfg, args.requests)]
+        prompts = [(p, None) for p in (request_prompts(cfg, args.requests)
+                                       if prompts is None else prompts)]
     tracer = Tracer() if args.trace_out else None
     engine = InferenceEngine(cfg, model, max_batch=args.max_batch,
                              cache_len=args.cache_len,

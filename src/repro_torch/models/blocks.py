@@ -1,7 +1,8 @@
 """Per-layer blocks of the port.
 
 Port of the JAX package's ``models/blocks.py`` for the layer kinds
-``"full"`` (full causal self-attention + SiLU-GLU MLP), ``"dense"`` (the
+``"full"`` (full causal self-attention + MLP), ``"local"`` (the same over
+a sliding window: starcoder2, gemma2), ``"dense"`` (the
 same inside an MoE model, with a ``top_k * d_expert`` wide MLP),
 ``"moe"`` (full attention + the mixture-of-experts FFN of
 ``models/moe.py``) and hymba's ``"hymba_g"`` / ``"hymba_w"`` (attention,
@@ -57,7 +58,7 @@ fixed-size row calls, so a row's bits do not depend on the batch) and
 keeps no K/V and no state: a hymba layer's SSM and an xLSTM layer start
 from a fresh state, as the JAX package's train mode does.
 
-A sliding-window layer (``"hymba_w"``) keeps a ring of
+A sliding-window layer (``"local"``, ``"hymba_w"``) keeps a ring of
 ``Sc = min(window, cache_len)`` rows: prefill attends over the window
 and packs the last Sc K/V rows in ring order (``_ring_from_prefill``),
 decode writes position p at row ``p % Sc`` and reads ``min(p+1, Sc)``
@@ -94,7 +95,8 @@ MODES = ("prefill", "extend", "decode", "verify", "train")
 PURE_ATTENTION_KINDS = ("full", "dense", "moe")
 HYMBA_KINDS = ("hymba_g", "hymba_w")
 XLSTM_KINDS = ("mlstm", "slstm")
-KINDS = PURE_ATTENTION_KINDS + HYMBA_KINDS + XLSTM_KINDS
+#: ``"local"`` (starcoder2, gemma2): ``"full"`` over a sliding-window ring
+KINDS = PURE_ATTENTION_KINDS + ("local",) + HYMBA_KINDS + XLSTM_KINDS
 #: modes whose row-wise products and norms run in fixed-size calls
 FIXED_MODES = ("prefill", "extend", "train")
 
@@ -108,7 +110,7 @@ class Block(nn.Module):
         if kind not in KINDS:
             raise NotImplementedError(
                 f"layer kind {kind!r} comes with its model family "
-                f"(ROADMAP.md queue A12)")
+                f"(ROADMAP.md queue A12.5: whisper's encdec)")
         self.kind = kind
         d = cfg.d_model
         self.norm1 = L.RMSNorm(d, cfg.norm_eps, dtype, device)

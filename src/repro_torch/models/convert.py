@@ -7,7 +7,10 @@ lists whose layer leaves carry a leading stacked axis R per segment:
 ui``. ``params_from_numpy`` takes that tree with numpy leaves (as
 ``jax.tree.map(np.asarray, params)`` gives it) and copies every leaf into
 the matching ``Model`` tensor, checking each shape. A leaf's path is its
-tensor's name with '/' for '.': ``attn/wq``, ``mlp/w_gate``, the MoE
+tensor's name with '/' for '.': ``attn/wq``, with ``qkv_bias`` (qwen1.5,
+starcoder2) ``attn/bq``, ``attn/bk`` and ``attn/bv``, ``mlp/w_gate``
+(GLU MLPs; the ``"gelu"`` MLP has ``mlp/w_up`` and ``mlp/w_down``
+only), the MoE
 leaves ``moe/router``, ``moe/w_gate`` (E, d, dff), ``moe/w_up``,
 ``moe/w_down``, ``moe/dense_residual/*`` and ``moe/shared_expert/*``,
 hymba's ``ssm/*`` (``in_proj``, ``conv_w``, ``conv_b``, ``w_bc``,
@@ -18,7 +21,8 @@ in fp32), ``norm_a/scale`` and ``norm_s/scale``, xlstm's ``mlstm/*``
 ``r_gates``, ``w_up``, ``w_down``, ``norm_ffn/scale`` in bf16;
 ``b_gates`` in fp32), each under a unit of four kinds repeated R times
 at full width, and at the top
-``embed``, ``final_norm/scale`` and, untied, ``lm_head``. A tree that
+``embed``, ``final_norm/scale`` and, untied (the MoE stacks, qwen1.5),
+``lm_head``. A tree that
 lacks a model tensor or holds a leaf the model lacks raises.
 
 bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which

@@ -1,7 +1,8 @@
 """Core model primitives: norms, rotary embeddings, attention, MLPs.
 
 Ports of the JAX package's ``models/layers.py`` for the attention layers
-of the served planner and the MoE families. Parameters live in small
+of every ported family (q, k and v biases for qwen1.5 and starcoder2;
+SiLU-GLU, GELU-GLU and GELU MLPs). Parameters live in small
 ``nn.Module``s whose tensor names and layouts are the JAX param tree's
 (``x @ wq`` with wq of shape (d, q_dim)), so the weight bridge maps
 leaves one to one. The ops are
@@ -80,12 +81,17 @@ def matmul_rows(x, w, fixed: bool = False):
 
 def normal_param(shape, std, gen, dtype, device):
     """Seeded normal init (fp32 draw, cast) — drawn on the CPU so the same
-    seed gives the same weights on every device; 0 std means zeros."""
+    seed gives the same weights on every device; 0 std means zeros. The
+    draw moves to ``device`` in fp32 and is scaled and cast there: the
+    same fp32 product and rounding on any device, and on the card it
+    spares the host half the work of a full-width model's billions of
+    values."""
     if std == 0.0:
-        t = torch.zeros(shape, dtype=torch.float32)
+        t = torch.zeros(shape, dtype=dtype, device=device)
     else:
-        t = torch.randn(shape, generator=gen, dtype=torch.float32) * std
-    return nn.Parameter(t.to(dtype).to(device), requires_grad=False)
+        t = torch.randn(shape, generator=gen, dtype=torch.float32)
+        t = (t.to(device) * std).to(dtype)
+    return nn.Parameter(t, requires_grad=False)
 
 
 def dense_param(shape, gen, dtype, device, scale: float = 1.0):
@@ -184,25 +190,35 @@ def attention(q, k, v, *, causal: bool, window: int = 0, cap: float = 0.0,
 # --------------------------------------------------------- attn projections --
 
 class Attention(nn.Module):
+    """The projections, and with ``cfg.qkv_bias`` (qwen1.5, starcoder2)
+    the q, k and v biases, zero-initialised as in the JAX package."""
+
     def __init__(self, cfg: ModelConfig, gen, dtype, device):
         super().__init__()
-        if cfg.qkv_bias:
-            raise NotImplementedError("qkv_bias comes with the qwen "
-                                      "family (ROADMAP.md queue A12)")
         d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
         self.wq = dense_param((d, qd), gen, dtype, device)
         self.wk = dense_param((d, kvd), gen, dtype, device)
         self.wv = dense_param((d, kvd), gen, dtype, device)
         self.wo = dense_param((qd, d), gen, dtype, device)
+        if cfg.qkv_bias:
+            self.bq = normal_param((qd,), 0.0, None, dtype, device)
+            self.bk = normal_param((kvd,), 0.0, None, dtype, device)
+            self.bv = normal_param((kvd,), 0.0, None, dtype, device)
 
 
 def qkv_proj(p: Attention, x, cfg: ModelConfig, fixed: bool = False):
-    """x: (B,S,d) -> q (B,Hq,S,hd), k,v (B,Hkv,S,hd) (pre-RoPE)."""
+    """x: (B,S,d) -> q (B,Hq,S,hd), k,v (B,Hkv,S,hd) (pre-RoPE). A bias
+    is a separate add after its product, in the product's dtype, as the
+    JAX package rounds the product and then the sum; the add is per row,
+    so the fixed-size row calls' contract holds."""
     B, S, _ = x.shape
     mm = lambda w: matmul_rows(x, w, fixed)
-    q = mm(p.wq).reshape(B, S, cfg.n_heads, cfg.d_head).transpose(1, 2)
-    k = mm(p.wk).reshape(B, S, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
-    v = mm(p.wv).reshape(B, S, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
+    q, k, v = mm(p.wq), mm(p.wk), mm(p.wv)
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q = q.reshape(B, S, cfg.n_heads, cfg.d_head).transpose(1, 2)
+    k = k.reshape(B, S, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
+    v = v.reshape(B, S, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
     return q, k, v
 
 
@@ -215,23 +231,35 @@ def out_proj(p: Attention, attn_out, fixed: bool = False):
 
 # -------------------------------------------------------------------- mlp ----
 
+MLP_ACTS = ("silu_glu", "gelu_glu", "gelu")
+
+
 class MLP(nn.Module):
-    """SiLU-GLU MLP of any width: the planner's and arctic's d_ff, kimi's
-    dense layer (top_k * d_expert) and the MoE dense residual and shared
-    expert."""
+    """The JAX package's MLP of any width (the planner's and arctic's
+    d_ff, kimi's dense layer (top_k * d_expert), the MoE dense residual
+    and shared expert): ``"silu_glu"`` and ``"gelu_glu"`` (gemma2) with
+    w_gate, w_up and w_down; ``"gelu"`` (starcoder2) with w_up and
+    w_down only."""
 
     def __init__(self, d: int, d_ff: int, act: str, gen, dtype, device):
         super().__init__()
-        if act != "silu_glu":
-            raise NotImplementedError(f"mlp_act {act!r} comes with its "
-                                      f"model family (ROADMAP.md queue A12)")
+        if act not in MLP_ACTS:
+            raise ValueError(f"mlp_act {act!r} (have {MLP_ACTS})")
         self.act = act
-        self.w_gate = dense_param((d, d_ff), gen, dtype, device)
+        if act.endswith("_glu"):
+            self.w_gate = dense_param((d, d_ff), gen, dtype, device)
         self.w_up = dense_param((d, d_ff), gen, dtype, device)
         self.w_down = dense_param((d_ff, d), gen, dtype, device)
 
 
 def mlp(p: MLP, x, fixed: bool = False):
-    h = F.silu(matmul_rows(x, p.w_gate, fixed)) * matmul_rows(x, p.w_up,
-                                                              fixed)
+    """The GELUs are tanh-approximated, as ``jax.nn.gelu(...,
+    approximate=True)``."""
+    if p.act == "gelu":
+        h = F.gelu(matmul_rows(x, p.w_up, fixed), approximate="tanh")
+    else:
+        gate = matmul_rows(x, p.w_gate, fixed)
+        act = (F.silu(gate) if p.act == "silu_glu"
+               else F.gelu(gate, approximate="tanh"))
+        h = act * matmul_rows(x, p.w_up, fixed)
     return matmul_rows(h, p.w_down, fixed)

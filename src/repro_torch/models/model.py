@@ -2,7 +2,11 @@
 loss (``train_loss``).
 
 Port of the JAX package's ``models/model.py`` for the dense planner
-(``"full"`` layers, tied head), the MoE families (``"moe"`` and
+(``"full"`` layers, tied head), the dense qwen1.5 (``"full"``, q/k/v
+biases, untied head), starcoder2 (``"local"``: sliding-window rings,
+GELU MLP) and gemma2 (``"local"`` and ``"full"``, attention and final
+softcaps, GELU-GLU, the embedding scaled by sqrt(d)), the MoE families
+(``"moe"`` and
 ``"dense"`` layers, untied ``lm_head``) and the hybrid hymba
 (``"hymba_g"`` / ``"hymba_w"`` layers: attention in parallel with a
 mamba SSM) and xlstm (``"mlstm"`` / ``"slstm"`` layers, attention-free).
@@ -66,11 +70,14 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig, gen, dtype, device):
         super().__init__()
-        if cfg.n_enc_layers or cfg.final_softcap or cfg.emb_scale_by_sqrt_d \
-                or cfg.family not in ("dense", "moe", "hybrid", "ssm"):
+        if cfg.n_enc_layers or cfg.family == "audio":
             raise NotImplementedError(
-                f"{cfg.name}: only the dense, MoE, hybrid (hymba) and "
-                f"xLSTM stacks are ported (ROADMAP.md queue A12)")
+                f"{cfg.name}: the encoder-decoder stack (whisper) comes "
+                f"with ROADMAP.md queue A12.5")
+        if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
+            raise NotImplementedError(
+                f"{cfg.name}: the {cfg.family!r} family (qwen2-vl's mrope "
+                f"and patch embeddings) comes with ROADMAP.md queue A12.4")
         self.cfg = cfg
         self.embed = L.normal_param((cfg.vocab_size, cfg.d_model), 0.02, gen,
                               dtype, device)
@@ -180,6 +187,11 @@ def _embed_inputs(model: Model, tokens, pos=None):
     package's ``_embed_inputs`` does."""
     B, S = tokens.shape
     x = model.embed[tokens]
+    if model.cfg.emb_scale_by_sqrt_d:
+        # sqrt(d) rounded to the embedding's dtype first, as the JAX
+        # package multiplies by jnp.asarray(d ** 0.5, x.dtype)
+        x = x * torch.tensor(model.cfg.d_model ** 0.5, dtype=x.dtype,
+                             device=x.device)
     ar = torch.arange(S, device=tokens.device)
     if isinstance(pos, torch.Tensor) and pos.ndim == 1:
         positions = pos.to(tokens.device).long()[:, None] + ar[None, :]
@@ -201,11 +213,17 @@ def _sin_at(d: int, positions):
 
 
 def _logits(model: Model, x):
-    """fp32 head: (…, d) -> (…, V) fp32, never in TF32."""
+    """fp32 head: (…, d) -> (…, V) fp32, never in TF32; with
+    ``final_softcap`` (gemma2) ``cap * tanh(logits / cap)`` in fp32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     if model.lm_head is None:
-        return x.float() @ model.embed.float().T
-    return x.float() @ model.lm_head.float()
+        logits = x.float() @ model.embed.float().T
+    else:
+        logits = x.float() @ model.lm_head.float()
+    cap = model.cfg.final_softcap
+    if cap:
+        logits = cap * torch.tanh(logits / cap)
+    return logits
 
 
 # ------------------------------------------------------------- public API ----

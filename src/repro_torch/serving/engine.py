@@ -36,9 +36,10 @@ slot and verifies them in ONE target ``verify_extend`` forward, emitting
 1..K+1 tokens per slot, bitwise the tokens of non-speculative decoding
 (T=0 always; any temperature for seeded requests), in both kv modes.
 
-A stack with sliding-window rings (hymba) cannot extend a cache by
-several tokens at once (the JAX engine's ``_can_extend``): its prefix
-tails and prefix-hit suffixes advance token by token through
+A stack with sliding-window rings (hymba, starcoder2, gemma2) cannot
+extend a cache by several tokens at once (the JAX engine's
+``_can_extend``): its prefix tails and prefix-hit suffixes advance token
+by token through
 ``decode_step``, and ``prefill_budget`` is refused. A recurrent stack
 without rings (xlstm) extends in whole ``attn_chunk`` slabs plus one
 unpadded rest, and takes ``prefill_budget``: bucket-padded extends

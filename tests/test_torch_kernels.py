@@ -394,6 +394,72 @@ def test_paged_decode_family_at_block_sizes(bs, W):
     _close(got, want)
 
 
+# the head dims the dense A12 families bring: qwen1.5-110b-smoke's 16
+# (8/2 heads) and gemma2's 256 (8/4, attention softcap 50, window)
+NEW_HEAD_DIMS = [(16, 8, 2), (256, 8, 4)]
+
+
+@pytest.mark.parametrize("hd,Hq,Hkv", NEW_HEAD_DIMS)
+@pytest.mark.parametrize("Sq,Sk,q_offset,cap,window", [
+    (70, 70, 0, 0.0, 0), (70, 70, 0, 50.0, 24), (16, 96, 70, 50.0, 24)],
+    ids=["causal", "cap_window", "extend"])
+def test_attention_oracle_at_new_head_dims(hd, Hq, Hkv, Sq, Sk, q_offset,
+                                           cap, window):
+    q, k, v = _inputs(hd + Sq, 1, Hq, Hkv, Sq, Sk, hd)
+    kw = dict(causal=True, q_offset=q_offset, cap=cap, window=window)
+    got = flash_prefill(*map(torch.from_numpy, (q, k, v)), **kw)
+    _close(got, JR.attention_ref(*map(jnp.asarray, (q, k, v)), **kw))
+
+
+@pytest.mark.parametrize("hd,Hq,Hkv", NEW_HEAD_DIMS)
+@pytest.mark.parametrize("cap", [0.0, 50.0])
+def test_decode_family_oracles_at_new_head_dims(hd, Hq, Hkv, cap):
+    """Decode, paged decode, verify and paged verify against the JAX
+    oracles, with the decode family's bitwise contracts (verify row ==
+    decode row, paged == dense on the gathered view)."""
+    rng = np.random.default_rng(hd)
+    kvl = torch.tensor([5, 130, 1, 77])
+    kp, vp, tab = _shuffled(rng, kvl.tolist(), 16, Hkv, hd, 130)
+    kg, vg = TR.paged_gather_kv(kp, tab), TR.paged_gather_kv(vp, tab)
+    q = torch.from_numpy(rng.standard_normal((4, Hq, hd), dtype=np.float32))
+    qv = torch.from_numpy(rng.standard_normal((4, Hq, 3, hd),
+                                              dtype=np.float32))
+    j = lambda *ts: map(jnp.asarray, (t.numpy() for t in ts))
+    dec = flash_decode(q, kg, vg, kvl, cap=cap)
+    _close(dec, JR.decode_attention_ref(*j(q, kg, vg, kvl), cap=cap))
+    assert torch.equal(flash_decode_paged(q, kp, vp, tab, kvl, cap=cap), dec)
+    ver = flash_verify(qv, kg, vg, kvl, cap=cap)
+    _close(ver, JR.verify_attention_ref(*j(qv, kg, vg, kvl), cap=cap))
+    assert torch.equal(flash_verify_paged(qv, kp, vp, tab, kvl, cap=cap),
+                       ver)
+    _close(flash_verify_paged(qv, kp, vp, tab, kvl, cap=cap),
+           JR.paged_verify_attention_ref(*j(qv, kp, vp, tab, kvl), cap=cap))
+    for w in range(3):
+        row = flash_decode(qv[:, :, w].contiguous(), kg, vg,
+                           torch.clamp(kvl - 3 + w + 1, min=0), cap=cap)
+        live = (kvl - 3 + w + 1) > 0
+        assert torch.equal(ver[live, :, w], row[live]), w
+
+
+@pytest.mark.parametrize("hd", [16, 256])
+def test_backward_refuses_the_new_head_dims(hd):
+    """The forward takes 16 and 256; its backward kernel is built for 32,
+    64 and 128 only, so on the card's path (the checks a CUDA tensor
+    meets before its launch, on CPU tensors here) it refuses them and
+    names the queue item that brings them."""
+    from repro_torch.kernels.flash_prefill import BWD_HEAD_DIMS, \
+        HEAD_DIMS, check_bwd_shapes, check_shapes
+    assert hd in HEAD_DIMS and hd not in BWD_HEAD_DIMS
+    assert BWD_HEAD_DIMS == (32, 64, 128)
+    bf = lambda *s: torch.zeros(s, dtype=torch.bfloat16)
+    q, k = bf(1, 4, 8, hd), bf(1, 2, 8, hd)
+    check_shapes(q, k, k)
+    with pytest.raises(NotImplementedError, match="A11.3"):
+        check_bwd_shapes(q, k, k)
+    for ok in BWD_HEAD_DIMS:
+        check_bwd_shapes(bf(1, 4, 8, ok), bf(1, 2, 8, ok), bf(1, 2, 8, ok))
+
+
 def test_decode_bench_refuses_without_a_card(capsys):
     """The timing script measures the card only: without one it exits
     non-zero and prints no result."""
@@ -412,7 +478,7 @@ def _card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("hd", [64, 128, 32])
+@pytest.mark.parametrize("hd", [64, 128, 32, 16, 256])
 @pytest.mark.parametrize("Sq,Sk,q_offset,cap,window", [
     (37, 37, 0, 0.0, 0), (16, 2048, 700, 0.0, 0), (130, 300, 170, 0.0, 0),
     (100, 100, 0, 20.0, 0), (100, 200, 90, 0.0, 33)])
@@ -431,7 +497,7 @@ def test_flash_prefill_kernel_on_card(Sq, Sk, q_offset, cap, window, hd):
                                rtol=1e-2)
 
 
-@pytest.mark.parametrize("hd", [64, 128, 32])
+@pytest.mark.parametrize("hd", [64, 128, 32, 16, 256])
 @pytest.mark.parametrize("cap,window", [(0.0, 0), (30.0, 0), (0.0, 100)])
 def test_flash_prefill_extend_rows_are_prefill_rows_on_card(hd, cap, window):
     """The kernel's row contract: a row has the same bits in one 300-row
@@ -461,7 +527,8 @@ def test_flash_prefill_extend_rows_are_prefill_rows_on_card(hd, cap, window):
 # served configs have, verify windows of --draft-k 0, 4, 8 and 21, every
 # head dim the kernels are built for, block sizes 8, 12 (K copied by the
 # block's threads), the engine's 16, 24 (not dividing a tile) and 256
-CARD_G, CARD_W, CARD_HD = [3, 5, 7, 8], [1, 5, 9, 22], [32, 64, 128]
+CARD_G, CARD_W, CARD_HD = [3, 5, 7, 8], [1, 5, 9, 22], [16, 32, 64, 128,
+                                                          256]
 CARD_BS = [8, 12, 16, 24, 256]
 
 

@@ -244,18 +244,21 @@ def _checks(hd, G=2, W=5):
             _bf(4, 2, 16, hd), tab)}
 
 
-@pytest.mark.parametrize("hd", [16, 96, 256])
+@pytest.mark.parametrize("hd", [8, 48, 96, 512])
 def test_attention_wrappers_raise_on_other_head_dims(hd):
     for name, check in _checks(hd).items():
-        with pytest.raises(ValueError, match=r"head dim in \(32, 64, 128\)"):
+        with pytest.raises(ValueError,
+                           match=r"head dim in \(16, 32, 64, 128, 256\)"):
             check()
 
 
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("G", [7, 8])
 def test_attention_wrappers_take_the_moe_head_dims(hd, G):
     """arctic's G = 7 (56/8) and kimi's G = 8 (64/8) at W = 5: 35 and 40
-    rows a kv head, which the kernels spread over blocks of warps."""
+    rows a kv head, which the kernels spread over blocks of warps; at
+    every head dim the kernels are built for (16: qwen1.5-110b-smoke,
+    256: gemma2)."""
     for check in _checks(hd, G=G).values():
         check()
 

@@ -152,6 +152,26 @@ def test_paged_and_spec_runs_serve_the_dense_tokens(extra, capsys):
     assert res["preemptions"] == res["stats"]["preemptions"]
 
 
+def test_gemma2_smoke_run(capsys):
+    """gemma2-smoke (a sliding-window ``"local"`` layer and a ``"full"``
+    one, softcaps, GELU-GLU) served through the launcher; prompts fold
+    into its 512-id vocabulary, and 24 new tokens after each prompt take
+    it past its 32-row ring."""
+    res = main(["--arch", "gemma2-2b", "--smoke", "--device", "cpu",
+                "--requests", "3", "--max-new", "24", "--max-batch", "2",
+                "--cache-len", "48", "--temperature", "0"])
+    assert res["requests"] == 3
+    assert all(len(o) == 24 for o in res["outputs"].values())
+    assert "served 3 requests" in capsys.readouterr().out
+
+
+def test_gemma2_paged_refused():
+    with pytest.raises(ValueError, match="kv_mode='paged' needs a "
+                                         "pure-attention"):
+        main(["--arch", "gemma2-2b", "--smoke", "--device", "cpu",
+              "--requests", "1", "--max-new", "2", "--kv-mode", "paged"])
+
+
 def test_checkpoint_flag_loads_jax_weights(tmp_path):
     jp = jax_init(jax.random.PRNGKey(7), jax_smoke("planner-proxy-100m"))
     path = tmp_path / "planner.npz"
