@@ -98,8 +98,9 @@ served by ``launch.serve --checkpoint``. Then the other families'
 training through ``launch.train.train_run``, 10 steps each from seed
 0's weights: arctic at its published widths cut to one MoE layer of 16
 of its 128 experts (4 x 256; AdamW's state of a full layer exceeds the
-card), hymba-1.5b at full width and depth (2 x 2,048, past its 1,024
-window) and xlstm-125m at full width and depth (8 x 256): the loss must
+card), hymba-1.5b at full width cut to one unit of 16 of its 32 layers
+(2 x 2,048, past its 1,024 window) and xlstm-125m at full width cut to
+one unit of 4 of its 12 layers (8 x 256): the loss must
 fall, every kernel must launch once a layer that runs it a step (the
 forward twice with remat), and 3 steps with remat must equal 3 without
 bitwise in every loss and parameter; each with ms a step, tok/s and peak
@@ -149,19 +150,37 @@ widths (40/40 heads of 128: G = 1, q/k/v biases, an untied head of
 with a pool that preempts, speculative (--draft-k 4, self-draft accept
 rate 1.0) and budgeted (1,024), every run's tokens equal, budgeted and
 prefix-hit equalities on 1,300-token prompts and a decode profile;
-starcoder2-3b (30 ``"local"`` layers, 24/2 heads, GELU MLP) and
-gemma2-2b (``"local"`` / ``"full"`` x 13, 8/4 heads of 256, softcaps 50
-and 30) at full width and depth: two dense serve runs, the recycled
+starcoder2-3b (``"local"`` layers, 24/2 heads, GELU MLP) and gemma2-2b
+(``"local"`` / ``"full"``, 8/4 heads of 256, softcaps 50 and 30) at
+full width, their depth cut to 8 of 30 and 8 of 26 layers: two dense
+serve runs, the recycled
 slots' requests against a fresh engine, the refusals of paged KV,
 chunked prefill and speculative decoding, and gemma2's ring crossing
 (prompts of 4,040-4,082 tokens whose decode crosses its 4,096-row rings,
 decode logits against a windowed prefill); card vs CPU on the four
 smoke configs. The attention kernels' cases include head dims 16
 (qwen1.5-110b-smoke's 8/2) and 256 (gemma2's 8/4, its cap and window)
-and qwen's G = 1. Every phase line carries ``t``, the seconds since the
-start. It prints one JSON line per phase. It fails (non-zero exit, no result line) when
-no card is present, when it does not run from a checkout of the
-repository, or when any phase fails. ``--kernels-only`` stops after the
+and qwen's G = 1, and whisper's heads (20/20 of 64, B 4): flash_prefill
+non-causal at Sq = Sk = 1,500, Sq = 16 and Sq = 1 over 1,500 keys, a
+one-row call bitwise equal to its row of a 64-row call, and the decode
+family at G = 1 over a 448-row ragged cache. Last, qwen2-vl-72b at its
+published widths, its depth cut to 2 of 80 layers: a prefill of 2 x
+1,088 rows (1,024 patch embeddings over the first rows, then 64 ids)
+and 32 greedy decode steps, under M-RoPE ids of the text layout (t = h
+= w) and of a 32 x 32 patch grid; whisper-large-v3 at full width and
+depth: its encoder over 4 x 1,500 frames, timed, then a prefill of 16
+ids beside them and 64 greedy decode steps (the cross-attention's row a
+step through flash_prefill); each path with its launches counted (set
+to 0 just before it) and its logits held to the full-sequence forward's
+within the JAX package's bound; card vs CPU on both smoke configs. In
+the family training phases, kimi-smoke's card-vs-CPU gradients also
+run with its load-balance term off (``aux_loss_weight`` 0, reported) and
+with no expert choice dropped (capacity factor 100), where every leaf
+must agree within NO_DROP_GRAD_REL. Every phase line carries ``t``,
+the seconds since the start. It prints one JSON line per phase. It
+fails (non-zero exit, no result line) when no card is present, when it
+does not run from a checkout of the repository, or when any phase
+fails. ``--kernels-only`` stops after the
 kernel cases (a quick check of a kernel change; it prints no result
 line). Detail goes to ``chiprun_out/chip_smoke.json``, nvcc's
 register/shared-memory report to ``chip_smoke_build.log`` and gzipped
@@ -247,7 +266,18 @@ Tolerances:
     bitwise;
   * xlstm budgeted vs monolithic and prefix hit vs miss: bitwise (the
     sequential recurrence, the kernel's seams and the fixed-size row
-    products give a row the same bits at any chunking).
+    products give a row the same bits at any chunking);
+  * flash_prefill, a one-row call vs its row of a 64-row call over the
+    same keys: bitwise (the row's arithmetic does not depend on its
+    place in the tile);
+  * qwen2-vl and whisper, prefill then decode vs the full-sequence
+    forward (train mode) over the same ids: max |diff| < 0.05 max
+    |logit| + 0.05, the JAX package's own bound
+    (``tests/test_arch_smoke.py``: another attention kernel and other
+    product shapes for the same logits);
+  * kimi-smoke's gradients card vs CPU with no expert choice dropped
+    (capacity factor 100): every leaf's relative norm <=
+    NO_DROP_GRAD_REL = 3e-2, the CPU tests' bound against JAX.
 """
 from __future__ import annotations
 
@@ -337,24 +367,26 @@ def _mk(gen, *shape):
 
 
 def prefill_case(Sq, Sk, q_offset, gen, heads=(HQ, HKV, HD), window=0,
-                 device=False, batch=1, cap=0.0):
+                 device=False, batch=1, cap=0.0, causal=True):
     """flash_prefill against its plain version on ``batch`` rows, with its
     CUDA-event time beside the plain version's and SDPA's (none under a
     softcap: no one call computes it) and the bound; ``device`` adds its
-    device time a call (``torch.profiler``)."""
+    device time a call (``torch.profiler``). ``causal=False``: every
+    query row sees every key (whisper's encoder and cross-attention)."""
     from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.ref import attention_ref
     import torch.nn.functional as F
     Hq, Hkv, hd = heads
     q, k, v = _mk(gen, batch, Hq, Sq, hd), _mk(gen, batch, Hkv, Sk, hd), \
         _mk(gen, batch, Hkv, Sk, hd)
-    kw = dict(causal=True, q_offset=q_offset, window=window, cap=cap)
+    kw = dict(causal=causal, q_offset=q_offset, window=window, cap=cap)
     out = flash_prefill(q, k, v, **kw)
     ref = attention_ref(q, k, v, **kw)
     err = err_ok(out, ref)
     kpos = torch.arange(Sk, device="cuda")
     qpos = q_offset + torch.arange(Sq, device="cuda")
-    mask = kpos[None, :] <= qpos[:, None]                      # (Sq,Sk)
+    mask = (kpos[None, :] <= qpos[:, None] if causal      # (Sq,Sk)
+            else torch.ones((Sq, Sk), dtype=torch.bool, device="cuda"))
     if window:
         mask &= qpos[:, None] - kpos[None, :] < window
     ms = cuda_ms(lambda: flash_prefill(q, k, v, **kw))
@@ -363,11 +395,12 @@ def prefill_case(Sq, Sk, q_offset, gen, heads=(HQ, HKV, HD), window=0,
                                                   enable_gqa=True)
     lib = None if cap else cuda_ms(sdpa)
     pairs = batch * int(mask.sum())               # this run's (q,k) pairs
-    keys = min(Sk, q_offset + Sq)
+    keys = min(Sk, q_offset + Sq) if causal else Sk
     nbytes = 2 * hd * batch * (2 * Hq * Sq + 2 * Hkv * keys)
     b_ms, b_by = bound(nbytes, 4 * hd * Hq * pairs)
     out = dict(B=batch, Sq=Sq, Sk=Sk, q_offset=q_offset, window=window,
-               cap=cap, heads=list(heads), max_abs_err=err, ms=ms,
+               cap=cap, causal=causal, heads=list(heads), max_abs_err=err,
+               ms=ms,
                plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
     if device:
         out["device_ms"] = device_ms(lambda: flash_prefill(q, k, v, **kw),
@@ -844,6 +877,55 @@ def dense_head_cases(gen):
                     dict(paged_decode_case(gen, heads), **tag)))
         for name, c in verify_cases(gen, heads).items():
             out.append((f"kernel_{name[6:]}", dict(c, **tag)))
+    return out
+
+
+# whisper-large-v3's heads (Hq, Hkv, hd): 20/20 of 64 (G = 1); its
+# encoder context (max_source_positions, openai/whisper-large-v3's
+# config.json), its decoder prompt beside it (inputs._whisper_dec_len)
+# and its decoder cache (WHISPER_DEC_CACHE); the batch of its card phase
+WHISPER_HEADS = (20, 20, 64)
+WHISPER_ENC, WHISPER_PROMPT, WHISPER_CACHE, WHISPER_B = 1500, 16, 448, 4
+# a ragged decoder cache: 8 slots' fill levels of the 448 rows
+WHISPER_KV_LENS = [1, 16, 17, 64, 200, 333, 447, 448]
+# the rows of a 64-row call that the one-row calls are held to
+ONE_ROW_PICKS = (0, 1, 31, 62, 63)
+
+
+def whisper_kernel_cases(gen):
+    """The attention kernels at whisper's heads, as its path calls them:
+    flash_prefill non-causal at Sq = Sk = 1,500 (the encoder), Sq = 16
+    over Sk = 1,500 (the cross-attention in prefill) and Sq = 1 over
+    1,500 (the cross-attention in decode), each against its plain
+    version with its device time a call beside SDPA's; a one-row call
+    bitwise equal to that row of a 64-row call over the same keys, for
+    rows across the tile (the kernel's row arithmetic does not depend
+    on the row's place, so decode's cross-attention row is prefill's);
+    the decode family at G = 1, hd 64 over the 448-row decoder cache,
+    ragged, against its plain version (and its paged twin, bitwise)."""
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    tag = dict(family="whisper", hd=WHISPER_HEADS[2])
+    out = [("kernel_prefill",
+            dict(prefill_case(sq, WHISPER_ENC, 0, gen, WHISPER_HEADS,
+                              device=True, batch=WHISPER_B, causal=False),
+                 **tag))
+           for sq in (WHISPER_ENC, WHISPER_PROMPT, 1)]
+    Hq, Hkv, hd = WHISPER_HEADS
+    q = _mk(gen, WHISPER_B, Hq, 64, hd)
+    k, v = (_mk(gen, WHISPER_B, Hkv, WHISPER_ENC, hd) for _ in range(2))
+    tile = flash_prefill(q, k, v, causal=False)
+    for r in ONE_ROW_PICKS:
+        one = flash_prefill(q[:, :, r:r + 1].contiguous(), k, v,
+                            causal=False)
+        check(torch.equal(one, tile[:, :, r:r + 1]),
+              f"flash_prefill: a one-row call != row {r} of a 64-row call "
+              f"(non-causal, {WHISPER_ENC} keys)")
+    out.append(("kernel_prefill_one_row",
+                dict(tag, B=WHISPER_B, Sk=WHISPER_ENC,
+                     rows=list(ONE_ROW_PICKS), bitwise=True)))
+    out.append(("kernel_decode",
+                dict(decode_case(WHISPER_KV_LENS, WHISPER_CACHE, gen,
+                                 WHISPER_HEADS), **tag)))
     return out
 
 
@@ -2074,6 +2156,9 @@ def bwd_kernels_ptxas(build_log: str) -> dict:
 
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARM = 30, 8, 256, 5
 TRAIN_LOSS_TOL = 0.05
+# kimi-smoke's gradients card vs CPU with no expert choice dropped: the
+# CPU tests' bound against JAX (tests/torch_train_common.py, GRAD_REL)
+NO_DROP_GRAD_REL = 3e-2
 GATE_CKPT = ROOT / "build" / "planner_gate.npz"
 
 
@@ -2307,18 +2392,21 @@ ARCTIC_TRAIN_EXPERTS = 16
 def family_train_config(name: str):
     """(config, batch, seq) of a family's training path on the card:
     arctic at its published widths cut to one MoE layer of
-    ARCTIC_TRAIN_EXPERTS experts, 4 x 256; hymba-1.5b at full width and
-    depth, 2 x 2,048 (past its 1,024 window); xlstm-125m at full width
-    and depth, 8 x 256."""
+    ARCTIC_TRAIN_EXPERTS experts, 4 x 256; hymba-1.5b at full width cut
+    to one unit (16 of 32 layers: hymba_g + 15 hymba_w), 2 x 2,048 (past
+    its 1,024 window); xlstm-125m at full width cut to one unit (4 of 12
+    layers: 3 mLSTM + 1 sLSTM), 8 x 256. A unit holds every layer kind
+    of its stack; the other units repeat it."""
     import dataclasses
     from repro_torch.configs import get_config
     if name == "arctic":
         cfg = moe_config("arctic-480b")
         return cfg.replace(moe=dataclasses.replace(
             cfg.moe, n_experts=ARCTIC_TRAIN_EXPERTS)), 4, 256
-    if name == "hymba":
-        return get_config(HYMBA), 2, 2048
-    return get_config(XLSTM), 8, 256
+    cfg, B, S = ((get_config(HYMBA), 2, 2048) if name == "hymba"
+                 else (get_config(XLSTM), 8, 256))
+    unit = cfg.segments[0][0]
+    return (cfg.replace(n_layers=len(unit), segments=((unit, 1),)), B, S)
 
 
 def expected_launches(cfg, remat: bool) -> dict:
@@ -2349,6 +2437,7 @@ def family_train(name: str):
     bitwise equal in every loss and parameter."""
     import copy
     import gc
+    from repro_torch.configs import get_config
     from repro_torch.kernels import backend as KB
     from repro_torch.launch.train import train_run
     from repro_torch.models.model import count_params, init_params
@@ -2411,6 +2500,9 @@ def family_train(name: str):
         out["reduced"] = (f"1 of 35 layers, {ARCTIC_TRAIN_EXPERTS} of 128 "
                           f"experts (AdamW state of a full layer exceeds "
                           f"one card)")
+    else:
+        out["reduced"] = (f"one unit, {len(cfg.layer_kinds())} of "
+                          f"{get_config(cfg.name).n_layers} layers")
     del a, b, base
     gc.collect()
     torch.cuda.empty_cache()
@@ -2435,8 +2527,37 @@ def family_training_phases():
         emit(f"train_{name}_card", **runs[name])
         for cfg in smoke[name]:
             emit(f"train_{name}_card_vs_cpu", **train_card_vs_cpu(cfg))
+    for name, kw in KIMI_VARIANTS.items():
+        emit(f"train_kimi_{name}_card_vs_cpu", **kimi_card_vs_cpu(**kw))
     emit("family_training_elapsed", seconds=time.time() - t0)
     return runs
+
+
+# kimi-smoke's card-vs-CPU gradients again: without the load-balance
+# term (reported), and with no choice dropped (capacity factor 100; held
+# to NO_DROP_GRAD_REL); the near-tie tokens' labels masked as before
+KIMI_VARIANTS = {"aux0": dict(aux_loss_weight=0.0),
+                 "no_drops": dict(capacity_factor=100.0)}
+
+
+def kimi_card_vs_cpu(**moe_kw):
+    """kimi-smoke's ``train_card_vs_cpu`` under ``moe_kw`` (MoEConfig
+    fields). At the config's capacity factor, 1.25, its batch drops
+    expert choices: a token that a near-tie routes apart on the two
+    devices shifts the buffer positions of the tokens after it, so other
+    tokens, whose labels are kept, can be dropped on one device and not
+    on the other, which moves every gradient leaf. With no choice
+    dropped every leaf must agree within NO_DROP_GRAD_REL."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config("kimi-k2-1t-a32b")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, **moe_kw))
+    res = train_card_vs_cpu(cfg)
+    if cfg.moe.capacity_factor >= 100.0:
+        check(res["grad_rel_err_max"] <= NO_DROP_GRAD_REL,
+              f"kimi-smoke without capacity drops: card vs CPU gradients "
+              f"{res['grad_rel_err_worst']} past {NO_DROP_GRAD_REL}")
+    return dict(res, moe=moe_kw, grad_tol=NO_DROP_GRAD_REL)
 
 
 # ---------------------------------- the sampler and the replica cluster ----
@@ -3045,21 +3166,25 @@ QWEN_MODES = [
     ("spec", SPEC, 61, ("flash_prefill", "flash_verify")),
     ("budget_1024", ["--prefill-budget", "1024"], 64, _DENSE)]
 WINDOW_MODES = [("dense", [], 64, _DENSE), ("dense_again", [], 64, _DENSE)]
+# starcoder2-3b's and gemma2-2b's serving depth: 8 "local" layers, 4
+# ("local", "full") units
+WINDOW_LAYERS = 8
 # gemma2's ring crossing: prompts of 4,040-4,082 tokens, 64 new tokens
 # each, at a cache that holds them
 GEMMA2_LONG, GEMMA2_LONG_CACHE = 4040, 4224
 DENSE_SMOKE = ("qwen1.5-32b", "qwen1.5-110b", "starcoder2-3b", "gemma2-2b")
 
 
-def dense_init(arch: str, cfg, note: str):
+def dense_init(arch: str, cfg, note: str, prefix: str = "dense"):
     """``cfg``'s model on the card, its init timed (the weights are drawn
-    in fp32 on the host, ``layers.normal_param``) and emitted."""
+    in fp32 on the host, ``layers.normal_param``) and emitted as
+    ``{prefix}_init_{arch}``."""
     from repro_torch.models.model import count_params, init_params
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     model = init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    emit(f"dense_init_{arch}", depth=note, layers=len(cfg.layer_kinds()),
+    emit(f"{prefix}_init_{arch}", depth=note, layers=len(cfg.layer_kinds()),
          kinds=sorted(set(cfg.layer_kinds())), d_model=cfg.d_model,
          heads=[cfg.n_heads, cfg.n_kv_heads, cfg.d_head], d_ff=cfg.d_ff,
          mlp_act=cfg.mlp_act, window=cfg.window, qkv_bias=cfg.qkv_bias,
@@ -3075,7 +3200,9 @@ def dense_phases():
     8 slots they pass the card): the serve runs (monolithic, paged with a
     pool that preempts, spec k 4, budget 1,024: equal tokens), budgeted
     and prefix-hit equalities, a decode profile; starcoder2-3b and
-    gemma2-2b at full width and depth: two dense serve runs, recycled
+    gemma2-2b at full width, their depth cut to WINDOW_LAYERS (their
+    weights' host draw and their step's launches scale with depth; a
+    layer adds no new path): two dense serve runs, recycled
     slots, the refusals of paged, budget and spec, and for gemma2 the
     ring crossing; each model freed before the next; then card vs CPU on
     the four smoke configs. Returns each arch's serve runs."""
@@ -3089,7 +3216,11 @@ def dense_phases():
                               segments=((("full",), QWEN_LAYERS),))
             note = (f"{QWEN_LAYERS} of 64 layers, widths unchanged")
         else:
-            note = "not cut"
+            unit = cfg.segments[0][0]
+            cfg = cfg.replace(n_layers=WINDOW_LAYERS, segments=(
+                (unit, WINDOW_LAYERS // len(unit)),))
+            note = (f"{WINDOW_LAYERS} of {get_config(arch).n_layers} "
+                    f"layers, widths unchanged")
         model = dense_init(arch, cfg, note)
         prompts = None
         if arch == "gemma2-2b":
@@ -3130,6 +3261,227 @@ def dense_phases():
     for arch in DENSE_SMOKE:
         emit(f"card_vs_cpu_{arch}", **card_vs_cpu(get_smoke_config(arch)))
     return results
+
+
+# -------------------------------------------- qwen2-vl and whisper ----
+
+VLM = "qwen2-vl-72b"
+VLM_LAYERS = 2
+# a prompt of one 32 x 32-patch image (1,024 patch rows) and 64 text
+# ids, 2 of them, then 32 greedy decode steps
+VLM_B, VLM_TEXT, VLM_GRID, VLM_STEPS = 2, 64, 32, 32
+WHISPER = "whisper-large-v3"
+WHISPER_STEPS = 64
+# the card-vs-CPU smoke runs: a 300-token vlm prompt (its 16 patches on
+# a 4 x 4 grid) or whisper's 16-token prompt over 1,500 frames, 8
+# decode steps of forced ids
+MM_SMOKE_S, MM_SMOKE_STEPS, MM_SMOKE_GRID = 300, 8, 4
+
+
+def _with_rows(batch, pos, j):
+    """``batch`` with the M-RoPE ids of position j of ``pos`` (3, B, n)
+    as its (3, B, 1) ``mrope_pos``; ``batch`` as it is when ``pos`` is
+    None (no M-RoPE)."""
+    return batch if pos is None else dict(batch,
+                                          mrope_pos=pos[..., j:j + 1])
+
+
+def greedy_path(model, pre, cache_len: int, steps: int, pos=None):
+    """The family's main path, with the kernels' launch counts set to 0
+    just before it and read just after: ``prefill`` of the batch
+    ``pre`` (S ids), then ``steps`` greedy (T = 0) ``decode_step``s, the
+    step at position S + j with ``pos``'s ids there under M-RoPE.
+    Returns (logits (B, 1 + steps, V) fp32, the fed ids (B, steps),
+    prefill seconds, ms a decode step, launches)."""
+    from repro_torch.kernels import backend as KB
+    from repro_torch.models.model import decode_step, prefill
+    S = pre["tokens"].shape[1]
+    KB.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    lg, cache = prefill(model, pre, cache_len)
+    torch.cuda.synchronize()
+    t_pre = time.time() - t0
+    logits, fed = [lg], []
+    t0 = time.time()
+    for j in range(steps):
+        tok = lg.argmax(-1, keepdim=True)
+        fed.append(tok)
+        lg, cache = decode_step(model, cache,
+                                _with_rows({"tokens": tok}, pos, S + j))
+        logits.append(lg)
+    torch.cuda.synchronize()
+    ms_step = 1e3 * (time.time() - t0) / steps
+    launches = KB.launch_counts()
+    return (torch.stack(logits, 1), torch.cat(fed, 1), t_pre, ms_step,
+            launches)
+
+
+def full_forward_gap(model, pre, fed, logits, pos=None):
+    """The prefill's last logits and each decode step's against the
+    full-sequence forward (train mode) over the prompt and the fed ids,
+    held to the JAX package's bound (``tests/test_arch_smoke.py``):
+    max |diff| < 0.05 max |logit| + 0.05."""
+    from repro_torch.models.model import _logits, forward_hidden
+    S = pre["tokens"].shape[1]
+    full = dict(pre, tokens=torch.cat([pre["tokens"].to(fed.device), fed],
+                                      1))
+    if pos is not None:
+        full["mrope_pos"] = pos
+    with torch.no_grad():
+        want = _logits(model, forward_hidden(model, full)[:, S - 1:])
+    check(bool(torch.isfinite(logits).all()), "non-finite logits")
+    check(tuple(logits.shape) == tuple(want.shape),
+          f"logits {tuple(logits.shape)} != {tuple(want.shape)}")
+    gap = float((logits - want).abs().max())
+    tol = 0.05 * float(want.abs().max()) + 0.05
+    check(gap < tol, f"{model.cfg.name}: prefill/decode vs the full "
+                     f"forward {gap} past {tol}")
+    return dict(full_forward_gap=gap, full_forward_tol=tol,
+                logit_absmax=float(want.abs().max()),
+                positions=int(logits.shape[1]))
+
+
+def vlm_phase():
+    """qwen2-vl-72b at its published widths, its depth cut to VLM_LAYERS
+    of 80 (a layer is ~1.76 GB of bf16 weights; 80 need ~141 GB): a
+    prefill of VLM_B x 1,088 rows (``make_batch``'s 1,024 patch rows,
+    N(0, 1) in bf16 from seed 0, over the first rows, then 64 ids) and
+    VLM_STEPS greedy decode steps, under two M-RoPE layouts, each held
+    to the full forward. Returns each layout's run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.inputs import grid_mrope_pos, make_batch
+    cfg = get_config(VLM)
+    cfg = cfg.replace(n_layers=VLM_LAYERS,
+                      segments=((("full",), VLM_LAYERS),))
+    torch.cuda.reset_peak_memory_stats()
+    model = dense_init(VLM, cfg, f"{VLM_LAYERS} of 80 layers, widths "
+                                 f"unchanged", prefix="vlm")
+    nv = cfg.n_vision_tokens
+    S = nv + VLM_TEXT
+    pre = make_batch(cfg, "prefill", VLM_B, S, seed=0, device="cuda")
+    n = S + VLM_STEPS
+    layouts = {"text": torch.arange(n).expand(3, VLM_B, n),
+               "grid": grid_mrope_pos(VLM_B, n, nv, VLM_GRID)}
+    runs = {}
+    for name, pos in layouts.items():
+        pos = pos.to("cuda")
+        batch = dict(pre, mrope_pos=pos[..., :S])
+        logits, fed, t_pre, ms, launches = greedy_path(model, batch, n,
+                                                       VLM_STEPS, pos)
+        check(launches["flash_prefill"] == VLM_LAYERS
+              and launches["flash_decode"] == VLM_LAYERS * VLM_STEPS,
+              f"{VLM} {name}: launches {launches}")
+        runs[name] = dict(layout=name, B=VLM_B, S=S, patches=nv,
+                          steps=VLM_STEPS, prefill_s=t_pre, ms_step=ms,
+                          launches=launches,
+                          **full_forward_gap(model, batch, fed, logits, pos))
+        emit(f"vlm_path_{name}", **runs[name])
+    emit("vlm_memory",
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return runs
+
+
+def whisper_phase():
+    """whisper-large-v3 at full width and depth (32 encoder + 32 decoder
+    layers): the encoder alone over WHISPER_B x 1,500 frames (N(0, 1)
+    in bf16 from seed 0, ``make_batch``'s), timed; then the path: a
+    prefill of the 16-id prompt beside them (the encoder, the decoder,
+    its cross-attention K/V cached) and WHISPER_STEPS greedy decode
+    steps, held to the full forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.inputs import make_batch
+    from repro_torch.models.model import _encode
+    cfg = get_config(WHISPER)
+    torch.cuda.reset_peak_memory_stats()
+    model = dense_init(WHISPER, cfg, "not cut", prefix="whisper")
+    pre = make_batch(cfg, "prefill", WHISPER_B, WHISPER_ENC, seed=0,
+                     device="cuda")
+    with torch.no_grad():
+        _encode(model, pre["frames"])                     # warm
+        torch.cuda.synchronize()
+        t0 = time.time()
+        _encode(model, pre["frames"])
+        torch.cuda.synchronize()
+    enc_ms = 1e3 * (time.time() - t0)
+    logits, fed, t_pre, ms, launches = greedy_path(
+        model, pre, WHISPER_CACHE, WHISPER_STEPS)
+    L, E = cfg.n_layers, cfg.n_enc_layers
+    # encoder + decoder self- and cross-attention, then a cross-attention
+    # row a decoder layer a step; the decode family for self-attention
+    want = {"flash_prefill": E + 2 * L + L * WHISPER_STEPS,
+            "flash_decode": L * WHISPER_STEPS}
+    check(all(launches[k] == v for k, v in want.items()),
+          f"{WHISPER}: launches {launches}, expected {want}")
+    run = dict(B=WHISPER_B, frames=WHISPER_ENC,
+               prompt=pre["tokens"].shape[1], steps=WHISPER_STEPS,
+               encoder_ms=enc_ms, prefill_s=t_pre, ms_step=ms,
+               launches=launches,
+               **full_forward_gap(model, pre, fed, logits))
+    emit("whisper_path", **run)
+    emit("whisper_memory",
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return run
+
+
+def multimodal_card_vs_cpu(cfg):
+    """``cfg`` (a smoke config) on the card and on the CPU with the same
+    weights (built on the CPU, copied to the card) and inputs
+    (``make_batch``, seed 1; the vlm's M-RoPE ids on a 4 x 4 patch
+    grid): the logits of the prefill and MM_SMOKE_STEPS decode steps of
+    forced ids within LOGIT_TOL."""
+    import copy
+    from repro_torch.models.inputs import grid_mrope_pos, make_batch
+    from repro_torch.models.model import decode_step, init_params, prefill
+    cpu_model = init_params(cfg, seed=0, device="cpu")
+    models = {"cuda": copy.deepcopy(cpu_model).to("cuda"),
+              "cpu": cpu_model}
+    pre = make_batch(cfg, "prefill", 2, MM_SMOKE_S, seed=1)
+    S = pre["tokens"].shape[1]
+    pos = None
+    if cfg.rope_kind == "mrope":
+        pos = grid_mrope_pos(2, S + MM_SMOKE_STEPS, cfg.n_vision_tokens,
+                             MM_SMOKE_GRID)
+        pre["mrope_pos"] = pos[..., :S]
+    forced = np.random.default_rng(1).integers(
+        6, cfg.vocab_size, (MM_SMOKE_STEPS, 2, 1))
+    logits = {}
+    for dev, model in models.items():
+        lg, cache = prefill(model, pre, 512)
+        seq = [lg.float().cpu()]
+        for j, t in enumerate(forced):
+            lg, cache = decode_step(model, cache,
+                                    _with_rows({"tokens": t}, pos, S + j))
+            seq.append(lg.float().cpu())
+        logits[dev] = torch.stack(seq, 1)
+    a, b = logits["cuda"], logits["cpu"]
+    check(bool(torch.isfinite(a).all()), f"{cfg.name}: non-finite card "
+                                         f"logits")
+    diff = float((a - b).abs().max())
+    check(diff <= LOGIT_TOL, f"{cfg.name}: card vs CPU logits differ by "
+                             f"{diff}")
+    return dict(config=cfg.name, prompt=S, steps=MM_SMOKE_STEPS,
+                max_abs_diff=diff, tol=LOGIT_TOL,
+                argmax_agree=int((a.argmax(-1) == b.argmax(-1)).sum()),
+                positions=int(a.shape[0] * a.shape[1]),
+                logit_absmax=float(b.abs().max()))
+
+
+def multimodal_phases():
+    """qwen2-vl-72b (depth cut) and whisper-large-v3 (full) through
+    prefill and greedy decode, each freed before the next, then card vs
+    CPU on both smoke configs. Returns each family's path run(s)."""
+    import gc
+    from repro_torch.configs import get_smoke_config
+    runs = {}
+    for name, phase in ((VLM, vlm_phase), (WHISPER, whisper_phase)):
+        runs[name] = phase()
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in (VLM, WHISPER):
+        emit(f"card_vs_cpu_{arch}",
+             **multimodal_card_vs_cpu(get_smoke_config(arch)))
+    return runs
 
 
 def main(argv=None) -> int:
@@ -3212,6 +3564,11 @@ def main(argv=None) -> int:
         torch.Generator(device="cuda").manual_seed(2))
     for c in pre_gate:
         emit("kernel_prefill_gate", **c)
+    # whisper's heads, profiled early too, on their own draws
+    whisper_cases = whisper_kernel_cases(
+        torch.Generator(device="cuda").manual_seed(7))
+    for phase, c in whisper_cases:
+        emit(phase, **c)
     # the backward's cases, profiled early too, on their own draws
     bwd, bwd_ptxas = bwd_cases(torch.Generator(device="cuda").manual_seed(3),
                                logs["flash_prefill_bwd"])
@@ -3247,6 +3604,7 @@ def main(argv=None) -> int:
     hd_cases += dense_head_cases(gen)
     for phase, c in hd_cases:
         emit(phase, **c)
+    hd_cases += whisper_cases
     emit("kernel_decode_family_sweep", **decode_family_sweep(gen))
     pre_ext = prefill_extend_cases(gen)
     for c in pre_ext:
@@ -3286,6 +3644,7 @@ def main(argv=None) -> int:
     hymba = hymba_phases()
     xlstm = xlstm_phases()
     dense = dense_phases()
+    multimodal = multimodal_phases()
 
     # each kernel's launches come from the run of the path it serves;
     # its times from its case at the main path's widest shape (the
@@ -3329,6 +3688,11 @@ def main(argv=None) -> int:
         rows[-1]["dense_launches"] = {
             arch: sum(x["launches"][fn.__name__] for x in r.values())
             for arch, r in dense.items()}
+        # qwen2-vl's paths (both M-RoPE layouts) and whisper's
+        rows[-1]["vlm_launches"] = sum(
+            r["launches"][fn.__name__] for r in multimodal[VLM].values())
+        rows[-1]["whisper_launches"] = \
+            multimodal[WHISPER]["launches"][fn.__name__]
     # the training runs without remat: the planner's 30 steps and the
     # families' 10 (arctic's and hymba's attention)
     rows[0]["train_launches"] = (

@@ -1,11 +1,11 @@
 """Architecture registry of the port.
 
 ``get_config(name)`` returns the full config, ``get_smoke_config(name)``
-the reduced same-family variant the CPU tests use. The served planner,
-the two MoE families (arctic, kimi-k2), the hybrid attention + SSM
-hymba, the recurrent xlstm and the dense qwen1.5, starcoder2 and gemma2
-are ported; qwen2-vl and whisper come with their model machinery
-(ROADMAP.md, queue A12.4 and A12.5).
+the reduced same-family variant the CPU tests use. Every config of the
+JAX package is ported: the served planner, the two MoE families
+(arctic, kimi-k2), the hybrid attention + SSM hymba, the recurrent
+xlstm, the dense qwen1.5, starcoder2 and gemma2, the vision-language
+qwen2-vl (M-RoPE, patch embeddings) and the encoder-decoder whisper.
 """
 from __future__ import annotations
 
@@ -13,14 +13,12 @@ import importlib
 
 ALL_IDS = ("planner-proxy-100m", "arctic-480b", "kimi-k2-1t-a32b",
            "hymba-1.5b", "xlstm-125m", "qwen1.5-32b", "qwen1.5-110b",
-           "starcoder2-3b", "gemma2-2b")
+           "starcoder2-3b", "gemma2-2b", "qwen2-vl-72b", "whisper-large-v3")
 
 
 def _module(name: str):
     if name not in ALL_IDS:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported yet (ROADMAP.md queue "
-            f"A12: A12.4 qwen2-vl, A12.5 whisper); have {ALL_IDS}")
+        raise ValueError(f"unknown architecture {name!r}; have {ALL_IDS}")
     mod = name.replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 

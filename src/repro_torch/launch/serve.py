@@ -17,7 +17,10 @@ The command line is the JAX launcher's (``repro.launch.serve``) plus
 ``--device``; ``--arch`` takes the port's ids (``configs.ALL_IDS``: the
 planner, the MoE families arctic-480b and kimi-k2-1t-a32b, the hybrid
 attention + SSM hymba-1.5b, the recurrent xlstm-125m and the dense
-qwen1.5-32b, qwen1.5-110b, starcoder2-3b and gemma2-2b).
+qwen1.5-32b, qwen1.5-110b, starcoder2-3b and gemma2-2b; qwen2-vl-72b and
+whisper-large-v3 are refused with the engine's NotImplementedError
+before a model is built, as ``serving/engine.py:check_servable`` says
+why).
 ``--backend`` is gone: the device decides which attention runs (Hopper
 kernels on CUDA tensors, their plain versions on the CPU).
 ``--kv-mode paged`` (with ``--kv-blocks``, ``--block-size``) serves from
@@ -64,7 +67,7 @@ from repro_torch.models.model import init_params, resolve_device
 from repro_torch.obs import Tracer
 from repro_torch.obs.export import write_trace
 from repro_torch.serving.cluster import ROUTER_POLICIES, EngineCluster
-from repro_torch.serving.engine import InferenceEngine
+from repro_torch.serving.engine import InferenceEngine, check_servable
 from repro_torch.serving.sampling import SamplerConfig
 from repro_torch.serving.sched import ADMISSION_POLICIES
 from repro_torch.serving.specdec import SpecConfig
@@ -194,6 +197,7 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch))
+    check_servable(cfg)
     if args.checkpoint:
         model = params_from_numpy(load_jax_checkpoint(args.checkpoint), cfg,
                                   device)

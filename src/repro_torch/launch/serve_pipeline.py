@@ -58,7 +58,7 @@ from repro_torch.models.model import count_params, init_params, \
 from repro_torch.obs import Tracer
 from repro_torch.obs.export import write_trace
 from repro_torch.serving.cluster import ROUTER_POLICIES, EngineCluster
-from repro_torch.serving.engine import InferenceEngine
+from repro_torch.serving.engine import InferenceEngine, check_servable
 from repro_torch.serving.neural_planner import BatchedNeuralIntentClassifier
 from repro_torch.serving.pipeline import GeckOptPipeline, PipelineConfig
 from repro_torch.serving.sched import ADMISSION_POLICIES
@@ -144,6 +144,7 @@ def parse_args(argv=None):
 def check_arch(cfg) -> None:
     """The gate needs the forward-only train mode (``"full"`` layers only)
     and the engine encodes text with the 8,192-id tokenizer."""
+    check_servable(cfg)
     kinds = set(cfg.layer_kinds())
     if kinds != {"full"} or cfg.vocab_size < TOKENIZER.vocab_size:
         raise ValueError(

@@ -64,6 +64,11 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch))
+    if cfg.family in ("vlm", "audio"):
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family!r} family (its batches "
+            f"carry patch embeddings and M-RoPE positions or encoder "
+            f"frames) is ROADMAP.md queue A11.3")
     model = init_params(cfg, seed=0, device=device).requires_grad_(True)
     return train_run(cfg, model, args)
 

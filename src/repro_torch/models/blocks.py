@@ -9,8 +9,11 @@ same inside an MoE model, with a ``top_k * d_expert`` wide MLP),
 global or over a sliding window, in parallel with the mamba layer of
 ``models/ssm.py``: ``x + 0.5 (norm_a(attn) + norm_s(ssm))``, then the
 MLP), and xlstm's ``"mlstm"`` / ``"slstm"`` (``models/xlstm.py``:
-``x + block(norm1(x))``, no attention), in the modes the serving engine
-runs:
+``x + block(norm1(x))``, no attention), and whisper's ``"enc"`` (an
+encoder layer: ``"full"`` with non-causal self-attention, no rope, no
+cache) and ``"encdec"`` (a decoder layer: causal self-attention, then
+``norm_x`` and a cross-attention over the encoder's output, then the
+MLP), in the modes the serving engine runs:
 
   mode="prefill" full-sequence forward, returns a filled KV cache
   mode="extend"  multi-token continuation against a pre-filled B=1 cache
@@ -73,6 +76,15 @@ cache's, and each mode replaces it with the state the block returns.
 Verify over recurrent state raises, as in the JAX package (it cannot be
 rolled back by KV-length truncation). Paged pools exist only for the
 pure-attention kinds.
+
+An ``"encdec"`` layer's cache also holds its cross-attention's K/V,
+``ck`` and ``cv`` (B, Hkv, enc_len, hd) bf16: prefill projects them from
+the encoder's output (``memory``) and writes them, decode reads them
+back, and train mode projects them without a cache. The cross-attention
+is ``L.attention(q, ck, cv, causal=False)``: ``flash_prefill`` at
+Sq = the decoder's rows over Sk = enc_len, one row in decode, as the
+JAX package calls it. Extend and verify over an encoder-decoder stack
+raise, as the JAX package's asserts do.
 """
 from __future__ import annotations
 
@@ -95,8 +107,11 @@ MODES = ("prefill", "extend", "decode", "verify", "train")
 PURE_ATTENTION_KINDS = ("full", "dense", "moe")
 HYMBA_KINDS = ("hymba_g", "hymba_w")
 XLSTM_KINDS = ("mlstm", "slstm")
+#: whisper's encoder and decoder layers
+ENCDEC_KINDS = ("enc", "encdec")
 #: ``"local"`` (starcoder2, gemma2): ``"full"`` over a sliding-window ring
-KINDS = PURE_ATTENTION_KINDS + ("local",) + HYMBA_KINDS + XLSTM_KINDS
+KINDS = (PURE_ATTENTION_KINDS + ("local",) + HYMBA_KINDS + XLSTM_KINDS
+         + ENCDEC_KINDS)
 #: modes whose row-wise products and norms run in fixed-size calls
 FIXED_MODES = ("prefill", "extend", "train")
 
@@ -108,9 +123,7 @@ class Block(nn.Module):
     def __init__(self, kind: str, cfg: ModelConfig, gen, dtype, device):
         super().__init__()
         if kind not in KINDS:
-            raise NotImplementedError(
-                f"layer kind {kind!r} comes with its model family "
-                f"(ROADMAP.md queue A12.5: whisper's encdec)")
+            raise ValueError(f"layer kind {kind!r} (kinds: {KINDS})")
         self.kind = kind
         d = cfg.d_model
         self.norm1 = L.RMSNorm(d, cfg.norm_eps, dtype, device)
@@ -129,6 +142,10 @@ class Block(nn.Module):
             self.norm_a = L.RMSNorm(d, cfg.norm_eps, dtype, device)
             self.norm_s = L.RMSNorm(d, cfg.norm_eps, dtype, device)
             self.mlp = L.MLP(d, cfg.d_ff, cfg.mlp_act, gen, dtype, device)
+        elif kind == "encdec":
+            self.norm_x = L.RMSNorm(d, cfg.norm_eps, dtype, device)
+            self.xattn = L.Attention(cfg, gen, dtype, device)
+            self.mlp = L.MLP(d, cfg.d_ff, cfg.mlp_act, gen, dtype, device)
         else:
             dff = (cfg.moe.top_k * cfg.moe.d_expert
                    if kind == "dense" and cfg.moe is not None else cfg.d_ff)
@@ -136,11 +153,12 @@ class Block(nn.Module):
 
 
 def block_cache_init(cfg: ModelConfig, batch: int, cache_len: int, device,
-                     kind: str = "full"):
+                     kind: str = "full", enc_len: int = 0):
     """Zero-initialised dense cache for one layer of ``kind``: K/V of
     ``cache_len`` rows, or ``min(window, cache_len)`` ring rows for a
-    sliding-window kind, plus the SSM state for a hymba kind; an xLSTM
-    kind's fresh recurrent state alone."""
+    sliding-window kind, plus the SSM state for a hymba kind and the
+    cross-attention's ``ck``/``cv`` of ``enc_len`` rows for an
+    ``"encdec"`` kind; an xLSTM kind's fresh recurrent state alone."""
     if kind == "mlstm":
         return {"mlstm": X.mlstm_state_init(cfg, batch, device)}
     if kind == "slstm":
@@ -151,6 +169,10 @@ def block_cache_init(cfg: ModelConfig, batch: int, cache_len: int, device,
          "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
     if kind in HYMBA_KINDS:
         c["ssm"] = S.ssm_init_state(cfg, batch, device)
+    if kind == "encdec":
+        shape = (batch, cfg.n_kv_heads, enc_len, cfg.d_head)
+        c["ck"] = torch.zeros(shape, dtype=torch.bfloat16, device=device)
+        c["cv"] = torch.zeros(shape, dtype=torch.bfloat16, device=device)
     return c
 
 
@@ -210,14 +232,19 @@ def _write_rows(cache, k, v, plan: WritePlan) -> None:
 
 def _rope_qkv(p: Block, h, cfg: ModelConfig, positions, fixed=False):
     """Projections and rope of (B, S, d) normed rows at (B, S)
-    positions: q (B,Hq,S,hd), bf16 k and v (B,Hkv,S,hd). ``fixed``:
-    products in fixed-size calls (prefill and extend)."""
+    positions, or (3, B, S) (t, h, w) positions under M-RoPE: q
+    (B,Hq,S,hd), bf16 k and v (B,Hkv,S,hd). No rope for ``rope_kind``
+    ``"none"`` (sinusoidal positions are in the embedding) or an
+    ``"enc"`` layer, as in the JAX package. ``fixed``: products in
+    fixed-size calls (prefill and extend)."""
     q, k, v = L.qkv_proj(p.attn, h, cfg, fixed)
-    if cfg.rope_kind != "rope":
-        raise NotImplementedError(f"rope_kind {cfg.rope_kind!r} comes with "
-                                  f"its model family (ROADMAP.md queue A12)")
-    q = L.apply_rope(q, positions[:, None], cfg.rope_theta)
-    k = L.apply_rope(k, positions[:, None], cfg.rope_theta)
+    if cfg.rope_kind == "rope" and p.kind != "enc":
+        q = L.apply_rope(q, positions[:, None], cfg.rope_theta)
+        k = L.apply_rope(k, positions[:, None], cfg.rope_theta)
+    elif cfg.rope_kind == "mrope":
+        p3 = positions[:, :, None]                          # (3,B,1,S)
+        q = L.apply_mrope(q, p3, cfg.rope_theta, cfg.mrope_sections)
+        k = L.apply_mrope(k, p3, cfg.rope_theta, cfg.mrope_sections)
     return q, k.to(torch.bfloat16), v.to(torch.bfloat16)
 
 
@@ -243,7 +270,7 @@ def _attn_sublayer(p: Block, x, cfg: ModelConfig, mode: str, cache, pos,
     q, k, v = _rope_qkv(p, x, cfg, positions, fixed)
 
     if mode == "train":
-        out = L.attention(q, k, v, causal=True, window=window,
+        out = L.attention(q, k, v, causal=p.kind != "enc", window=window,
                           cap=cfg.attn_softcap, scale=cfg.attn_scale)
         return L.out_proj(p.attn, out, fixed), cache
 
@@ -309,6 +336,28 @@ def _attn_sublayer(p: Block, x, cfg: ModelConfig, mode: str, cache, pos,
     return L.out_proj(p.attn, out), cache
 
 
+def _cross_sublayer(p: Block, x, cfg: ModelConfig, mode: str, cache,
+                    memory):
+    """An ``"encdec"`` layer's cross-attention over the encoder's output
+    ``memory`` (B, enc_len, d): k and v projected from it (prefill, where
+    they are written to the cache's ``ck``/``cv``, and train) or read
+    from the cache (decode); q from the normed rows x; non-causal, no
+    rope. Returns y (B, S, d)."""
+    fixed = mode in FIXED_MODES
+    if mode == "decode":
+        k, v = cache["ck"], cache["cv"]
+    else:
+        k, v = (t.to(torch.bfloat16)
+                for t in L.kv_proj(p.xattn, memory, cfg, fixed))
+        if mode == "prefill":
+            cache["ck"].copy_(k)
+            cache["cv"].copy_(v)
+    q = L.q_proj(p.xattn, x, cfg, fixed)
+    out = L.attention(q, k, v, causal=False, cap=cfg.attn_softcap,
+                      scale=cfg.attn_scale)
+    return L.out_proj(p.xattn, out, fixed)
+
+
 def _mlp_tail(p: Block, x, cfg: ModelConfig, fixed: bool = False,
               with_aux: bool = False):
     """The MLP (or MoE FFN) sub-layer: (x_out, the MoE layer's aux term
@@ -332,7 +381,7 @@ def _verify_block(p: Block, x, cfg: ModelConfig, cache, pos, positions,
     W = x.shape[1]
     rows = [x[:, w:w + 1].contiguous() for w in range(W)]
     qkv = [_rope_qkv(p, L.rmsnorm(p.norm1.scale, r, cfg.norm_eps), cfg,
-                     positions[:, w:w + 1]) for w, r in enumerate(rows)]
+                     positions[..., w:w + 1]) for w, r in enumerate(rows)]
     q, k, v = (torch.cat([t[i] for t in qkv], dim=2) for i in range(3))
     if block_tab is not None:
         nb, _, bs, _ = cache["k"].shape
@@ -382,15 +431,23 @@ def _xlstm_block(p: Block, x, cfg: ModelConfig, mode: str, cache):
 
 def block_apply(p: Block, x, cfg: ModelConfig, *, mode: str, cache,
                 pos, positions, block_tab=None,
-                plan: Optional[WritePlan] = None):
+                plan: Optional[WritePlan] = None, memory=None):
     """Returns (x_out, cache), or in train mode (x_out, aux): the MoE
     layer's load-balance term, a 0-d fp32 tensor (0 for every other
     kind). ``block_tab`` (decode and verify): the (B, mb) int32 block
     table of a paged cache, on x's device. ``plan``: the step's
     ``write_plan``, computed once by the model for all layers (computed
-    here when None)."""
+    here when None). ``memory``: the encoder's output (B, enc_len, d),
+    which an ``"encdec"`` layer attends to in prefill and train."""
     if mode not in MODES:
         raise NotImplementedError(f"mode {mode!r} (modes: {MODES})")
+    if p.kind in ENCDEC_KINDS and mode in ("extend", "verify"):
+        raise NotImplementedError(
+            f"{mode} over an encoder-decoder stack (the JAX package "
+            f"asserts it away too)")
+    if p.kind == "enc" and mode != "train":
+        raise ValueError(f"an 'enc' layer runs in train mode only (the "
+                         f"encoder keeps no cache), got {mode!r}")
     train = mode == "train"
     if p.kind in XLSTM_KINDS:
         x, state = _xlstm_block(p, x, cfg, mode, cache)
@@ -422,7 +479,12 @@ def block_apply(p: Block, x, cfg: ModelConfig, *, mode: str, cache,
                                   fixed)
                         + L.rmsnorm(p.norm_s.scale, ssm_y, cfg.norm_eps,
                                     fixed))
-    x, aux = _mlp_tail(p, x + attn_y, cfg, fixed, with_aux=train)
+    x = x + attn_y
+    if p.kind == "encdec":
+        x = x + _cross_sublayer(
+            p, L.rmsnorm(p.norm_x.scale, x, cfg.norm_eps, fixed), cfg, mode,
+            cache, memory)
+    x, aux = _mlp_tail(p, x, cfg, fixed, with_aux=train)
     if train:
         return x, _zero_aux(x) if aux is None else aux
     return x, cache

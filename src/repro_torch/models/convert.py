@@ -20,9 +20,12 @@ in fp32), ``norm_a/scale`` and ``norm_s/scale``, xlstm's ``mlstm/*``
 ``w_if``, ``b_i``, ``b_f`` in fp32) and ``slstm/*`` (``w_gates``,
 ``r_gates``, ``w_up``, ``w_down``, ``norm_ffn/scale`` in bf16;
 ``b_gates`` in fp32), each under a unit of four kinds repeated R times
-at full width, and at the top
-``embed``, ``final_norm/scale`` and, untied (the MoE stacks, qwen1.5),
-``lm_head``. A tree that
+at full width, whisper's ``"encdec"`` layers' ``norm_x/scale`` and
+``xattn/*`` (the cross-attention's projections), and at the top
+``embed``, ``final_norm/scale``, untied (the MoE stacks, qwen1.5,
+qwen2-vl) ``lm_head`` and, with an encoder (whisper), ``encoder/layers/*``
+(its ``"enc"`` layers' leaves, stacked over the encoder's layers as a
+segment's are over R) and ``encoder/final_norm/scale``. A tree that
 lacks a model tensor or holds a leaf the model lacks raises.
 
 bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
@@ -77,24 +80,32 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None) -> Model:
         dst.data.copy_(_to_tensor(leaf, dst, key).to(dst.device))
         filled.add(name)
 
+    def put_stacked(subtree, where: str, R: int, layer_name):
+        """Each leaf of ``subtree`` stacked over R layers: row r into
+        the tensor ``layer_name(r) + key``."""
+        for key, leaf in _walk(subtree, ""):
+            arr = np.asarray(leaf)
+            if arr.shape[:1] != (R,):
+                raise ValueError(f"{where}/{key}: leading axis "
+                                 f"{arr.shape[:1]} != ({R},)")
+            for r in range(R):
+                name = layer_name(r) + key.replace("/", ".")
+                if name not in tensors:
+                    raise KeyError(f"{where}/{key}: no model tensor {name}")
+                put(name, arr[r], f"{where}/{key}[{r}]")
+
     offset = 0
     for si, (unit, R) in enumerate(cfg.segments):
         for ui in range(len(unit)):
-            for key, leaf in _walk(tree["segments"][si][ui], ""):
-                arr = np.asarray(leaf)
-                if arr.shape[:1] != (R,):
-                    raise ValueError(f"segments/{si}/{ui}/{key}: leading "
-                                     f"axis {arr.shape[:1]} != ({R},)")
-                for r in range(R):
-                    li = offset + r * len(unit) + ui
-                    name = f"layers.{li}." + key.replace("/", ".")
-                    if name not in tensors:
-                        raise KeyError(f"segments/{si}/{ui}/{key}: no "
-                                       f"model tensor {name}")
-                    put(name, arr[r], f"segments/{si}/{ui}/{key}[{r}]")
+            put_stacked(tree["segments"][si][ui], f"segments/{si}/{ui}", R,
+                        lambda r: f"layers.{offset + r * len(unit) + ui}.")
         offset += len(unit) * R
-    for key, leaf in _walk({k: v for k, v in tree.items()
-                            if k != "segments"}, ""):
+    top = {k: v for k, v in tree.items() if k != "segments"}
+    if "encoder" in top:
+        top["encoder"] = dict(top["encoder"])
+        put_stacked(top["encoder"].pop("layers"), "encoder/layers",
+                    cfg.n_enc_layers, lambda r: f"encoder.layers.{r}.")
+    for key, leaf in _walk(top, ""):
         name = key.replace("/", ".")
         if name not in tensors:
             raise KeyError(f"{key}: no model tensor {name}")
@@ -148,24 +159,31 @@ def params_to_numpy(model: Model) -> Dict[str, Any]:
     named = dict(model.named_parameters())
     tree: Dict[str, Any] = {}
     for name, t in named.items():
-        if not name.startswith("layers."):
+        if not name.startswith(("layers.", "encoder.layers.")):
             _put(tree, name.split("."), _np(t))
+
+    def stacked(first: str, layer_name, R: int) -> Dict[str, Any]:
+        """Each leaf of the layer named ``first`` stacked over the R
+        layers ``layer_name(r)``."""
+        leaves: Dict[str, Any] = {}
+        for name in named:
+            if name.startswith(first):
+                key = name[len(first):]
+                _put(leaves, key.split("."), np.stack([
+                    _np(named[layer_name(r) + key]) for r in range(R)]))
+        return leaves
+
     segments = []
     offset = 0
     for unit, R in model.cfg.segments:
-        seg = []
-        for ui in range(len(unit)):
-            first = f"layers.{offset + ui}."
-            leaves: Dict[str, Any] = {}
-            for name in named:
-                if not name.startswith(first):
-                    continue
-                key = name[len(first):]
-                _put(leaves, key.split("."), np.stack([
-                    _np(named[f"layers.{offset + r * len(unit) + ui}."
-                              f"{key}"]) for r in range(R)]))
-            seg.append(leaves)
-        segments.append(seg)
+        segments.append([
+            stacked(f"layers.{offset + ui}.",
+                    lambda r: f"layers.{offset + r * len(unit) + ui}.",
+                    R) for ui in range(len(unit))])
         offset += len(unit) * R
     tree["segments"] = segments
+    if model.encoder is not None:
+        tree["encoder"]["layers"] = stacked(
+            "encoder.layers.0.", lambda r: f"encoder.layers.{r}.",
+            model.cfg.n_enc_layers)
     return tree

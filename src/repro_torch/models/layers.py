@@ -1,8 +1,9 @@
 """Core model primitives: norms, rotary embeddings, attention, MLPs.
 
 Ports of the JAX package's ``models/layers.py`` for the attention layers
-of every ported family (q, k and v biases for qwen1.5 and starcoder2;
-SiLU-GLU, GELU-GLU and GELU MLPs). Parameters live in small
+of every ported family (q, k and v biases for qwen1.5, starcoder2 and
+qwen2-vl; RoPE and qwen2-vl's M-RoPE; SiLU-GLU, GELU-GLU and GELU
+MLPs). Parameters live in small
 ``nn.Module``s whose tensor names and layouts are the JAX param tree's
 (``x @ wq`` with wq of shape (d, q_dim)), so the weight bridge maps
 leaves one to one. The ops are
@@ -152,16 +153,39 @@ def rope_freqs(d_head: int, theta: float, device):
                                          device=device) / d_head))
 
 
-def apply_rope(x, positions, theta: float):
-    """x: (..., S, d_head); positions: broadcastable to (..., S). fp32
-    math, cast back to x's dtype."""
-    d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)
-    ang = positions[..., None].float() * freqs
+def _rotate(x, ang):
+    """Rotate the halves of x (..., S, d_head) by the fp32 angles
+    ang (..., S, d_head/2); cast back to x's dtype."""
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, d_head); positions: broadcastable to (..., S). fp32
+    math, cast back to x's dtype."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def apply_mrope(x, positions_3d, theta: float, sections):
+    """Multimodal RoPE (qwen2-vl), the JAX package's ``apply_mrope``.
+    x: (..., S, d_head); positions_3d: (3, ..., S), the (t, h, w) ids;
+    ``sections``: how many of the d_head/2 frequency pairs take the t,
+    the h and the w row, in that order (their sum is d_head/2). Each
+    pair's angle is its row's position times its frequency, in fp32, and
+    the rotation is ``apply_rope``'s: with three equal rows the result
+    is ``apply_rope``'s, bit for bit."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"mrope sections {tuple(sections)} must sum to "
+                         f"d_head / 2 = {d // 2}")
+    freqs = rope_freqs(d, theta, x.device)
+    pos = positions_3d.to(x.device).float()
+    sec = torch.repeat_interleave(torch.arange(3, device=x.device),
+                                  torch.tensor(sections, device=x.device))
+    return _rotate(x, pos[sec].movedim(0, -1) * freqs)
 
 
 # ------------------------------------------------------------- attention ----
@@ -206,20 +230,36 @@ class Attention(nn.Module):
             self.bv = normal_param((kvd,), 0.0, None, dtype, device)
 
 
+def _proj_heads(x, w, b, H: int, hd: int, fixed: bool):
+    """x (B,S,d) @ w, plus the bias b when not None, as (B,H,S,hd)."""
+    B, S, _ = x.shape
+    y = matmul_rows(x, w, fixed)
+    if b is not None:
+        y = y + b
+    return y.reshape(B, S, H, hd).transpose(1, 2)
+
+
+def q_proj(p: Attention, x, cfg: ModelConfig, fixed: bool = False):
+    """x: (B,S,d) -> q (B,Hq,S,hd) (pre-RoPE)."""
+    return _proj_heads(x, p.wq, p.bq if cfg.qkv_bias else None,
+                       cfg.n_heads, cfg.d_head, fixed)
+
+
+def kv_proj(p: Attention, x, cfg: ModelConfig, fixed: bool = False):
+    """x: (B,S,d) -> k, v (B,Hkv,S,hd) (pre-RoPE)."""
+    bias = cfg.qkv_bias
+    return (_proj_heads(x, p.wk, p.bk if bias else None, cfg.n_kv_heads,
+                        cfg.d_head, fixed),
+            _proj_heads(x, p.wv, p.bv if bias else None, cfg.n_kv_heads,
+                        cfg.d_head, fixed))
+
+
 def qkv_proj(p: Attention, x, cfg: ModelConfig, fixed: bool = False):
     """x: (B,S,d) -> q (B,Hq,S,hd), k,v (B,Hkv,S,hd) (pre-RoPE). A bias
     is a separate add after its product, in the product's dtype, as the
     JAX package rounds the product and then the sum; the add is per row,
     so the fixed-size row calls' contract holds."""
-    B, S, _ = x.shape
-    mm = lambda w: matmul_rows(x, w, fixed)
-    q, k, v = mm(p.wq), mm(p.wk), mm(p.wv)
-    if cfg.qkv_bias:
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(B, S, cfg.n_heads, cfg.d_head).transpose(1, 2)
-    k = k.reshape(B, S, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
-    v = v.reshape(B, S, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
-    return q, k, v
+    return (q_proj(p, x, cfg, fixed),) + kv_proj(p, x, cfg, fixed)
 
 
 def out_proj(p: Attention, attn_out, fixed: bool = False):

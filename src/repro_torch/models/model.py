@@ -9,7 +9,15 @@ softcaps, GELU-GLU, the embedding scaled by sqrt(d)), the MoE families
 (``"moe"`` and
 ``"dense"`` layers, untied ``lm_head``) and the hybrid hymba
 (``"hymba_g"`` / ``"hymba_w"`` layers: attention in parallel with a
-mamba SSM) and xlstm (``"mlstm"`` / ``"slstm"`` layers, attention-free).
+mamba SSM) and xlstm (``"mlstm"`` / ``"slstm"`` layers, attention-free),
+the vision-language qwen2-vl (``"full"`` layers under M-RoPE: a batch
+carries ``mrope_pos``, its (t, h, w) position ids (3, B, S), and in
+prefill and train ``patch_embeds`` (B, n_vision, d), spliced over the
+first rows of the token embedding) and the encoder-decoder whisper (an
+``encoder`` of ``"enc"`` layers over a batch's ``frames`` (B, S_enc, d)
+plus sinusoidal positions, then ``"encdec"`` decoder layers that
+cross-attend to its output; a decoder cache of at most
+``WHISPER_DEC_CACHE`` rows).
 The JAX package scans stacked per-segment params; the port keeps one
 ``Block`` per layer and runs them in a Python loop.
 Caches are ``{"layers": [{"k", "v"}, ...], "pos": ...}`` with the JAX
@@ -19,7 +27,9 @@ holds ``"ssm": {"h", "conv"}``; an xLSTM layer holds only its recurrent
 state, ``"mlstm": (C, n, m)`` or ``"slstm": {c, n, h, m}``, and no K/V,
 which a dense decode never reads); ``pos`` is a Python int
 for a B=1 prefill/extend cache and a (B,) int tensor for the batched
-decode cache. A paged cache (``init_paged_cache``) holds per-layer block
+decode cache; an ``"encdec"`` layer's cache also holds its
+cross-attention K/V ``ck``/``cv`` (B, Hkv, enc_len, hd). A paged cache
+(``init_paged_cache``) holds per-layer block
 pools (n_blocks, Hkv, bs, hd) and a (B, cache_len // bs) int32
 ``block_tab``; ``decode_step`` and ``verify_extend`` take either. Their
 ``pos`` and ``block_tab`` may be host tensors (the engine keeps them on
@@ -54,6 +64,10 @@ from repro_torch.models import layers as L
 from repro_torch.models.blocks import Block, block_apply, \
     block_cache_init, block_paged_cache_init, write_plan
 
+#: whisper's decoder cache rows: its decoder context is capped at 448
+#: positions (the JAX package's ``models/model.py:29``)
+WHISPER_DEC_CACHE = 448
+
 
 def resolve_device(device=None) -> torch.device:
     """The device entry points run on: CUDA unless the caller asks for
@@ -65,19 +79,24 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-class Model(nn.Module):
-    """Embedding, the layer stack, the final norm and, untied, the head."""
+class Encoder(nn.Module):
+    """whisper's encoder: ``"enc"`` layers and their final norm (the JAX
+    package's ``params["encoder"]``)."""
 
     def __init__(self, cfg: ModelConfig, gen, dtype, device):
         super().__init__()
-        if cfg.n_enc_layers or cfg.family == "audio":
-            raise NotImplementedError(
-                f"{cfg.name}: the encoder-decoder stack (whisper) comes "
-                f"with ROADMAP.md queue A12.5")
-        if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family!r} family (qwen2-vl's mrope "
-                f"and patch embeddings) comes with ROADMAP.md queue A12.4")
+        self.layers = nn.ModuleList(Block("enc", cfg, gen, dtype, device)
+                                    for _ in range(cfg.n_enc_layers))
+        self.final_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
+
+
+class Model(nn.Module):
+    """Embedding, the layer stack, the final norm, untied the head, and
+    with ``n_enc_layers`` the encoder (drawn last, so the other
+    families' seeded weights do not depend on it)."""
+
+    def __init__(self, cfg: ModelConfig, gen, dtype, device):
+        super().__init__()
         self.cfg = cfg
         self.embed = L.normal_param((cfg.vocab_size, cfg.d_model), 0.02, gen,
                               dtype, device)
@@ -88,6 +107,8 @@ class Model(nn.Module):
         self.lm_head = (None if cfg.tie_embeddings else
                         L.dense_param((cfg.d_model, cfg.vocab_size), gen,
                                       dtype, device))
+        self.encoder = (Encoder(cfg, gen, dtype, device)
+                        if cfg.n_enc_layers else None)
 
     @property
     def device(self) -> torch.device:
@@ -114,9 +135,11 @@ def count_params(model: Model) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               device) -> dict:
-    """Zero dense cache, each layer sized by its kind; ``pos`` 0."""
-    return {"layers": [block_cache_init(cfg, batch, cache_len, device, kind)
+               device, enc_len: int = 0) -> dict:
+    """Zero dense cache, each layer sized by its kind (an ``"encdec"``
+    layer's ``ck``/``cv`` by ``enc_len``); ``pos`` 0."""
+    return {"layers": [block_cache_init(cfg, batch, cache_len, device, kind,
+                                        enc_len)
                        for kind in cfg.layer_kinds()],
             "pos": 0}
 
@@ -145,12 +168,12 @@ def init_paged_cache(cfg: ModelConfig, batch: int, cache_len: int,
 # ------------------------------------------------------------------ stack ----
 
 def _apply_stack(model: Model, x, *, mode, cache, pos, positions,
-                 block_tab=None, plan=None):
+                 block_tab=None, plan=None, memory=None):
     new_layers: List[dict] = []
     for blk, c in zip(model.layers, cache["layers"]):
         x, nc = block_apply(blk, x, model.cfg, mode=mode, cache=c, pos=pos,
                             positions=positions, block_tab=block_tab,
-                            plan=plan)
+                            plan=plan, memory=memory)
         new_layers.append(nc)
     return x, new_layers
 
@@ -180,25 +203,47 @@ def _tokens(model: Model, batch) -> torch.Tensor:
                            device=model.device)
 
 
-def _embed_inputs(model: Model, tokens, pos=None):
+def _embed_inputs(model: Model, tokens, pos=None, batch=None):
     """Token embedding and absolute positions (B,S): from 0, from a scalar
-    ``pos``, or per slot from a (B,) ``pos``. A stack without rope (xlstm)
-    adds the sinusoidal embedding at those positions, as the JAX
-    package's ``_embed_inputs`` does."""
+    ``pos``, or per slot from a (B,) ``pos``. A stack without rope
+    (xlstm, whisper's decoder) adds the sinusoidal embedding at those
+    positions, as the JAX package's ``_embed_inputs`` does. A vlm
+    ``batch`` with ``patch_embeds`` (B, n_vision, d) has them spliced
+    over the first n_vision rows; under M-RoPE the positions are the
+    batch's ``mrope_pos`` (3, B, S)."""
     B, S = tokens.shape
+    cfg = model.cfg
+    batch = batch or {}
     x = model.embed[tokens]
-    if model.cfg.emb_scale_by_sqrt_d:
+    if cfg.emb_scale_by_sqrt_d:
         # sqrt(d) rounded to the embedding's dtype first, as the JAX
         # package multiplies by jnp.asarray(d ** 0.5, x.dtype)
-        x = x * torch.tensor(model.cfg.d_model ** 0.5, dtype=x.dtype,
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
+    if cfg.family == "vlm" and batch.get("patch_embeds") is not None:
+        pe = torch.as_tensor(batch["patch_embeds"]).to(x.device, x.dtype)
+        if pe.shape[0] != B or pe.shape[1] > S or pe.shape[2] != x.shape[2]:
+            raise ValueError(
+                f"patch_embeds {tuple(pe.shape)} must be (B={B}, n <= "
+                f"S={S}, d={x.shape[2]}): the patches take the first rows "
+                f"of the sequence")
+        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+    if cfg.rope_kind == "mrope":
+        if batch.get("mrope_pos") is None:
+            raise ValueError(f"{cfg.name}: an M-RoPE stack needs the "
+                             f"batch's mrope_pos (3, B, S)")
+        positions = torch.as_tensor(batch["mrope_pos"]).to(x.device).long()
+        if tuple(positions.shape) != (3, B, S):
+            raise ValueError(f"mrope_pos {tuple(positions.shape)} != "
+                             f"(3, {B}, {S})")
+        return x, positions
     ar = torch.arange(S, device=tokens.device)
     if isinstance(pos, torch.Tensor) and pos.ndim == 1:
         positions = pos.to(tokens.device).long()[:, None] + ar[None, :]
     else:
         positions = (int(pos or 0) + ar)[None, :].expand(B, S)
-    if model.cfg.rope_kind == "none":
-        x = x + _sin_at(model.cfg.d_model, positions).to(x.dtype)
+    if cfg.rope_kind == "none":
+        x = x + _sin_at(cfg.d_model, positions).to(x.dtype)
     return x, positions
 
 
@@ -210,6 +255,37 @@ def _sin_at(d: int, positions):
                        device=positions.device)
     ang = pos / (10_000.0 ** (dim / d))
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _encode(model: Model, frames, remat: bool = False):
+    """whisper's encoder over frame embeddings (B, S_enc, d): the
+    sinusoidal positions 0..S_enc-1 added in the frames' dtype, the
+    ``"enc"`` layers in train mode (non-causal self-attention, no rope,
+    no cache), each under ``torch.utils.checkpoint`` with ``remat``, and
+    the encoder's final norm: the JAX package's ``_encode``."""
+    enc = model.encoder
+    x = torch.as_tensor(frames).to(model.device, model.embed.dtype)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    x = x + _sin_at(model.cfg.d_model, positions).to(x.dtype)
+    for blk in enc.layers:
+        if remat:
+            x, _ = checkpoint(_train_block, blk, x, positions, model.cfg,
+                              use_reentrant=False)
+        else:
+            x, _ = _train_block(blk, x, positions, model.cfg)
+    return L.rmsnorm(enc.final_norm.scale, x, model.cfg.norm_eps, fixed=True)
+
+
+def _memory(model: Model, batch, remat: bool = False):
+    """The encoder's output over ``batch["frames"]`` for an
+    encoder-decoder stack, else None."""
+    if not model.cfg.n_enc_layers:
+        return None
+    if batch.get("frames") is None:
+        raise ValueError(f"{model.cfg.name}: an encoder-decoder stack "
+                         f"needs the batch's frames (B, S_enc, d)")
+    return _encode(model, batch["frames"], remat)
 
 
 def _logits(model: Model, x):
@@ -226,6 +302,13 @@ def _logits(model: Model, x):
     return logits
 
 
+def _no_encdec(model: Model, what: str) -> None:
+    if model.cfg.n_enc_layers:
+        raise NotImplementedError(f"{what}: encoder-decoder stacks "
+                                  f"({model.cfg.name}) take prefill and "
+                                  f"decode_step only")
+
+
 # ------------------------------------------------------------- public API ----
 
 @torch.no_grad()
@@ -236,10 +319,11 @@ def forward_hidden(model: Model, batch):
     position 0, no cache. Every product and norm runs in fixed-size row
     calls, so a row's bits do not depend on B."""
     tokens = _tokens(model, batch)
-    x, positions = _embed_inputs(model, tokens)
+    memory = _memory(model, batch)
+    x, positions = _embed_inputs(model, tokens, batch=batch)
     for blk in model.layers:
         x, _ = block_apply(blk, x, model.cfg, mode="train", cache=None,
-                           pos=0, positions=positions)
+                           pos=0, positions=positions, memory=memory)
     return L.rmsnorm(model.final_norm.scale, x, model.cfg.norm_eps,
                      fixed=True)
 
@@ -268,11 +352,11 @@ def xent_chunked(model: Model, x, labels, chunk: int = 256):
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def _train_block(blk: Block, x, positions, cfg: ModelConfig):
+def _train_block(blk: Block, x, positions, cfg: ModelConfig, memory=None):
     """One block in train mode: (x, its MoE aux term, 0 for other
     kinds)."""
     return block_apply(blk, x, cfg, mode="train", cache=None, pos=0,
-                       positions=positions)
+                       positions=positions, memory=memory)
 
 
 def train_loss(model: Model, batch, remat: bool = True):
@@ -284,18 +368,20 @@ def train_loss(model: Model, batch, remat: bool = True):
     non-reentrant), as the JAX package wraps each unit in
     ``jax.checkpoint``: the block returns its aux term through the
     checkpoint, so remat and no remat sum the same terms in the same
-    order. Tokens and labels move to the model's device."""
+    order. An encoder-decoder stack encodes ``batch["frames"]`` first.
+    Tokens and labels move to the model's device."""
     tokens = _tokens(model, batch)
     labels = torch.as_tensor(batch["labels"], dtype=torch.long,
                              device=model.device)
-    x, positions = _embed_inputs(model, tokens)
+    memory = _memory(model, batch, remat)
+    x, positions = _embed_inputs(model, tokens, batch=batch)
     aux = torch.zeros((), dtype=torch.float32, device=model.device)
     for blk in model.layers:
         if remat:
             x, a = checkpoint(_train_block, blk, x, positions, model.cfg,
-                              use_reentrant=False)
+                              memory, use_reentrant=False)
         else:
-            x, a = _train_block(blk, x, positions, model.cfg)
+            x, a = _train_block(blk, x, positions, model.cfg, memory)
         aux = aux + a
     x = L.rmsnorm(model.final_norm.scale, x, model.cfg.norm_eps, fixed=True)
     return xent_chunked(model, x, labels) + aux
@@ -304,13 +390,19 @@ def train_loss(model: Model, batch, remat: bool = True):
 @torch.no_grad()
 def prefill(model: Model, batch, cache_len: int):
     """Process a prompt; returns (last-token logits (B,V) fp32, filled
-    cache with ``pos`` = prompt length)."""
+    cache with ``pos`` = prompt length). An encoder-decoder stack encodes
+    ``batch["frames"]`` first, its decoder cache capped at
+    ``WHISPER_DEC_CACHE`` rows, its cross-attention K/V cached."""
     tokens = _tokens(model, batch)
     B, S = tokens.shape
-    x, positions = _embed_inputs(model, tokens)
-    cache = init_cache(model.cfg, B, cache_len, model.device)
+    memory = _memory(model, batch)
+    enc_len = 0 if memory is None else memory.shape[1]
+    if memory is not None:
+        cache_len = min(cache_len, WHISPER_DEC_CACHE)
+    x, positions = _embed_inputs(model, tokens, batch=batch)
+    cache = init_cache(model.cfg, B, cache_len, model.device, enc_len)
     x, layers = _apply_stack(model, x, mode="prefill", cache=cache, pos=0,
-                             positions=positions)
+                             positions=positions, memory=memory)
     x_last = L.rmsnorm(model.final_norm.scale, x[:, -1:], model.cfg.norm_eps)
     return _logits(model, x_last)[:, 0], {"layers": layers, "pos": S}
 
@@ -323,12 +415,14 @@ def prefill_extend(model: Model, cache, batch, n_valid=None):
     ``n_valid`` (default S) supports bucket-padded calls: logits are taken
     at row n_valid-1 and ``pos`` advances by n_valid, so pad rows beyond
     it are never attended (causal mask) and are overwritten by later
-    writes before they become visible."""
+    writes before they become visible. An encoder-decoder stack raises,
+    as the JAX package asserts."""
+    _no_encdec(model, "prefill_extend")
     pos = int(cache["pos"])
     tokens = _tokens(model, batch)
     S = tokens.shape[1]
     n_valid = S if n_valid is None else int(n_valid)
-    x, positions = _embed_inputs(model, tokens, pos=pos)
+    x, positions = _embed_inputs(model, tokens, pos=pos, batch=batch)
     x, layers = _apply_stack(model, x, mode="extend", cache=cache, pos=pos,
                              positions=positions)
     last = L.rmsnorm(model.final_norm.scale, x[:, n_valid - 1:n_valid],
@@ -343,10 +437,19 @@ def decode_step(model: Model, cache, batch):
     or a (B,) tensor of per-slot fill levels. A cache with a
     ``block_tab`` decodes against its paged pools; the table rides
     through unchanged (the engine owns it). Returns (logits (B,V) fp32,
-    cache with ``pos + 1``), the cache updated in place."""
+    cache with ``pos + 1``), the cache updated in place. Under M-RoPE
+    the batch carries ``mrope_pos`` (3, B, 1). An encoder-decoder
+    stack's decode past its decoder cache raises ValueError and writes
+    nothing (the JAX package would overwrite the last row)."""
+    if model.cfg.n_enc_layers:
+        rows = cache["layers"][0]["k"].shape[2]
+        last = int(torch.as_tensor(cache["pos"]).max())
+        if last >= rows:
+            raise ValueError(f"{model.cfg.name}: decode at position {last} "
+                             f"past the {rows}-row decoder cache")
     pos, tab, plan = _step_inputs(model, cache, 1)
     tokens = _tokens(model, batch)
-    x, positions = _embed_inputs(model, tokens, pos=pos)
+    x, positions = _embed_inputs(model, tokens, pos=pos, batch=batch)
     x, layers = _apply_stack(model, x, mode="decode", cache=cache, pos=pos,
                              positions=positions, block_tab=tab, plan=plan)
     x = L.rmsnorm(model.final_norm.scale, x, model.cfg.norm_eps)
@@ -370,11 +473,13 @@ def verify_extend(model: Model, cache, batch):
     each slot by its accepted length on the host, and that truncation is
     the whole rejected-token rollback. The layers and the head run per
     row at decode's shape, as the JAX package's head does, so row i is
-    bitwise the logits of the i'th sequential ``decode_step``."""
+    bitwise the logits of the i'th sequential ``decode_step``. An
+    encoder-decoder stack raises, as the JAX package asserts."""
+    _no_encdec(model, "verify_extend")
     tokens = _tokens(model, batch)
     W = tokens.shape[1]
     pos, tab, plan = _step_inputs(model, cache, W)
-    x, positions = _embed_inputs(model, tokens, pos=pos)
+    x, positions = _embed_inputs(model, tokens, pos=pos, batch=batch)
     x, layers = _apply_stack(model, x, mode="verify", cache=cache, pos=pos,
                              positions=positions, block_tab=tab, plan=plan)
     logits = torch.stack(

@@ -54,8 +54,9 @@ class MoE(nn.Module):
         super().__init__()
         mcfg = cfg.moe
         if cfg.mlp_act != "silu_glu":
-            raise NotImplementedError(f"mlp_act {cfg.mlp_act!r} comes with "
-                                      f"its model family (ROADMAP.md A12)")
+            raise NotImplementedError(
+                f"mlp_act {cfg.mlp_act!r}: the expert stacks are SiLU-GLU, "
+                f"as in every MoE config of the JAX package")
         d, dff, E = cfg.d_model, mcfg.d_expert, mcfg.n_experts
         self.router = L.dense_param((d, E), gen, torch.float32, device,
                                     scale=0.1)

@@ -45,7 +45,11 @@ without rings (xlstm) extends in whole ``attn_chunk`` slabs plus one
 unpadded rest, and takes ``prefill_budget``: bucket-padded extends
 (``_pad_extend``) need a pure-attention stack, since recurrent state
 would step through the pads. Paged KV and speculative decoding need a
-pure-attention stack.
+pure-attention stack. The vision-language and audio families (qwen2-vl,
+whisper) are refused at construction (``check_servable``): their
+prefill needs patch embeddings and M-RoPE positions or encoder frames,
+and the JAX engine, which feeds ``prefill`` only tokens, serves neither;
+they run at the model level (``models/model.py``).
 
 The port updates caches in place where the JAX package returns new
 arrays: an admission copies its B=1 cache into its slot (dense) or its
@@ -146,6 +150,26 @@ class PendingPrefill:
     cache: Optional[dict]            # B=1 cache; None pre-head
     table: Optional[BlockTable] = None   # paged: blocks held from admission
     j0: int = 0                          # paged: shared prefix blocks
+
+
+#: model families the engine does not serve (``check_servable``)
+UNSERVED_FAMILIES = ("vlm", "audio")
+
+
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for a family the engine does not serve:
+    a vlm's prefill needs ``patch_embeds`` and ``mrope_pos``, an audio
+    stack's ``frames``, and the JAX engine feeds ``prefill`` only
+    ``{"tokens"}`` (``src/repro/serving/engine.py:532``, ``:840``), so
+    no served stream of either family exists to hold the port to."""
+    if cfg.family in UNSERVED_FAMILIES:
+        needs = ("frames" if cfg.family == "audio"
+                 else "patch_embeds and mrope_pos")
+        raise NotImplementedError(
+            f"{cfg.name}: the engine does not serve the {cfg.family!r} "
+            f"family: its prefill needs {needs}, and the JAX engine "
+            f"feeds prefill only tokens; run it through "
+            f"models/model.py's prefill and decode_step")
 
 
 def extend_support(cfg: ModelConfig) -> Tuple[bool, bool]:
@@ -264,6 +288,7 @@ class InferenceEngine:
                  admission: str = "fifo",
                  clock: Optional[Callable[[], float]] = None,
                  tracer=None, metrics: Optional[MetricsRegistry] = None):
+        check_servable(cfg)
         if kv_mode not in KV_MODES:
             raise ValueError(f"kv_mode must be one of {KV_MODES}, "
                              f"got {kv_mode!r}")

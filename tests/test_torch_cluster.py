@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_smoke_config as jax_smoke
 from repro.models import model as JM
@@ -43,6 +44,16 @@ from repro_torch.serving.workload import (WorkloadConfig, make_workload,
                                           skewed_mix, uniform_mix)
 
 LOGIT_TOL = 0.05
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one thread: its pool, under the suite's workers, slows
+    these small ops ~10x (``test_torch_training.py``'s reason)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

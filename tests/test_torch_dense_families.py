@@ -38,6 +38,7 @@ import jax
 import jax.numpy as jnp
 import ml_dtypes
 
+from torch_multimodal_common import bridged
 from repro.configs import get_config as jax_config
 from repro.configs import get_smoke_config as jax_smoke
 from repro.models import model as JM
@@ -45,8 +46,7 @@ from repro.serving import engine as JE
 from repro.serving.sampling import SamplerConfig as JSampler
 from repro_torch.configs import ALL_IDS, get_config, get_smoke_config
 from repro_torch.models import model as TM
-from repro_torch.models.convert import _walk, params_from_numpy, \
-    params_to_numpy
+from repro_torch.models.convert import _walk, params_to_numpy
 from repro_torch.serving.engine import InferenceEngine
 from repro_torch.serving.sampling import SamplerConfig
 from repro_torch.serving.specdec import SpecConfig
@@ -56,7 +56,6 @@ WINDOWED = ("starcoder2-3b", "gemma2-2b")
 LOGIT_TOL = 0.05
 CACHE = 512
 PROMPT, STEPS = 300, 16
-BIAS_STD, SCALE_STD = 0.5, 0.2
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -69,36 +68,11 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-def _redrawn(tree, seed):
-    """The numpy params tree with every q/k/v bias and norm scale drawn
-    N(0, BIAS_STD) / N(0, SCALE_STD) in its own dtype."""
-    rng = np.random.default_rng(seed)
-
-    def walk(node, name):
-        if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
-        if isinstance(node, list):
-            return [walk(v, name) for v in node]
-        std = (BIAS_STD if name in ("bq", "bk", "bv")
-               else SCALE_STD if name == "scale" else 0.0)
-        if not std:
-            return node
-        arr = np.asarray(node)
-        return (rng.standard_normal(arr.shape) * std).astype(arr.dtype)
-    return walk(tree, "")
-
-
 @pytest.fixture(scope="module", params=ARCHS)
 def fam(request):
     """(arch, JAX config, JAX params, the port's model) on the same
     redrawn weights."""
-    arch = request.param
-    jcfg = jax_smoke(arch)
-    tree = _redrawn(jax.tree.map(np.asarray, JM.init_params(
-        jax.random.PRNGKey(0), jcfg)), seed=len(arch))
-    jp = jax.tree.map(jnp.asarray, tree)
-    return arch, jcfg, jp, params_from_numpy(tree, get_smoke_config(arch),
-                                             "cpu")
+    return (request.param,) + bridged(request.param)
 
 
 def _logits_close(t, j):

@@ -64,6 +64,16 @@ HIT_MISS_TOL = 0.05
 CACHE = 128
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one thread: its pool, under the suite's workers, slows
+    these small ops ~10x (``test_torch_training.py``'s reason)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def pair():
     jcfg = jax_smoke(ARCH)

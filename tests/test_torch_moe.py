@@ -39,8 +39,10 @@ from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.kernels.flash_verify import flash_verify, \
     flash_verify_paged
 from repro_torch.kernels.moe_router import moe_router_topk
+from repro_torch.models import model as TM
 from repro_torch.models import moe as M
 from repro_torch.models.convert import params_from_numpy
+from repro_torch.training.data import PackedLMDataset, synthetic_docs
 
 W_TOL = 1e-6
 Y_ATOL, Y_RTOL = 2.0 ** -5, 2.0 ** -6
@@ -199,6 +201,45 @@ def test_decode_row_never_drops():
     for E, k in ((128, 2), (384, 8), (4, 2)):
         assert M.capacity(MoEConfig(n_experts=E, top_k=k, d_expert=8), 1) \
             >= k
+
+
+@pytest.mark.parametrize("factor,others_move", [(1.25, True),
+                                                 (100.0, False)])
+def test_a_rerouted_choice_moves_other_tokens_only_under_drops(
+        factor, others_move, monkeypatch):
+    """kimi-smoke's MoE layer on the batch its card-vs-CPU training
+    check uses (``chip_smoke.train_card_vs_cpu``): reroute the second
+    choice of the token nearest a tie between its second and third
+    expert, as the card's and the CPU's roundings may. At the config's
+    capacity factor (1.25) the choices after it take other buffer
+    positions, so another token's kept choices change and its output
+    moves; with no choice dropped (factor 100) only that token moves."""
+    cfg = get_smoke_config("kimi-k2-1t-a32b")
+    model = TM.init_params(cfg, seed=0, device="cpu")
+    batch = next(PackedLMDataset(synthetic_docs(cfg.vocab_size, seed=1), 2,
+                                 64, cfg.vocab_size))
+    seen, orig = {}, M.moe_ffn
+
+    def grab(p, x, cfg, **kw):
+        seen["x"] = x
+        return orig(p, x, cfg, **kw)
+    monkeypatch.setattr(M, "moe_ffn", grab)
+    with torch.no_grad():
+        TM.train_loss(model, batch, remat=False)
+    x, moe = seen["x"], model.layers[1].moe
+    w, idx, logits = M.router_topk(moe, x, cfg.moe)
+    top = torch.topk(torch.softmax(logits, -1), 3, dim=-1)
+    margin = top.values[..., 1] - top.values[..., 2]
+    b, s = divmod(int(margin.argmin()), margin.shape[1])
+    moved = idx.clone()
+    moved[b, s, 1] = top.indices[b, s, 2]
+    mcfg = dataclasses.replace(cfg.moe, capacity_factor=factor)
+    with torch.no_grad():
+        diff = (M._dispatch(moe, x, w, idx, mcfg)
+                != M._dispatch(moe, x, w, moved, mcfg)).any(-1)
+    assert bool(diff[b, s])
+    diff[b, s] = False
+    assert bool(diff.any()) == others_move
 
 
 def test_router_logits_are_full_fp32():

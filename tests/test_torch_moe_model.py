@@ -75,6 +75,16 @@ PROMPTS = [list(range(5, 29)), list(range(40, 53))]    # 24 and 13 tokens
 TOKS = np.array([[3, 7, 11, 13, 17], [4, 8, 12, 14, 18]])
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one thread: its pool, under the suite's workers, slows
+    these small ops ~10x (``test_torch_training.py``'s reason)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", params=ARCHS)
 def pair(request):
     jcfg = jax_smoke(request.param)

@@ -38,6 +38,16 @@ from repro_torch.serving.pipeline import (GeckOptPipeline, PipelineConfig,
                                           evaluate_pipeline)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one thread: its pool, under the suite's workers, slows
+    these small ops ~10x (``test_torch_training.py``'s reason)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def world():
     return build_world(0, n_images=200)

@@ -42,6 +42,16 @@ TOKS = np.array([[3, 7, 11, 13], [4, 8, 12, 14]])
 PROMPTS = [list(range(5, 17)), list(range(30, 39))]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one thread: its pool, under the suite's workers, slows
+    these small ops ~10x (``test_torch_training.py``'s reason)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def planner():
     cfg = get_smoke_config("planner-proxy-100m")
