@@ -42,7 +42,12 @@ version (autograd through the plain forward) at the planner's training
 shapes (8 x 256 and 16 x 64), a 1,024-token row, kimi-k2's heads, head
 dim 32, a window and a softcap, with the same sha256 on a second call,
 its device time a call (by pass at the training shape) beside SDPA's
-backward, and its three passes' registers and spills; and the backwards
+backward, and its three passes' registers and spills, and at the A12
+families' training shapes: head dim 16 (qwen1.5-110b-smoke's 8/2),
+gemma2-2b's 8/4 of 256 with its cap 50 and 4,096 window over 4,608 rows
+and without either at 1,024, and whisper's 20/20 of 64 non-causal, its
+encoder (4 x 1,500 frames) and its cross-attention (16 rows over the
+1,500); and the backwards
 of the router, the selective scan and the mLSTM scan (none has a TPU
 counterpart) against their plain versions (autograd through the plain
 forwards) at their training shapes (arctic's cut router (1,024, 16, 2),
@@ -146,13 +151,13 @@ prefix hits on a 1,300-token prefix against monolithic prefill
 speculative decoding; a profile of its decode step; card vs CPU on
 xlstm-smoke. Then the dense families: qwen1.5-32b at its published
 widths (40/40 heads of 128: G = 1, q/k/v biases, an untied head of
-152,064 ids), its depth cut to 4 of 64 layers, served monolithic, paged
+152,064 ids), its depth cut to 2 of 64 layers, served monolithic, paged
 with a pool that preempts, speculative (--draft-k 4, self-draft accept
 rate 1.0) and budgeted (1,024), every run's tokens equal, budgeted and
 prefix-hit equalities on 1,300-token prompts and a decode profile;
 starcoder2-3b (``"local"`` layers, 24/2 heads, GELU MLP) and gemma2-2b
 (``"local"`` / ``"full"``, 8/4 heads of 256, softcaps 50 and 30) at
-full width, their depth cut to 8 of 30 and 8 of 26 layers: two dense
+full width, their depth cut to 4 of 30 and 4 of 26 layers: two dense
 serve runs, the recycled
 slots' requests against a fresh engine, the refusals of paged KV,
 chunked prefill and speculative decoding, and gemma2's ring crossing
@@ -164,7 +169,7 @@ and qwen's G = 1, and whisper's heads (20/20 of 64, B 4): flash_prefill
 non-causal at Sq = Sk = 1,500, Sq = 16 and Sq = 1 over 1,500 keys, a
 one-row call bitwise equal to its row of a 64-row call, and the decode
 family at G = 1 over a 448-row ragged cache. Last, qwen2-vl-72b at its
-published widths, its depth cut to 2 of 80 layers: a prefill of 2 x
+published widths, its depth cut to 1 of 80 layers: a prefill of 2 x
 1,088 rows (1,024 patch embeddings over the first rows, then 64 ids)
 and 32 greedy decode steps, under M-RoPE ids of the text layout (t = h
 = w) and of a 32 x 32 patch grid; whisper-large-v3 at full width and
@@ -172,7 +177,22 @@ depth: its encoder over 4 x 1,500 frames, timed, then a prefill of 16
 ids beside them and 64 greedy decode steps (the cross-attention's row a
 step through flash_prefill); each path with its launches counted (set
 to 0 just before it) and its logits held to the full-sequence forward's
-within the JAX package's bound; card vs CPU on both smoke configs. In
+within the JAX package's bound; card vs CPU on both smoke configs.
+Each A12 family is then trained on the weights its serve phase drew,
+cut to its training depth (``A12_TRAIN``): qwen1.5-32b (1 layer, 1 x
+1,024), starcoder2-3b (4 layers) and gemma2-2b (one ("local", "full")
+unit), both at 1 x 4,608 rows past their 4,096 window, through
+``launch.train.train_run``; qwen2-vl-72b (1 layer, 1,024 patch rows
+and 256 ids) and whisper-large-v3 (4 encoder and 4 decoder layers over
+4 x 1,500 frames and 16 ids) through ``training/loop.py``'s
+``make_train_step`` on a ``make_batch`` batch, as the JAX package
+trains them: A12_STEPS steps (the loss finite and falling, launches a
+step as ``expected_launches``, whose count takes the encoder layers and
+an ``"encdec"`` layer's two attentions, ms a step, tok/s, peak memory)
+and REMAT_STEPS with and without remat, bitwise equal; each followed by
+card vs CPU at its smoke configs (qwen1.5-32b-smoke and
+qwen1.5-110b-smoke's heads of 16, starcoder2-smoke, gemma2-smoke,
+qwen2-vl-smoke and whisper-smoke on ``make_batch`` batches). In
 the family training phases, kimi-smoke's card-vs-CPU gradients also
 run with its load-balance term off (``aux_loss_weight`` 0, reported) and
 with no expert choice dropped (capacity factor 100), where every leaf
@@ -1845,41 +1865,65 @@ def geckopt_phases():
 # ------------------------------------------------------------ training ----
 
 # flash_prefill's backward against its plain version (autograd through
-# attention_ref): recomputed fp32 p, and D from the forward kernel's bf16
-# output (whose P V rounds P to bf16)
+# attention_ref): both recompute p in fp32 from bf16 q, k and v; sums in
+# other orders, outputs rounded to bf16
 BWD_ATOL = BWD_RTOL = 2e-2
-# (B, S, (Hq, Hkv, hd), window, cap, family): the planner's train shapes
-# (launch.train's 8 x 256, train_planner's 16 x 64), a 1,024-token row,
-# kimi-k2's heads at head dim 128, head dim 32, a window and a softcap
-BWD_CASES = [(8, 256, (HQ, HKV, HD), 0, 0.0, "train"),
-             (16, 64, (HQ, HKV, HD), 0, 0.0, "gate"),
-             (1, 1024, (HQ, HKV, HD), 0, 0.0, "long"),
-             (1, 512, MOE_HEADS["kimi"] + (128,), 0, 0.0, "kimi"),
-             (2, 256, (HQ, HKV, 32), 0, 0.0, "hd32"),
-             (2, 512, (HQ, HKV, HD), 100, 0.0, "window"),
-             (2, 256, (HQ, HKV, HD), 0, 30.0, "cap")]
+# (B, Sq, Sk, (Hq, Hkv, hd), window, cap, causal, family): the planner's
+# train shapes (launch.train's 8 x 256, train_planner's 16 x 64), a
+# 1,024-token row, kimi-k2's heads at head dim 128, head dim 32, a window
+# and a softcap; then the A12 families' training: head dim 16
+# (qwen1.5-110b-smoke's 8/2), gemma2-2b's 8/4 of 256 with its cap and
+# window at 4,608 rows (the window crossed) and without either at 1,024,
+# and whisper's 20/20 of 64 non-causal, its encoder (1,500 frames) and
+# its cross-attention (16 decoder rows over the 1,500); then the other
+# heads and rows that the A12 training runs (A12_TRAIN) give it:
+# whisper's causal decoder self-attention (16 rows), qwen1.5-32b's
+# 40/40 of 128 (G = 1) at 1,024 rows, starcoder2-3b's 24/2 of 128 with
+# its 4,096 window at 4,608 rows, qwen2-vl-72b's 64/8 of 128 at 1,280
+BWD_CASES = [
+    (8, 256, 256, (HQ, HKV, HD), 0, 0.0, True, "train"),
+    (16, 64, 64, (HQ, HKV, HD), 0, 0.0, True, "gate"),
+    (1, 1024, 1024, (HQ, HKV, HD), 0, 0.0, True, "long"),
+    (1, 512, 512, MOE_HEADS["kimi"] + (128,), 0, 0.0, True, "kimi"),
+    (2, 256, 256, (HQ, HKV, 32), 0, 0.0, True, "hd32"),
+    (2, 512, 512, (HQ, HKV, HD), 100, 0.0, True, "window"),
+    (2, 256, 256, (HQ, HKV, HD), 0, 30.0, True, "cap"),
+    (2, 256, 256, DENSE_HEADS["qwen110_smoke"], 0, 0.0, True, "hd16"),
+    (1, 4608, 4608, DENSE_HEADS["gemma2"], GEMMA2_WINDOW, GEMMA2_CAP, True,
+     "gemma2"),
+    (1, 1024, 1024, DENSE_HEADS["gemma2"], 0, 0.0, True, "hd256"),
+    (WHISPER_B, WHISPER_ENC, WHISPER_ENC, WHISPER_HEADS, 0, 0.0, False,
+     "whisper_enc"),
+    (WHISPER_B, WHISPER_PROMPT, WHISPER_ENC, WHISPER_HEADS, 0, 0.0, False,
+     "whisper_cross"),
+    (WHISPER_B, WHISPER_PROMPT, WHISPER_PROMPT, WHISPER_HEADS, 0, 0.0, True,
+     "whisper_self"),
+    (1, 1024, 1024, DENSE_HEADS["qwen32"], 0, 0.0, True, "qwen32"),
+    (1, 4608, 4608, (24, 2, 128), 4096, 0.0, True, "starcoder2"),
+    (1, 1280, 1280, (64, 8, 128), 0, 0.0, True, "qwen2vl")]
 BWD_PASSES = ("bwd_rows_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")
+# a case whose B Hq Sq Sk hd passes this is timed over 5 calls, not 20
+BWD_LONG_WORK = 4e9
 
 
-def bwd_case(gen, B, S, heads, window, cap, family):
-    """flash_prefill_bwd against attention_bwd_ref on the forward
-    kernel's output: every dq, dk, dv within BWD_ATOL + BWD_RTOL |plain|,
+def bwd_case(gen, B, Sq, Sk, heads, window, cap, causal, family):
+    """flash_prefill_bwd against attention_bwd_ref on the same q, k, v
+    and dout: every dq, dk, dv within BWD_ATOL + BWD_RTOL |plain|,
     each output's relative norm error, the same sha256 on a second call;
     its CUDA-event and device times (the train shape also by pass) beside
-    the plain version's, SDPA's backward (none under a cap) and the
-    bound."""
+    the plain version's, SDPA's backward (none under a cap; the same
+    mask, none where every key is visible) and the bound, all counting
+    the (row, key) pairs that the mask leaves visible."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_prefill import flash_prefill, \
-        flash_prefill_bwd
+    from repro_torch.kernels.flash_prefill import flash_prefill_bwd
     from repro_torch.kernels.ref import attention_bwd_ref
     from repro_torch.launch.decode_bench import digest
     Hq, Hkv, hd = heads
-    q, k, v = _mk(gen, B, Hq, S, hd), _mk(gen, B, Hkv, S, hd), \
-        _mk(gen, B, Hkv, S, hd)
-    dout = _mk(gen, B, Hq, S, hd)
-    kw = dict(causal=True, window=window, cap=cap)
-    out = flash_prefill(q, k, v, **kw)
-    run = lambda: flash_prefill_bwd(q, k, v, out, dout, **kw)
+    q, k, v = _mk(gen, B, Hq, Sq, hd), _mk(gen, B, Hkv, Sk, hd), \
+        _mk(gen, B, Hkv, Sk, hd)
+    dout = _mk(gen, B, Hq, Sq, hd)
+    kw = dict(causal=causal, window=window, cap=cap)
+    run = lambda: flash_prefill_bwd(q, k, v, dout, **kw)
     got, again = run(), run()
     ref = attention_bwd_ref(q, k, v, dout, **kw)
     err, rel = {}, {}
@@ -1896,19 +1940,24 @@ def bwd_case(gen, B, S, heads, window, cap, family):
     bits = [digest(t) for t in got]
     check(bits == [digest(t) for t in again],
           f"bwd {family}: two calls give other bits")
-    pos = torch.arange(S, device="cuda")
-    mask = pos[None, :] <= pos[:, None]
+    qpos = torch.arange(Sq, device="cuda")[:, None]
+    kpos = torch.arange(Sk, device="cuda")[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device="cuda")
+    if causal:
+        mask &= kpos <= qpos
     if window:
-        mask &= pos[:, None] - pos[None, :] < window
+        mask &= qpos - kpos < window
     pairs = B * int(mask.sum())                   # visible (q, k) a head
-    # five hd-long products a visible pair and q head; q, o, dout, k, v
-    # read once, dq, dk, dv written once
-    b_ms, b_by = bound(2 * hd * B * (4 * Hq * S + 4 * Hkv * S),
+    # five hd-long products a visible pair and q head; q, dout, k, v read
+    # once, dq, dk, dv written once
+    b_ms, b_by = bound(2 * hd * B * (3 * Hq * Sq + 4 * Hkv * Sk),
                        10 * hd * Hq * pairs)
-    res = dict(family=family, B=B, S=S, heads=list(heads), window=window,
-               cap=cap, max_abs_err=max(err.values()), err=err,
-               rel_norm_err=rel, bits=bits, ms=cuda_ms(run),
-               device_ms=device_ms(run),
+    iters = 20 if B * Hq * Sq * Sk * hd < BWD_LONG_WORK else 5
+    res = dict(family=family, B=B, Sq=Sq, Sk=Sk, heads=list(heads),
+               window=window, cap=cap, causal=causal,
+               max_abs_err=max(err.values()), err=err, rel_norm_err=rel,
+               bits=bits, ms=cuda_ms(run, iters=iters),
+               device_ms=device_ms(run, iters=iters),
                plain_ms=cuda_ms(lambda: attention_bwd_ref(q, k, v, dout,
                                                           **kw), iters=3),
                bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -1917,12 +1966,13 @@ def bwd_case(gen, B, S, heads, window, cap, family):
         res["pass_device_ms"] = {p: device_ms(run, p) for p in BWD_PASSES}
     if not cap:
         qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
-        o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
-                                           enable_gqa=True)
+        o = F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=None if bool(mask.all()) else mask,
+            enable_gqa=True)
         lib = lambda: torch.autograd.grad(o, (qs, ks, vs), dout,
                                           retain_graph=True)
-        res["library_ms"] = cuda_ms(lib)
-        res["library_device_ms"] = device_ms(lib)
+        res["library_ms"] = cuda_ms(lib, iters=iters)
+        res["library_device_ms"] = device_ms(lib, iters=iters)
     return res
 
 
@@ -2181,7 +2231,7 @@ def _profile_train_step(cfg, model):
     opt = adamw_init(model)
     batch = next(PackedLMDataset(synthetic_docs(cfg.vocab_size, seed=3),
                                  TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size))
-    step(model, opt, batch)
+    _, opt, _ = step(model, opt, batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2263,24 +2313,39 @@ def train_card_vs_cpu(cfg):
     """One train_loss and its gradients (B 2 x S 64, seed 0's weights,
     built on the CPU and copied to the card) on the card and on the CPU:
     the losses within TRAIN_LOSS_TOL; each leaf's relative gradient error
-    reported. A stack with MoE layers is held on the tokens whose routes
-    agree: a token whose experts differ between the two in any MoE layer
-    (a near-tie that the two devices' roundings break apart) gets label
-    -1 in both runs' batch."""
+    reported. The batch is packed synthetic data, or for qwen2-vl and
+    whisper (which ``launch.train`` refuses) ``make_batch``'s train batch
+    (seed 1: patch embeddings and M-RoPE ids, or 64 frames and 16 ids).
+    A stack with MoE layers is held on the tokens whose routes agree: a
+    token whose experts differ between the two in any MoE layer (a
+    near-tie that the two devices' roundings break apart) gets label -1
+    in both runs' batch. A third run on the card takes its attention
+    gradient from the plain ``attention_bwd_ref`` instead of the
+    ``flash_prefill_bwd`` kernel (the forward kernels unchanged); each
+    leaf of it is reported against the CPU's and the kernel run's
+    (``plain_bwd``): which of the card's differences from the CPU are
+    the backward kernel's."""
     import copy
     from repro_torch.kernels import backend as KB
+    from repro_torch.kernels import flash_prefill as FP
+    from repro_torch.kernels.ref import attention_bwd_ref
+    from repro_torch.models.inputs import make_batch
     from repro_torch.models.model import init_params, train_loss
     from repro_torch.training.data import PackedLMDataset, synthetic_docs
-    batch = next(PackedLMDataset(synthetic_docs(cfg.vocab_size, seed=1), 2,
-                                 64, cfg.vocab_size))
+    if cfg.family in ("vlm", "audio"):
+        batch = make_batch(cfg, "train", 2, 64, seed=1)
+    else:
+        batch = next(PackedLMDataset(synthetic_docs(cfg.vocab_size, seed=1),
+                                     2, 64, cfg.vocab_size))
     cpu_model = init_params(cfg, seed=0, device="cpu")
     models = {"cuda": copy.deepcopy(cpu_model).to("cuda"),
-              "cpu": cpu_model}
+              "cpu": cpu_model,
+              "cuda_plain_bwd": copy.deepcopy(cpu_model).to("cuda")}
     masked = 0
     if "moe" in cfg.layer_kinds():
         routes, orig = {}, KB.router_topk
-        for dev, model in models.items():
-            rec = []
+        for dev in ("cuda", "cpu"):
+            model, rec = models[dev], []
 
             def record(lg, k):
                 w, idx = orig(lg, k)
@@ -2305,25 +2370,46 @@ def train_card_vs_cpu(cfg):
         model.requires_grad_(True)
         params = dict(model.named_parameters())
         t0 = time.time()
-        loss = train_loss(model, batch, remat=False)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        kernel_bwd = FP.flash_prefill_bwd
+        if dev == "cuda_plain_bwd":
+            FP.flash_prefill_bwd = attention_bwd_ref
+        try:
+            loss = train_loss(model, batch, remat=False)
+            grads = torch.autograd.grad(loss, list(params.values()))
+        finally:
+            FP.flash_prefill_bwd = kernel_bwd
         out[dev] = (float(loss.detach()), {n: g.float().cpu() for n, g in
                                            zip(params, grads)},
                     time.time() - t0)
     diff = abs(out["cuda"][0] - out["cpu"][0])
     check(diff <= TRAIN_LOSS_TOL, f"train {cfg.name}: card vs CPU loss "
                                   f"differ by {diff}")
-    rel = {n: float((g - out["cpu"][1][n]).norm()
-                    / out["cpu"][1][n].norm().clamp(min=1e-30))
-           for n, g in out["cuda"][1].items()}
-    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
-    return dict(config=cfg.name, layers=list(cfg.layer_kinds()), B=2, S=64,
-                tokens_masked=masked, loss_card=out["cuda"][0],
-                loss_cpu=out["cpu"][0], loss_diff=diff, tol=TRAIN_LOSS_TOL,
-                grad_rel_err_max=max(rel.values()),
-                grad_rel_err_median=float(np.median(list(rel.values()))),
-                grad_rel_err_worst=worst, grad_rel_err=rel,
-                cpu_seconds=out["cpu"][2])
+
+    def rel_err(a, b):
+        rel = {n: float((g - out[b][1][n]).norm()
+                        / out[b][1][n].norm().clamp(min=1e-30))
+               for n, g in out[a][1].items()}
+        return rel, sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    rel, worst = rel_err("cuda", "cpu")
+    res = dict(config=cfg.name, layers=list(cfg.layer_kinds()),
+               enc_layers=cfg.n_enc_layers, B=2, S=64,
+               tokens_masked=masked, loss_card=out["cuda"][0],
+               loss_cpu=out["cpu"][0], loss_diff=diff, tol=TRAIN_LOSS_TOL,
+               grad_rel_err_max=max(rel.values()),
+               grad_rel_err_median=float(np.median(list(rel.values()))),
+               grad_rel_err_worst=worst, grad_rel_err=rel,
+               cpu_seconds=out["cpu"][2])
+    p_cpu, p_cpu_worst = rel_err("cuda_plain_bwd", "cpu")
+    k_p, k_p_worst = rel_err("cuda", "cuda_plain_bwd")
+    res["plain_bwd"] = dict(
+        loss=out["cuda_plain_bwd"][0],
+        grad_rel_err_vs_cpu_max=max(p_cpu.values()),
+        grad_rel_err_vs_cpu_worst=p_cpu_worst,
+        kernel_vs_plain_max=max(k_p.values()),
+        kernel_vs_plain_worst=k_p_worst,
+        leaf={n: dict(card_vs_cpu=rel[n], plain_vs_cpu=p_cpu[n],
+                      kernel_vs_plain=k_p[n]) for n, _ in worst})
+    return res
 
 
 def gate_training(cfg):
@@ -2411,11 +2497,14 @@ def family_train_config(name: str):
 
 def expected_launches(cfg, remat: bool) -> dict:
     """Each kernel's launches a train step: every forward kernel once a
-    layer that runs it (twice with remat, whose backward recomputes the
-    block), every backward kernel once."""
+    layer that runs it (an ``"encdec"`` layer's attention twice, self-
+    and cross-attention; whisper's encoder layers once each), twice with
+    remat, whose backward recomputes the block; every backward kernel
+    once for each forward launch of a step without remat."""
     kinds = cfg.layer_kinds()
     f = 2 if remat else 1
-    per = {"flash_prefill": sum(k not in ("mlstm", "slstm") for k in kinds),
+    per = {"flash_prefill": (sum(k not in ("mlstm", "slstm") for k in kinds)
+                             + kinds.count("encdec") + cfg.n_enc_layers),
            "moe_router_topk": kinds.count("moe"),
            "ssm_scan": sum(k.startswith("hymba") for k in kinds),
            "mlstm_scan": kinds.count("mlstm")}
@@ -2429,32 +2518,62 @@ def expected_launches(cfg, remat: bool) -> dict:
 
 
 def family_train(name: str):
-    """``launch.train.train_run`` of a family's training path from seed
-    0's weights (drawn once, copied for each run): FAMILY_STEPS steps
-    without remat (the loss finite and falling; each kernel's launches a
-    step as ``expected_launches``; ms a step past FAMILY_WARM steps,
-    tok/s, peak memory), then REMAT_STEPS steps without and with remat,
-    bitwise equal in every loss and parameter."""
+    """``train_from`` of a family's training path from seed 0's weights,
+    drawn on the card (the MoE experts by the card's generator)."""
+    from repro_torch.models.model import init_params
+    cfg, batch, seq = family_train_config(name)
+    t0 = time.time()
+    base = init_params(cfg, seed=0, device="cuda").to("cpu")
+    torch.cuda.synchronize()
+    return train_from(name, cfg, base, batch, seq, time.time() - t0)
+
+
+def modal_batches(cfg, batch: int, seq: int):
+    """Train batches of a family that ``launch.train`` refuses (qwen2-vl,
+    whisper: the JAX package trains them at the model level): a new
+    ``make_batch`` train batch a step (seed = step: patch embeddings and
+    M-RoPE ids, or frames), its ids and labels replaced by the next
+    window of ``launch.train``'s packed synthetic stream. make_batch's
+    own labels are uniform draws, so on new batches a loss could not
+    fall; the stream's can. Built on the host; the step moves every key
+    to the card."""
+    from repro_torch.models.inputs import make_batch
+    from repro_torch.training.data import PackedLMDataset, synthetic_docs
+    rows = make_batch(cfg, "train", batch, seq)["tokens"].shape[1]
+    text = PackedLMDataset(synthetic_docs(cfg.vocab_size), batch, rows,
+                           cfg.vocab_size)
+    for i, ids in enumerate(text):
+        yield dict(make_batch(cfg, "train", batch, seq, seed=i),
+                   **{k: torch.from_numpy(v).long() for k, v in ids.items()})
+
+
+def train_from(name: str, cfg, base, batch: int, seq: int, init_s: float,
+               steps: int = FAMILY_STEPS, warm: int = FAMILY_WARM):
+    """A family's training path from the weights ``base`` (kept on the
+    host, copied to the card for each run), through
+    ``launch.train.train_run``, on its packed synthetic data or
+    ``modal_batches`` for qwen2-vl and whisper: ``steps`` steps without
+    remat (the loss finite and falling; each kernel's launches a step as
+    ``expected_launches``; ms a step past ``warm`` steps, tok/s (batch x
+    seq rows a step; frames for whisper), peak memory), then REMAT_STEPS
+    steps without and with remat, bitwise equal in every loss and
+    parameter."""
     import copy
     import gc
     from repro_torch.configs import get_config
     from repro_torch.kernels import backend as KB
     from repro_torch.launch.train import train_run
-    from repro_torch.models.model import count_params, init_params
-    cfg, batch, seq = family_train_config(name)
-    t0 = time.time()
-    # drawn on the card (the MoE experts by the card's generator), kept
-    # on the host between runs
-    base = init_params(cfg, seed=0, device="cuda").to("cpu")
-    torch.cuda.synchronize()
-    init_s = time.time() - t0
+    from repro_torch.models.model import count_params
 
     def run(steps, remat):
         model = copy.deepcopy(base).to("cuda").requires_grad_(True)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         KB.reset_launches()
-        res = train_run(cfg, model, _train_args(steps, remat, batch, seq))
+        batches = (modal_batches(cfg, batch, seq)
+                   if cfg.family in ("vlm", "audio") else None)
+        res = train_run(cfg, model, _train_args(steps, remat, batch, seq),
+                        batches)
         counts = KB.launch_counts()
         per_step = {k: n / steps for k, n in counts.items() if n}
         want = expected_launches(cfg, remat)
@@ -2462,7 +2581,7 @@ def family_train(name: str):
                                 f"a step {per_step}, expected {want}")
         losses = res["losses"]
         check(all(np.isfinite(losses)), f"train {name}: loss {losses}")
-        steady = res["step_ms"][min(FAMILY_WARM, steps - 1):]
+        steady = res["step_ms"][min(warm, steps - 1):]
         ms = sum(steady) / len(steady)
         return model, dict(steps=steps, batch=batch, seq=seq, remat=remat,
                            losses=losses, ms_per_step=ms,
@@ -2471,7 +2590,7 @@ def family_train(name: str):
                            launches_per_step=per_step,
                            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                            seconds=res["seconds"])
-    model, main = run(FAMILY_STEPS, False)
+    model, main = run(steps, False)
     check(main["losses"][-1] < main["losses"][0],
           f"train {name}: loss {main['losses'][0]} -> "
           f"{main['losses'][-1]}")
@@ -2486,8 +2605,11 @@ def family_train(name: str):
     check(ra["losses"] == rb["losses"] and first_leaf is None,
           f"train {name}: remat differs from no remat (losses "
           f"{ra['losses']} / {rb['losses']}, first leaf {first_leaf})")
+    full = get_config(cfg.name)
     out = dict(config=cfg.name, layers=len(cfg.layer_kinds()),
+               enc_layers=cfg.n_enc_layers,
                kinds=sorted(set(cfg.layer_kinds())), d_model=cfg.d_model,
+               heads=[cfg.n_heads, cfg.n_kv_heads, cfg.d_head],
                params=count_params(base), init_seconds=init_s, **main,
                remat_check=dict(steps=REMAT_STEPS, losses=ra["losses"],
                                 ms_per_step_no_remat=ra["ms_per_step"],
@@ -2500,9 +2622,13 @@ def family_train(name: str):
         out["reduced"] = (f"1 of 35 layers, {ARCTIC_TRAIN_EXPERTS} of 128 "
                           f"experts (AdamW state of a full layer exceeds "
                           f"one card)")
+    elif cfg.n_enc_layers:
+        out["reduced"] = (f"{cfg.n_enc_layers} of {full.n_enc_layers} "
+                          f"encoder and {cfg.n_layers} of {full.n_layers} "
+                          f"decoder layers")
     else:
-        out["reduced"] = (f"one unit, {len(cfg.layer_kinds())} of "
-                          f"{get_config(cfg.name).n_layers} layers")
+        out["reduced"] = (f"{len(cfg.layer_kinds())} of {full.n_layers} "
+                          f"layers")
     del a, b, base
     gc.collect()
     torch.cuda.empty_cache()
@@ -3157,7 +3283,7 @@ def xlstm_phases():
 # ------------------------ the dense families qwen1.5, starcoder2, gemma2 ----
 
 QWEN = "qwen1.5-32b"
-QWEN_LAYERS = 4
+QWEN_LAYERS = 2
 # (name, extra serve flags, new tokens, kernels the run must launch)
 QWEN_MODES = [
     ("monolithic", [], 64, _DENSE),
@@ -3166,9 +3292,9 @@ QWEN_MODES = [
     ("spec", SPEC, 61, ("flash_prefill", "flash_verify")),
     ("budget_1024", ["--prefill-budget", "1024"], 64, _DENSE)]
 WINDOW_MODES = [("dense", [], 64, _DENSE), ("dense_again", [], 64, _DENSE)]
-# starcoder2-3b's and gemma2-2b's serving depth: 8 "local" layers, 4
+# starcoder2-3b's and gemma2-2b's serving depth: 4 "local" layers, 2
 # ("local", "full") units
-WINDOW_LAYERS = 8
+WINDOW_LAYERS = 4
 # gemma2's ring crossing: prompts of 4,040-4,082 tokens, 64 new tokens
 # each, at a cache that holds them
 GEMMA2_LONG, GEMMA2_LONG_CACHE = 4040, 4224
@@ -3195,7 +3321,7 @@ def dense_init(arch: str, cfg, note: str, prefix: str = "dense"):
 
 
 def dense_phases():
-    """qwen1.5-32b at its published widths, its depth cut to 4 of 64
+    """qwen1.5-32b at its published widths, its depth cut to 2 of 64
     layers (64 layers are ~65 GB of weights; with a 2,048-row cache for
     8 slots they pass the card): the serve runs (monolithic, paged with a
     pool that preempts, spec k 4, budget 1,024: equal tokens), budgeted
@@ -3204,11 +3330,13 @@ def dense_phases():
     weights' host draw and their step's launches scale with depth; a
     layer adds no new path): two dense serve runs, recycled
     slots, the refusals of paged, budget and spec, and for gemma2 the
-    ring crossing; each model freed before the next; then card vs CPU on
-    the four smoke configs. Returns each arch's serve runs."""
+    ring crossing; then each trained on its weights cut to A12_TRAIN's
+    depth (``a12_train``), and freed before the next; then card vs CPU on
+    the four smoke configs. Returns each arch's serve runs and its
+    training run."""
     import gc
     from repro_torch.configs import get_config, get_smoke_config
-    results = {}
+    results, trains = {}, {}
     for arch in (QWEN, "starcoder2-3b", "gemma2-2b"):
         cfg = get_config(arch)
         if arch == QWEN:
@@ -3255,18 +3383,19 @@ def dense_phases():
         emit(f"dense_memory_{arch}",
              max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
         results[arch] = runs
+        trains[arch] = a12_train(arch, model)
         del model
         gc.collect()
         torch.cuda.empty_cache()
     for arch in DENSE_SMOKE:
         emit(f"card_vs_cpu_{arch}", **card_vs_cpu(get_smoke_config(arch)))
-    return results
+    return results, trains
 
 
 # -------------------------------------------- qwen2-vl and whisper ----
 
 VLM = "qwen2-vl-72b"
-VLM_LAYERS = 2
+VLM_LAYERS = 1
 # a prompt of one 32 x 32-patch image (1,024 patch rows) and 64 text
 # ids, 2 of them, then 32 greedy decode steps
 VLM_B, VLM_TEXT, VLM_GRID, VLM_STEPS = 2, 64, 32, 32
@@ -3348,7 +3477,7 @@ def vlm_phase():
     prefill of VLM_B x 1,088 rows (``make_batch``'s 1,024 patch rows,
     N(0, 1) in bf16 from seed 0, over the first rows, then 64 ids) and
     VLM_STEPS greedy decode steps, under two M-RoPE layouts, each held
-    to the full forward. Returns each layout's run."""
+    to the full forward. Returns each layout's run and the model."""
     from repro_torch.configs import get_config
     from repro_torch.models.inputs import grid_mrope_pos, make_batch
     cfg = get_config(VLM)
@@ -3379,7 +3508,7 @@ def vlm_phase():
         emit(f"vlm_path_{name}", **runs[name])
     emit("vlm_memory",
          max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return runs
+    return runs, model
 
 
 def whisper_phase():
@@ -3388,7 +3517,7 @@ def whisper_phase():
     in bf16 from seed 0, ``make_batch``'s), timed; then the path: a
     prefill of the 16-id prompt beside them (the encoder, the decoder,
     its cross-attention K/V cached) and WHISPER_STEPS greedy decode
-    steps, held to the full forward."""
+    steps, held to the full forward. Returns the run and the model."""
     from repro_torch.configs import get_config
     from repro_torch.models.inputs import make_batch
     from repro_torch.models.model import _encode
@@ -3421,7 +3550,7 @@ def whisper_phase():
     emit("whisper_path", **run)
     emit("whisper_memory",
          max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return run
+    return run, model
 
 
 def multimodal_card_vs_cpu(cfg):
@@ -3469,19 +3598,76 @@ def multimodal_card_vs_cpu(cfg):
 
 def multimodal_phases():
     """qwen2-vl-72b (depth cut) and whisper-large-v3 (full) through
-    prefill and greedy decode, each freed before the next, then card vs
-    CPU on both smoke configs. Returns each family's path run(s)."""
+    prefill and greedy decode, each then trained on its weights cut to
+    A12_TRAIN's depth (``a12_train``) and freed before the next, then
+    card vs CPU on both smoke configs. Returns each family's path run(s)
+    and its training run."""
     import gc
     from repro_torch.configs import get_smoke_config
-    runs = {}
+    runs, trains = {}, {}
     for name, phase in ((VLM, vlm_phase), (WHISPER, whisper_phase)):
-        runs[name] = phase()
+        runs[name], model = phase()
+        trains[name] = a12_train(name, model)
+        del model
         gc.collect()
         torch.cuda.empty_cache()
     for arch in (VLM, WHISPER):
         emit(f"card_vs_cpu_{arch}",
              **multimodal_card_vs_cpu(get_smoke_config(arch)))
-    return runs
+    return runs, trains
+
+
+# ---------------------------------- training of the A12 families ----
+
+# each A12 family's training path (arch: layers, batch, rows), cut from
+# the weights its serve phase drew (PERF.md section 4, "Reduced"): one
+# layer of qwen1.5-32b and of qwen2-vl-72b (~2.1 B and ~3.4 B
+# parameters, most of them the embedding and the untied head; at 12
+# bytes a parameter with AdamW, ~25 and ~41 GB), 4 of starcoder2-3b's
+# 30 layers and one ("local", "full") unit of gemma2-2b's 13, each at
+# 1 x 4,608 rows (past the 4,096 window); qwen2-vl at 1,024 patch rows
+# and 256 ids (the loss takes 256-row chunks); whisper 4 of its 32
+# encoder and 4 of its 32 decoder layers over 4 x 1,500 frames, 16 ids
+A12_TRAIN = {QWEN: (1, 1, 1024), "starcoder2-3b": (4, 1, 4608),
+             "gemma2-2b": (2, 1, 4608), VLM: (1, 1, 1280),
+             WHISPER: (4, WHISPER_B, WHISPER_ENC)}
+A12_STEPS, A12_WARM = 8, 2
+# the smoke configs each family's training is held card vs CPU at
+A12_SMOKE = {QWEN: (QWEN, "qwen1.5-110b"), "starcoder2-3b": (
+    "starcoder2-3b",), "gemma2-2b": ("gemma2-2b",), VLM: (VLM,),
+    WHISPER: (WHISPER,)}
+
+
+def a12_train(arch: str, model):
+    """``train_from`` of an A12 family's training path on ``model``, the
+    weights its serve phase drew, cut in place to A12_TRAIN's depth (its
+    first layers) and moved to the host (``init_seconds``: that move);
+    then card vs CPU (``train_card_vs_cpu``) at its smoke configs. Emits
+    both as ``train_<arch>_*``; returns the run."""
+    import gc
+    from repro_torch.configs import get_config, get_smoke_config
+    n, B, S = A12_TRAIN[arch]
+    cfg = get_config(arch)
+    unit = cfg.segments[0][0]
+    cfg = cfg.replace(n_layers=n, segments=((unit, n // len(unit)),),
+                      n_enc_layers=n if cfg.n_enc_layers else 0)
+    model.layers = torch.nn.ModuleList(list(model.layers)[:cfg.n_layers])
+    if model.encoder is not None:
+        model.encoder.layers = torch.nn.ModuleList(
+            list(model.encoder.layers)[:cfg.n_enc_layers])
+    model.cfg = cfg
+    t0 = time.time()
+    base = model.to("cpu")
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = dict(train_from(arch, cfg, base, B, S, time.time() - t0,
+                          A12_STEPS, A12_WARM),
+               weights="the serve phase's, cut")
+    emit(f"train_{arch}_card", **run)
+    for smoke in A12_SMOKE[arch]:
+        emit(f"train_{arch}_card_vs_cpu",
+             **train_card_vs_cpu(get_smoke_config(smoke)))
+    return run
 
 
 def main(argv=None) -> int:
@@ -3643,8 +3829,9 @@ def main(argv=None) -> int:
     moe = moe_phases()
     hymba = hymba_phases()
     xlstm = xlstm_phases()
-    dense = dense_phases()
-    multimodal = multimodal_phases()
+    dense, dense_train = dense_phases()
+    multimodal, multimodal_train = multimodal_phases()
+    a12_train_runs = dict(dense_train, **multimodal_train)
 
     # each kernel's launches come from the run of the path it serves;
     # its times from its case at the main path's widest shape (the
@@ -3693,12 +3880,19 @@ def main(argv=None) -> int:
             r["launches"][fn.__name__] for r in multimodal[VLM].values())
         rows[-1]["whisper_launches"] = \
             multimodal[WHISPER]["launches"][fn.__name__]
-    # the training runs without remat: the planner's 30 steps and the
-    # families' 10 (arctic's and hymba's attention)
+    # train_launches, in this row and the backward's: the training runs
+    # without remat together, the planner's 30 steps, the families' 10
+    # (arctic's and hymba's attention) and the A12 families' A12_STEPS
+    # (each also by arch)
+    a12_launches = {
+        k: {arch: r["launches"][k] for arch, r in a12_train_runs.items()}
+        for k in ("flash_prefill", "flash_prefill_bwd")}
     rows[0]["train_launches"] = (
         train["no_remat"]["launches"]["flash_prefill"]
         + sum(family[f]["launches"].get("flash_prefill", 0)
-              for f in family))
+              for f in family)
+        + sum(a12_launches["flash_prefill"].values()))
+    rows[0]["a12_train_launches"] = a12_launches["flash_prefill"]
     # flash_prefill's backward: launches of that training run; times at its
     # shape (8 x 256 at the planner's heads), device times by profiler
     c = next(c for c in bwd if c["family"] == "train")
@@ -3714,7 +3908,13 @@ def main(argv=None) -> int:
                  "ms": c["ms"], "plain_ms": c["plain_ms"],
                  "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                  "library_ms": c["library_ms"], "device_ms": c["device_ms"],
-                 "library_device_ms": c["library_device_ms"]})
+                 "library_device_ms": c["library_device_ms"],
+                 "train_launches": (
+                     train["no_remat"]["launches"]["flash_prefill_bwd"]
+                     + sum(family[f]["launches"].get("flash_prefill_bwd", 0)
+                           for f in family)
+                     + sum(a12_launches["flash_prefill_bwd"].values())),
+                 "a12_train_launches": a12_launches["flash_prefill_bwd"]})
     # the router: launches of the kimi-k2 dense serve; times at its decode
     # shape there (8 slots, 384 experts, top-8), with its device time a
     # call and the launch floor

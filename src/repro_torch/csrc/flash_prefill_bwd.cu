@@ -6,49 +6,69 @@
 // train-mode layer's attention runs `flash_prefill` (csrc/flash_prefill.cu)
 // and its gradient must come from a kernel too
 // (kernels/flash_prefill.py:FlashPrefillFn). It computes dQ, dK and dV of
-// what the forward computes: GQA (q head h reads kv head h / G), causal,
-// sliding `window`, logit softcap `cap` (x = cap tanh(s / cap)) and
-// `scale`, q_offset 0, at head dims 32, 64 and 128, from q, k, v, the
-// forward's output O and dO, all bf16; outputs bf16, every sum in fp32.
+// what the forward computes: GQA (q head h reads kv head h / G), causal
+// or not, sliding `window`, logit softcap `cap` (x = cap tanh(s / cap))
+// and `scale`, q_offset 0, Sq rows over Sk keys (Sq != Sk: whisper's
+// cross-attention, non-causal), at head dims 16, 32, 64, 128 and 256,
+// from q, k, v and dO, all bf16; outputs bf16, every sum in fp32.
 //
 // What bounds it on an H100: the function needs five hd-long products
 // a visible (q row, key) pair and q head (s = q.k, dP = dO.v, dV += p dO,
-// dK += dS q, dQ += dS k), 10 hd operations, against reading q, k, v, O,
-// dO and writing dq, dk, dv once, ~2 hd (4 Hq Sq + 4 Hkv Sk) bytes. At
+// dK += dS q, dQ += dS k), 10 hd operations, against reading q, k, v,
+// dO and writing dq, dk, dv once, ~2 hd (3 Hq Sq + 4 Hkv Sk) bytes. At
 // the planner's training shape (B 8 x S 256, 12/4 heads of 64, causal)
-// that is 2.0 G operations against 16.8 MB: bytes bound, 5.0 us
-// (2.0 us on the bf16 tensor cores). This first kernel does seven such
-// products (the dQ pass recomputes s and dP) in fp32 on the CUDA cores
-// (67 TFLOP/s), so ~42 us is its own floor; tensor cores and TMA are
-// later work.
+// that is 2.0 G operations against 14.2 MB: bytes bound, 4.2 us
+// (2.0 us on the bf16 tensor cores). This first kernel does nine such
+// products (the rows pass computes s and dP, the dQ pass recomputes
+// both) in fp32 on the CUDA cores (67 TFLOP/s), so ~54 us is its own
+// floor; tensor cores and TMA are later work.
 //
 // Design (simple first): three passes, launched in order on one stream
 // by one C entry point.
 //   * rows: one block per (64-row q tile, q head, batch) recomputes each
 //     row's log-sum-exp L = m + log(sum exp(x - m)) over its visible keys
-//     from q and k (online over 64-key tiles, per thread then over the 16
-//     threads of the row in a fixed shuffle order), and D = rowsum(dO * O)
-//     from the forward's bf16 O, both fp32, into scratch the wrapper
-//     allocates;
+//     from q and k, and D = sum_j p_j dP_j (dP = dO.v) from dO and v,
+//     both online over 64-key tiles (per thread, then over the 16
+//     threads of the row in a fixed shuffle order), fp32, into scratch
+//     the wrapper allocates. D is rowsum(dO * O) of the exact output;
+//     taken from the forward's output instead, rounded to bf16 after a
+//     P V in bf16, a row's dS would not sum to 0 and dQ, dK would gain a
+//     part along the row's mean key (5% of whisper-smoke's decoder wq
+//     gradient against the plain version). So the forward's output is
+//     not an input;
 //   * dK/dV: one block per (64-key tile, kv head, batch) keeps the tile's
 //     K, V and its dK, dV sums; it loops over the G q heads of the group
 //     and, for each, over the 64-row q tiles that can see the tile (the
-//     causal edge and the window's far edge as the forward masks them).
-//     It recomputes p = exp(x - L) (exactly 0 where masked), dP = dO.v
-//     and dS = p (dP - D) dx/ds, with dx/ds = scale (1 - tanh^2) under a
+//     causal edge and the window's far edge as the forward masks them;
+//     every q tile when not causal). It recomputes p = exp(x - L)
+//     (exactly 0 where masked, and on rows past Sq), dP = dO.v and
+//     dS = p (dP - D) dx/ds, with dx/ds = scale (1 - tanh^2) under a
 //     cap and scale without, then adds dV += p^T dO and dK += dS^T Q;
 //   * dQ: one block per (64-row q tile, q head, batch) loops over the key
-//     tiles its rows see and adds dQ += dS K.
-// Tiles live in shared memory as fp32, rows padded to hd + 1 words so
-// the 16 threads of a half-warp read 16 rows in 16 banks. 256 threads a
-// block; a thread owns 4 x 4 entries of a 64 x 64 score tile (rows
-// 4 ty + a, keys tx + 16 c) and 4 rows x hd/16 columns of a 64 x hd sum.
-// No atomics and every sum in a fixed order: two calls give the same
-// bits.
+//     tiles its rows see (all Sk keys when not causal) and adds
+//     dQ += dS K.
+// Tiles live in shared memory, rows padded so that the 16 threads of a
+// half-warp read 16 rows in 16 banks. 256 threads a block; a thread owns
+// 4 x 4 entries of a 64 x 64 score tile (rows 4 ty + a, keys tx + 16 c)
+// and 4 rows x hd/16 columns of a 64 x hd sum (one column at hd 16).
+// The q, k, v and dO tiles are only read, and hold bf16 values: up to hd
+// 128 they are staged as fp32 (rows of hd + 1 words); at hd 256 fp32
+// tiles would need (4 64 257 + 2 64 65 + 2 64) 4 = 296,960 B, past a
+// block's 232,448 B, so there they are staged as the bf16 they are (rows
+// of hd + 2 = 258 values, 129 words: an odd stride, so 16 rows of one
+// column still fall in 16 banks) and widened to fp32 as they are read:
+// 4 64 258 2 + (2 64 65 + 2 64) 4 = 165,888 B, one block an SM. The
+// widening is exact, so the arithmetic is that of the fp32 tiles (bf16
+// tiles at every head dim give the same bits, but were 6-17% slower at
+// hd 32-128 on an H100: a convert a shared read). P and
+// dS stay fp32. No atomics and every sum in a fixed order: two calls
+// give the same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -57,19 +77,34 @@ constexpr int NTH = 256;      // threads a block: a 16 x 16 grid
 
 template <int HD>
 struct Layout {
-  static constexpr int LD = HD + 1;            // padded row, in floats
+  // element of the q, k, v and dO tiles (see the design note)
+  using T = typename std::conditional<(HD > 128), __nv_bfloat16,
+                                      float>::type;
+  static constexpr int LD = sizeof(T) == 4 ? HD + 1 : HD + 2;  // padded row
   static constexpr int TILE = BT * LD;         // one 64 x hd tile
   static constexpr int SQ = BT + 1;            // padded 64 x 64 tile row
-  // rows and dQ passes: Q, dO (dQ only), K, V (dQ only); dS; L, D
-  // dK/dV pass: K, V, Q, dO; P, dS; L, D
-  static constexpr int SMEM = (4 * TILE + 2 * BT * SQ + 2 * BT) * 4;
+  // rows and dQ passes: Q, dO, K, V; then in fp32 dS (dQ only); L, D
+  // (dQ only). dK/dV pass: K, V, Q, dO; then P, dS; L, D
+  static constexpr int TILES_BYTES = 4 * TILE * (int)sizeof(T);
+  static constexpr int SMEM = TILES_BYTES + (2 * BT * SQ + 2 * BT) * 4;
+  static_assert(SMEM <= 232448, "a block's shared memory");
 };
+
+__device__ __forceinline__ float f32(float x) { return x; }
+__device__ __forceinline__ float f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void put(float* d, __nv_bfloat16 x) {
+  *d = __bfloat162float(x);
+}
+__device__ __forceinline__ void put(__nv_bfloat16* d, __nv_bfloat16 x) {
+  *d = x;
+}
 
 struct Params {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
-  const __nv_bfloat16* o;
   const __nv_bfloat16* dout;
   __nv_bfloat16* dq;
   __nv_bfloat16* dk;
@@ -87,24 +122,27 @@ __device__ __forceinline__ bool visible(const Params& p, int pos, int key) {
   return ok;
 }
 
-// rows [r0, r0 + 64) of a (rows, hd) bf16 matrix into a padded fp32 tile;
+// rows [r0, r0 + 64) of a (rows, hd) bf16 matrix into a padded tile;
 // rows past `rows` read as zeros
 template <int HD>
-__device__ __forceinline__ void load_tile(float* dst,
+__device__ __forceinline__ void load_tile(typename Layout<HD>::T* dst,
                                           const __nv_bfloat16* src,
                                           int r0, int rows) {
   using L = Layout<HD>;
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
   for (int i = threadIdx.x; i < BT * HD; i += NTH) {
     const int r = i / HD, d = i % HD;
-    dst[r * L::LD + d] = r0 + r < rows
-        ? __bfloat162float(src[(long long)(r0 + r) * HD + d]) : 0.f;
+    put(&dst[r * L::LD + d],
+        r0 + r < rows ? src[(long long)(r0 + r) * HD + d] : zero);
   }
 }
 
 // acc[a][c] = sum_d A[4 ty + a][d] * B[tx + 16 c][d], d in order
 template <int HD>
-__device__ __forceinline__ void dot_tile(float acc[4][4], const float* sA,
-                                         const float* sB, int ty, int tx) {
+__device__ __forceinline__ void dot_tile(float acc[4][4],
+                                         const typename Layout<HD>::T* sA,
+                                         const typename Layout<HD>::T* sB,
+                                         int ty, int tx) {
   using L = Layout<HD>;
 #pragma unroll
   for (int a = 0; a < 4; ++a)
@@ -114,9 +152,9 @@ __device__ __forceinline__ void dot_tile(float acc[4][4], const float* sA,
   for (int d = 0; d < HD; ++d) {
     float x[4], y[4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) x[a] = sA[(4 * ty + a) * L::LD + d];
+    for (int a = 0; a < 4; ++a) x[a] = f32(sA[(4 * ty + a) * L::LD + d]);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) y[c] = sB[(tx + 16 * c) * L::LD + d];
+    for (int c = 0; c < 4; ++c) y[c] = f32(sB[(tx + 16 * c) * L::LD + d]);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -140,9 +178,12 @@ __device__ __forceinline__ float logit(const Params& p, float dot,
 // (sP may be null): the thread's 4 x 4 entries. Needs sQ, sdO, sK, sV,
 // sL, sD in place.
 template <int HD>
-__device__ __forceinline__ void ds_tile(const Params& p, const float* sQ,
-                                        const float* sdO, const float* sK,
-                                        const float* sV, const float* sL,
+__device__ __forceinline__ void ds_tile(const Params& p,
+                                        const typename Layout<HD>::T* sQ,
+                                        const typename Layout<HD>::T* sdO,
+                                        const typename Layout<HD>::T* sK,
+                                        const typename Layout<HD>::T* sV,
+                                        const float* sL,
                                         const float* sD, float* sP,
                                         float* sdS, int q0, int k0, int ty,
                                         int tx) {
@@ -182,38 +223,37 @@ template <int HD>
 __global__ void __launch_bounds__(NTH)
 bwd_rows_kernel(const Params p) {
   using L = Layout<HD>;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + L::TILE;
+  using T = typename L::T;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sdO = sQ + L::TILE;
+  T* sK = sdO + L::TILE;
+  T* sV = sK + L::TILE;
   const int q0 = blockIdx.x * BT, hq = blockIdx.y, b = blockIdx.z;
   const int kvh = b * p.Hkv + hq / (p.Hq / p.Hkv);
   const long long qbase = (long long)(b * p.Hq + hq) * p.Sq;
+  const long long kvbase = (long long)kvh * p.Sk * HD;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
 
-  // D = rowsum(dO * O) in fp32, d in order: thread r < 64 takes row r
-  if (tid < BT && q0 + tid < p.Sq) {
-    const __nv_bfloat16* od = p.o + (qbase + q0 + tid) * HD;
-    const __nv_bfloat16* dd = p.dout + (qbase + q0 + tid) * HD;
-    float acc = 0.f;
-    for (int d = 0; d < HD; ++d)
-      acc = fmaf(__bfloat162float(dd[d]), __bfloat162float(od[d]), acc);
-    p.dsum[qbase + q0 + tid] = acc;
-  }
   load_tile<HD>(sQ, p.q + qbase * HD, q0, p.Sq);
+  load_tile<HD>(sdO, p.dout + qbase * HD, q0, p.Sq);
   int t0, t1;
   key_tiles(p, q0, &t0, &t1);
-  float m[4], l[4];
+  // a row's running max m, l = sum exp(x - m), e = sum exp(x - m) dP
+  float m[4], l[4], e[4];
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     m[a] = -INFINITY;
-    l[a] = 0.f;
+    l[a] = e[a] = 0.f;
   }
   for (int t = t0; t < t1; ++t) {
     __syncthreads();
-    load_tile<HD>(sK, p.k + (long long)kvh * p.Sk * HD, t * BT, p.Sk);
+    load_tile<HD>(sK, p.k + kvbase, t * BT, p.Sk);
+    load_tile<HD>(sV, p.v + kvbase, t * BT, p.Sk);
     __syncthreads();
-    float s[4][4];
+    float s[4][4], dp[4][4];
     dot_tile<HD>(s, sQ, sK, ty, tx);
+    dot_tile<HD>(dp, sdO, sV, ty, tx);
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
       const int pos = q0 + 4 * ty + a;
@@ -223,10 +263,14 @@ bwd_rows_kernel(const Params p) {
         float dxds;
         const float x = logit(p, s[a][c], &dxds);
         if (x > m[a]) {
-          l[a] = l[a] * expf(m[a] - x) + 1.f;
+          const float r = expf(m[a] - x);
+          l[a] = l[a] * r + 1.f;
+          e[a] = e[a] * r + dp[a][c];
           m[a] = x;
         } else {
-          l[a] += expf(x - m[a]);
+          const float w = expf(x - m[a]);
+          l[a] += w;
+          e[a] = fmaf(w, dp[a][c], e[a]);
         }
       }
     }
@@ -238,14 +282,19 @@ bwd_rows_kernel(const Params p) {
     for (int off = 1; off < 16; off *= 2) {
       const float mo = __shfl_xor_sync(0xffffffffu, m[a], off);
       const float lo = __shfl_xor_sync(0xffffffffu, l[a], off);
+      const float eo = __shfl_xor_sync(0xffffffffu, e[a], off);
       const float mn = fmaxf(m[a], mo);
       if (mn == -INFINITY) continue;
-      l[a] = l[a] * expf(m[a] - mn) + lo * expf(mo - mn);
+      const float ra = expf(m[a] - mn), rb = expf(mo - mn);
+      l[a] = l[a] * ra + lo * rb;
+      e[a] = e[a] * ra + eo * rb;
       m[a] = mn;
     }
     const int r = q0 + 4 * ty + a;
-    if (tx == 0 && r < p.Sq)
+    if (tx == 0 && r < p.Sq) {
       p.lse[qbase + r] = l[a] > 0.f ? m[a] + logf(l[a]) : INFINITY;
+      p.dsum[qbase + r] = l[a] > 0.f ? e[a] / l[a] : 0.f;
+    }
   }
 }
 
@@ -255,13 +304,14 @@ template <int HD>
 __global__ void __launch_bounds__(NTH)
 bwd_dkdv_kernel(const Params p) {
   using L = Layout<HD>;
+  using T = typename L::T;
   constexpr int NC = HD / 16;          // columns a thread owns
-  extern __shared__ float smem[];
-  float* sK = smem;
-  float* sV = sK + L::TILE;
-  float* sQ = sV + L::TILE;
-  float* sdO = sQ + L::TILE;
-  float* sP = sdO + L::TILE;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sK = reinterpret_cast<T*>(smem);
+  T* sV = sK + L::TILE;
+  T* sQ = sV + L::TILE;
+  T* sdO = sQ + L::TILE;
+  float* sP = reinterpret_cast<float*>(smem + L::TILES_BYTES);
   float* sdS = sP + BT * L::SQ;
   float* sL = sdS + BT * L::SQ;
   float* sD = sL + BT;
@@ -307,8 +357,8 @@ bwd_dkdv_kernel(const Params p) {
         }
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
-          const float od = sdO[r * L::LD + tx + 16 * c];
-          const float qd = sQ[r * L::LD + tx + 16 * c];
+          const float od = f32(sdO[r * L::LD + tx + 16 * c]);
+          const float qd = f32(sQ[r * L::LD + tx + 16 * c]);
 #pragma unroll
           for (int a = 0; a < 4; ++a) {
             dv[a][c] = fmaf(pr[a], od, dv[a][c]);
@@ -336,13 +386,14 @@ template <int HD>
 __global__ void __launch_bounds__(NTH)
 bwd_dq_kernel(const Params p) {
   using L = Layout<HD>;
+  using T = typename L::T;
   constexpr int NC = HD / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sdO = sQ + L::TILE;
-  float* sK = sdO + L::TILE;
-  float* sV = sK + L::TILE;
-  float* sdS = sV + L::TILE;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sdO = sQ + L::TILE;
+  T* sK = sdO + L::TILE;
+  T* sV = sK + L::TILE;
+  float* sdS = reinterpret_cast<float*>(smem + L::TILES_BYTES);
   float* sL = sdS + 2 * BT * L::SQ;
   float* sD = sL + BT;
   const int q0 = blockIdx.x * BT, hq = blockIdx.y, b = blockIdx.z;
@@ -380,7 +431,7 @@ bwd_dq_kernel(const Params p) {
       for (int a = 0; a < 4; ++a) sr[a] = sdS[(4 * ty + a) * L::SQ + j];
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
-        const float kd = sK[j * L::LD + tx + 16 * c];
+        const float kd = f32(sK[j * L::LD + tx + 16 * c]);
 #pragma unroll
         for (int a = 0; a < 4; ++a) dq[a][c] = fmaf(sr[a], kd, dq[a][c]);
       }
@@ -426,26 +477,30 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
 
 }  // namespace
 
-// q, o, dout, dq: (B,Hq,Sq,hd); k, v, dk, dv: (B,Hkv,Sk,hd); all bf16,
+// q, dout, dq: (B,Hq,Sq,hd); k, v, dk, dv: (B,Hkv,Sk,hd); all bf16,
 // contiguous. lse, dsum: (B,Hq,Sq) fp32 scratch. q_offset is 0 (the
-// wrapper refuses any other); hd in {32, 64, 128}. Launches the three
-// passes on `stream` and returns the first launch error, else
-// cudaSuccess.
+// wrapper refuses any other); causal or not, Sq and Sk any (causal rows
+// see keys 0..row); hd in {16, 32, 64, 128, 256}, the forward's head
+// dims. Launches the three passes on `stream` and returns the first
+// launch error, else cudaSuccess.
 extern "C" int flash_prefill_bwd_bf16(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* dout, void* dq, void* dk, void* dv, void* lse, void* dsum,
+    const void* q, const void* k, const void* v, const void* dout,
+    void* dq, void* dk, void* dv, void* lse, void* dsum,
     int B, int Hq, int Hkv, int Sq, int Sk, int hd, int causal, int window,
     float cap, float scale, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
-  if (hd != 32 && hd != 64 && hd != 128) return (int)cudaErrorInvalidValue;
+  if (hd != 16 && hd != 32 && hd != 64 && hd != 128 && hd != 256)
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0 || Sk == 0) return (int)cudaSuccess;
   Params p{(const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-           (const __nv_bfloat16*)v, (const __nv_bfloat16*)o,
-           (const __nv_bfloat16*)dout, (__nv_bfloat16*)dq,
-           (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, (float*)lse,
-           (float*)dsum, Hq, Hkv, Sq, Sk, causal, window, cap, scale};
+           (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout,
+           (__nv_bfloat16*)dq, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
+           (float*)lse, (float*)dsum, Hq, Hkv, Sq, Sk, causal, window, cap,
+           scale};
   cudaStream_t st = (cudaStream_t)stream;
+  if (hd == 16) return (int)launch<16>(p, B, st);
   if (hd == 32) return (int)launch<32>(p, B, st);
   if (hd == 64) return (int)launch<64>(p, B, st);
-  return (int)launch<128>(p, B, st);
+  if (hd == 128) return (int)launch<128>(p, B, st);
+  return (int)launch<256>(p, B, st);
 }

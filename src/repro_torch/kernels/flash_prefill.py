@@ -15,9 +15,10 @@ On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
 tensor it runs the plain version, ``ref.attention_ref``.
 
 Its gradient is ``flash_prefill_bwd``, a kernel with no TPU counterpart
-(``csrc/flash_prefill_bwd.cu``: dQ, dK, dV from q, k, v, the forward's
-output and dO, q_offset 0), whose plain version is
-``ref.attention_bwd_ref`` (autograd through ``attention_ref``).
+(``csrc/flash_prefill_bwd.cu``: dQ, dK, dV from q, k, v and dO, causal
+or not, Sq rows over Sk keys, at every head dim of HEAD_DIMS, q_offset
+0), whose plain version is ``ref.attention_bwd_ref`` (autograd through
+``attention_ref``), with the same arguments.
 ``FlashPrefillFn`` joins the two for training: its forward is
 ``flash_prefill`` as it is, its backward the backward kernel (on the CPU
 both plain versions). ``backend.attention`` goes through it only when
@@ -34,19 +35,15 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import attention_bwd_ref, attention_ref
 
-#: the head dims the kernel is built for
+#: the head dims the kernel and its backward are built for
 HEAD_DIMS = (16, 32, 64, 128, 256)
-#: the head dims the backward is built for; 16 and 256 (qwen1.5-110b-
-#: smoke's and gemma2's) come with their families' training (ROADMAP.md
-#: queue A11.3)
-BWD_HEAD_DIMS = (32, 64, 128)
 # q, k, v, out; B, Hq, Hkv, Sq, Sk, hd, q_offset, causal, window;
 # cap, scale; stream
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
              + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-# q, k, v, o, dout, dq, dk, dv, lse, dsum; B, Hq, Hkv, Sq, Sk, hd,
-# causal, window; cap, scale; stream
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+# q, k, v, dout, dq, dk, dv, lse, dsum; B, Hq, Hkv, Sq, Sk, hd, causal,
+# window; cap, scale; stream
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                  + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 
 
@@ -65,17 +62,6 @@ def check_shapes(q, k, v):
                          f"{tuple(q.shape)} k {tuple(k.shape)} v "
                          f"{tuple(v.shape)} (head dim in {HEAD_DIMS}, "
                          f"Hq % Hkv == 0)")
-
-
-def check_bwd_shapes(q, k, v):
-    """``check_shapes``, and raise NotImplementedError unless the head dim
-    is one the backward kernel is built for (BWD_HEAD_DIMS)."""
-    check_shapes(q, k, v)
-    if q.shape[3] not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_prefill_bwd: head dim {q.shape[3]} (built for "
-            f"{BWD_HEAD_DIMS}; the others come with ROADMAP.md queue "
-            f"A11.3, training of the A12 families)")
 
 
 def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0,
@@ -107,13 +93,14 @@ def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0,
 flash_prefill.launches = 0
 
 
-def flash_prefill_bwd(q, k, v, out, dout, *, causal: bool = True,
+def flash_prefill_bwd(q, k, v, dout, *, causal: bool = True,
                       window: int = 0, cap: float = 0.0, scale: float = 0.0,
                       q_offset=0):
     """The gradient of ``flash_prefill``: (dq, dk, dv) bf16 in q's, k's
-    and v's shapes, from q, k, v, the forward's output ``out`` and
-    ``dout`` (both q's shape, bf16). q_offset 0 only (training's
-    prefill): any other raises ValueError."""
+    and v's shapes, from q, k, v and ``dout`` (q's shape, bf16); causal
+    or not, Sq and Sk any, the forward's head dims (``check_shapes``).
+    q_offset 0 only (training's prefill): any other raises ValueError.
+    The arguments of ``attention_bwd_ref``, its plain version."""
     if int(q_offset) != 0:
         raise ValueError(f"flash_prefill_bwd: q_offset {int(q_offset)} "
                          f"(the backward takes q_offset 0 only)")
@@ -123,13 +110,12 @@ def flash_prefill_bwd(q, k, v, out, dout, *, causal: bool = True,
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill_bwd: no kernel for device "
                          f"{q.device}")
-    check_bwd_shapes(q, k, v)
-    for name, t in (("out", out), ("dout", dout)):
-        _build.check_tensor("flash_prefill_bwd", name, t, torch.bfloat16, 4,
-                            q.device)
-        if t.shape != q.shape:
-            raise ValueError(f"flash_prefill_bwd: {name} "
-                             f"{tuple(t.shape)} != q {tuple(q.shape)}")
+    check_shapes(q, k, v)
+    _build.check_tensor("flash_prefill_bwd", "dout", dout, torch.bfloat16, 4,
+                        q.device)
+    if dout.shape != q.shape:
+        raise ValueError(f"flash_prefill_bwd: dout {tuple(dout.shape)} != "
+                         f"q {tuple(q.shape)}")
     B, Hq, Sq, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     scale = scale if scale else 1.0 / math.sqrt(hd)
@@ -141,8 +127,8 @@ def flash_prefill_bwd(q, k, v, out, dout, *, causal: bool = True,
                       _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*(t.data_ptr() for t in (q, k, v, out, dout, dq, dk, dv,
-                                         lse, dsum)),
+        rc = fn(*(t.data_ptr() for t in (q, k, v, dout, dq, dk, dv, lse,
+                                         dsum)),
                 B, Hq, Hkv, Sq, Sk, hd, int(bool(causal)), int(window),
                 float(cap), float(scale), stream)
     _build.check_rc("flash_prefill_bwd", rc)
@@ -154,7 +140,9 @@ flash_prefill_bwd.launches = 0
 
 
 class FlashPrefillFn(torch.autograd.Function):
-    """``flash_prefill`` with the backward kernel as its gradient."""
+    """``flash_prefill`` with the backward kernel as its gradient: causal
+    or not, Sq rows over Sk keys, every head dim of HEAD_DIMS, at
+    q_offset 0."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, cap, scale, q_offset):
@@ -163,13 +151,13 @@ class FlashPrefillFn(torch.autograd.Function):
                              f"{int(q_offset)} (0 only)")
         out = flash_prefill(q, k, v, causal=causal, window=window, cap=cap,
                             scale=scale)
-        ctx.save_for_backward(q, k, v, out)
+        ctx.save_for_backward(q, k, v)
         ctx.kw = dict(causal=causal, window=window, cap=cap, scale=scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_prefill_bwd(q, k, v, out, dout.contiguous(),
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_prefill_bwd(q, k, v, dout.contiguous(),
                                        **ctx.kw)
         return dq, dk, dv, None, None, None, None, None

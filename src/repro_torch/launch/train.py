@@ -8,9 +8,17 @@ The command line is the JAX launcher's (``repro.launch.train``) plus
 ``--device``. One card is the local mesh, so ``--local`` changes
 nothing; ``--multi-pod`` (the production mesh) raises
 ``NotImplementedError``: sharding is ROADMAP.md queue A13. Every family
-the port serves trains: the planner (planner-proxy-100m), the MoE stacks
-(arctic-480b, kimi-k2-1t-a32b; the loss includes their load-balance
-terms), hymba-1.5b and xlstm-125m. It prints the loss and tok/s every
+the engine serves trains: the planner (planner-proxy-100m), the MoE
+stacks (arctic-480b, kimi-k2-1t-a32b; the loss includes their
+load-balance terms), hymba-1.5b, xlstm-125m and the dense qwen1.5-32b,
+qwen1.5-110b, starcoder2-3b and gemma2-2b. The ``vlm`` (qwen2-vl-72b)
+and ``audio`` (whisper-large-v3) families raise ``NotImplementedError``,
+as the JAX launcher cannot train them either: it feeds only
+``PackedLMDataset``'s tokens and labels, and their models read
+``mrope_pos`` or ``frames`` from the batch. They train at the model
+level, ``training/loop.py``'s ``make_train_step`` on
+``models/inputs.py:make_batch`` batches (``train_run`` takes them as
+its ``batches``). It prints the loss and tok/s every
 ``--log-every`` steps as the JAX launcher does and, with
 ``--checkpoint``, saves the weights in the JAX package's npz format,
 which ``launch.serve --checkpoint`` serves. ``main`` is the command
@@ -65,26 +73,38 @@ def main(argv=None) -> dict:
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch))
     if cfg.family in ("vlm", "audio"):
+        # a vlm's batch needs patch_embeds and mrope_pos, an audio
+        # stack's frames; the JAX launcher feeds only tokens and labels
+        # (src/repro/launch/train.py:64-65), so its model would read a
+        # key the batch lacks
+        needs = ("frames" if cfg.family == "audio"
+                 else "patch_embeds and mrope_pos")
         raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family!r} family (its batches "
-            f"carry patch embeddings and M-RoPE positions or encoder "
-            f"frames) is ROADMAP.md queue A11.3")
+            f"{cfg.name}: launch.train does not train the {cfg.family!r} "
+            f"family: its batches need {needs}, and the JAX launcher "
+            f"feeds only PackedLMDataset's tokens and labels; train it "
+            f"through training/loop.py's make_train_step on "
+            f"models/inputs.py's make_batch batches")
     model = init_params(cfg, seed=0, device=device).requires_grad_(True)
     return train_run(cfg, model, args)
 
 
-def train_run(cfg, model, args) -> dict:
-    """``args.steps`` AdamW steps of ``model`` (trained in place) on
-    ``synthetic_docs`` packed into (batch, seq) windows. Each step ends
-    in a synchronize on the card, so ``step_ms`` are the steps' wall
-    times; ``losses`` holds every step's loss."""
+def train_run(cfg, model, args, batches=None) -> dict:
+    """``args.steps`` AdamW steps of ``model`` (trained in place), a
+    batch a step from ``batches`` (any iterator of train batches, as
+    ``models/inputs.py:make_batch`` gives a vlm or audio family; by
+    default ``synthetic_docs`` packed into (batch, seq) windows). Each
+    step ends in a synchronize on the card, so ``step_ms`` are the
+    steps' wall times; ``losses`` holds every step's loss; tok/s counts
+    ``args.batch`` x ``args.seq`` rows a step."""
     device = model.device
     sync = (lambda: torch.cuda.synchronize(device)) \
         if device.type == "cuda" else (lambda: None)
     step_fn = make_train_step(cfg, lr=args.lr, remat=args.remat)
     opt_state = adamw_init(model)
-    data = PackedLMDataset(synthetic_docs(cfg.vocab_size), args.batch,
-                           args.seq, cfg.vocab_size)
+    data = batches if batches is not None else PackedLMDataset(
+        synthetic_docs(cfg.vocab_size), args.batch, args.seq,
+        cfg.vocab_size)
     losses, step_ms = [], []
     t0 = time.time()
     for step in range(args.steps):

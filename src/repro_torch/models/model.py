@@ -288,14 +288,20 @@ def _memory(model: Model, batch, remat: bool = False):
     return _encode(model, batch["frames"], remat)
 
 
-def _logits(model: Model, x):
-    """fp32 head: (…, d) -> (…, V) fp32, never in TF32; with
-    ``final_softcap`` (gemma2) ``cap * tanh(logits / cap)`` in fp32."""
-    torch.backends.cuda.matmul.allow_tf32 = False
+def _head(model: Model):
+    """The head (d, V) in fp32: the tied embedding's transpose or
+    ``lm_head``, cast."""
     if model.lm_head is None:
-        logits = x.float() @ model.embed.float().T
-    else:
-        logits = x.float() @ model.lm_head.float()
+        return model.embed.float().T
+    return model.lm_head.float()
+
+
+def _logits(model: Model, x, head=None):
+    """fp32 head: (…, d) -> (…, V) fp32, never in TF32; with
+    ``final_softcap`` (gemma2) ``cap * tanh(logits / cap)`` in fp32.
+    ``head``: ``_head(model)``, cast here when not given."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    logits = x.float() @ (_head(model) if head is None else head)
     cap = model.cfg.final_softcap
     if cap:
         logits = cap * torch.tanh(logits / cap)
@@ -332,7 +338,10 @@ def xent_chunked(model: Model, x, labels, chunk: int = 256):
     """Mean next-token cross-entropy of final-normed hidden states x
     (B,S,d) against labels (B,S) (< 0: no label), the fp32 head taken
     over ``chunk`` positions at a time so (B,S,V) logits never
-    materialise: the JAX package's ``xent_chunked``."""
+    materialise: the JAX package's ``xent_chunked``. The head is cast to
+    fp32 once for all chunks: a cast a chunk would keep one fp32 copy a
+    chunk for the backward (5 GB each at qwen2-vl-72b's head) and sum the
+    head's gradient in bf16, chunk by chunk."""
     B, S, _ = x.shape
     chunk = min(chunk, S)
     if S % chunk:
@@ -340,9 +349,10 @@ def xent_chunked(model: Model, x, labels, chunk: int = 256):
                          f"of the {chunk}-position chunk")
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    head = _head(model)
     for c in range(S // chunk):
         cols = slice(c * chunk, (c + 1) * chunk)
-        logits = _logits(model, x[:, cols])                  # (B,C,V) fp32
+        logits = _logits(model, x[:, cols], head)            # (B,C,V) fp32
         lc = labels[:, cols]
         picked = torch.gather(logits, -1, lc.clamp(min=0)[..., None])[..., 0]
         mask = (lc >= 0).float()

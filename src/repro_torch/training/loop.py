@@ -5,11 +5,14 @@ package's ``training/loop.py`` over the port's ``Model``.
 -> (model, opt_state, metrics)``: the loss and its gradients
 (``model.train_loss``, whose attention's gradient on the card is
 ``flash_prefill``'s backward kernel), then ``adamw_update``, which
-updates the model's parameters in place. The batch (numpy or tensors)
-moves to the model's device inside the step. Metrics stay 0-d tensors on
-the device; reading one waits for the step. ``init_params`` and the
-weight bridge build frozen (serving) models: a model to train has
-``requires_grad_(True)`` first.
+updates the model's parameters and the state's moments in place. The
+batch (numpy or tensors: packed tokens and labels, or a
+``models/inputs.py:make_batch`` batch with a vlm's ``patch_embeds`` and
+``mrope_pos`` or an audio stack's ``frames``, the JAX package's way to
+train those families) moves to the model's device inside the step.
+Metrics stay 0-d tensors on the device; reading one waits for the step.
+``init_params`` and the weight bridge build frozen (serving) models: a
+model to train has ``requires_grad_(True)`` first.
 """
 from __future__ import annotations
 

@@ -441,23 +441,22 @@ def test_decode_family_oracles_at_new_head_dims(hd, Hq, Hkv, cap):
         assert torch.equal(ver[live, :, w], row[live]), w
 
 
-@pytest.mark.parametrize("hd", [16, 256])
-def test_backward_refuses_the_new_head_dims(hd):
-    """The forward takes 16 and 256; its backward kernel is built for 32,
-    64 and 128 only, so on the card's path (the checks a CUDA tensor
-    meets before its launch, on CPU tensors here) it refuses them and
-    names the queue item that brings them."""
-    from repro_torch.kernels.flash_prefill import BWD_HEAD_DIMS, \
-        HEAD_DIMS, check_bwd_shapes, check_shapes
-    assert hd in HEAD_DIMS and hd not in BWD_HEAD_DIMS
-    assert BWD_HEAD_DIMS == (32, 64, 128)
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+def test_backward_takes_every_head_dim(hd):
+    """The backward kernel is built for every head dim of the forward:
+    the checks a CUDA tensor meets before its launch (on CPU tensors
+    here) take each, the C entry point dispatches each to its instance,
+    and the module keeps no narrower list."""
+    import re
+    from repro_torch.kernels import flash_prefill as FP
+    assert hd in FP.HEAD_DIMS and not hasattr(FP, "BWD_HEAD_DIMS")
     bf = lambda *s: torch.zeros(s, dtype=torch.bfloat16)
-    q, k = bf(1, 4, 8, hd), bf(1, 2, 8, hd)
-    check_shapes(q, k, k)
-    with pytest.raises(NotImplementedError, match="A11.3"):
-        check_bwd_shapes(q, k, k)
-    for ok in BWD_HEAD_DIMS:
-        check_bwd_shapes(bf(1, 4, 8, ok), bf(1, 2, 8, ok), bf(1, 2, 8, ok))
+    q, k = bf(1, 4, 8, hd), bf(1, 2, 11, hd)
+    FP.check_shapes(q, k, k)
+    src = (FP._build.CSRC / "flash_prefill_bwd.cu").read_text()
+    entry = src[src.index('extern "C"'):]
+    launched = [int(x) for x in re.findall(r"launch<(\d+)>", entry)]
+    assert sorted(launched) == list(FP.HEAD_DIMS)
 
 
 def test_decode_bench_refuses_without_a_card(capsys):

@@ -45,7 +45,6 @@ from repro_torch.env.tasks import make_benchmark
 from repro_torch.env.world import build_world
 from repro_torch.kernels import backend as KB
 from repro_torch.kernels.flash_prefill import flash_prefill_bwd
-from repro_torch.kernels import ref as TR
 from repro_torch.kernels.ref import attention_bwd_ref
 from repro_torch.launch import train as LT
 from repro_torch.launch import train_planner as LTP
@@ -292,16 +291,30 @@ def test_reference_checkpoint_is_read_by_the_port(jax_run, tmp_path):
         np.testing.assert_array_equal(got[k], a, err_msg=k)
 
 
-@pytest.mark.parametrize("G,window,cap,hd", [
-    (1, 0, 0.0, 64), (3, 0, 0.0, 64), (2, 5, 0.0, 32), (2, 0, 20.0, 128),
-    (4, 7, 30.0, 64)])
-def test_attention_bwd_ref_is_jax_grad_of_the_oracle(G, window, cap, hd):
+def _bwd_case(G, window, cap, hd, Sq=19, Sk=19, causal=True):
+    """A case of the oracle test; the first five keep their ids."""
+    rest = () if (Sq, Sk, causal) == (19, 19, True) else (Sq, Sk, causal)
+    return pytest.param(G, window, cap, hd, Sq, Sk, causal,
+                        id="-".join(map(str, (G, window, cap, hd) + rest)))
+
+
+# causal at S 19, then heads of 16 and 256 (with a cap and a window: the
+# dense families' training), and non-causal at Sq != Sk (whisper's
+# cross-attention) and at Sq = Sk (its encoder)
+@pytest.mark.parametrize("G,window,cap,hd,Sq,Sk,causal", [
+    _bwd_case(1, 0, 0.0, 64), _bwd_case(3, 0, 0.0, 64),
+    _bwd_case(2, 5, 0.0, 32), _bwd_case(2, 0, 20.0, 128),
+    _bwd_case(4, 7, 30.0, 64), _bwd_case(4, 0, 0.0, 16),
+    _bwd_case(2, 6, 50.0, 256), _bwd_case(1, 0, 0.0, 64, 5, 19, False),
+    _bwd_case(2, 0, 0.0, 32, 17, 17, False)])
+def test_attention_bwd_ref_is_jax_grad_of_the_oracle(G, window, cap, hd, Sq,
+                                                     Sk, causal):
     rng = np.random.default_rng(G * 100 + hd)
     mk = lambda *s: rng.standard_normal(s, dtype=np.float32)
-    B, Hkv, S = 2, 2, 19
-    q, k, v = mk(B, Hkv * G, S, hd), mk(B, Hkv, S, hd), mk(B, Hkv, S, hd)
-    do = mk(B, Hkv * G, S, hd)
-    kw = dict(causal=True, window=window, cap=cap)
+    B, Hkv = 2, 2
+    q, k, v = mk(B, Hkv * G, Sq, hd), mk(B, Hkv, Sk, hd), mk(B, Hkv, Sk, hd)
+    do = mk(B, Hkv * G, Sq, hd)
+    kw = dict(causal=causal, window=window, cap=cap)
     f = lambda a, b, c: jnp.sum(JR.attention_ref(a, b, c, **kw) * do)
     want = jax.jit(jax.grad(f, argnums=(0, 1, 2)))(q, k, v)
     got = attention_bwd_ref(*map(torch.from_numpy, (q, k, v, do)), **kw)
@@ -310,9 +323,7 @@ def test_attention_bwd_ref_is_jax_grad_of_the_oracle(G, window, cap, hd):
                                    rtol=0)
     # the wrapper on a CPU tensor is this plain version
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
-    wrapped = flash_prefill_bwd(tq, tk, tv, TR.attention_ref(tq, tk, tv,
-                                                             **kw), tdo,
-                                **kw)
+    wrapped = flash_prefill_bwd(tq, tk, tv, tdo, **kw)
     for a, b in zip(wrapped, got):
         assert torch.equal(a, b)
 
@@ -320,10 +331,10 @@ def test_attention_bwd_ref_is_jax_grad_of_the_oracle(G, window, cap, hd):
 def test_backward_refuses_a_q_offset():
     q = torch.zeros(1, 2, 4, 32)
     with pytest.raises(ValueError, match="q_offset"):
-        flash_prefill_bwd(q, q, q, q, q, q_offset=3)
+        flash_prefill_bwd(q, q, q, q, q_offset=3)
     with pytest.raises(ValueError, match="no kernel for device"):
         m = torch.zeros(1, 2, 4, 32, device="meta")
-        flash_prefill_bwd(m, m, m, m, m)
+        flash_prefill_bwd(m, m, m, m)
 
 
 def test_params_to_numpy_inverts_the_bridge(jax_run):

@@ -224,5 +224,6 @@ def test_engine_and_launchers_refuse_the_family():
         SV.main(argv)
     with pytest.raises(NotImplementedError, match="'vlm' family"):
         SP.main(argv)
-    with pytest.raises(NotImplementedError, match="A11.3"):
+    with pytest.raises(NotImplementedError,
+                       match="feeds only PackedLMDataset"):
         TR.main(argv)

@@ -196,5 +196,6 @@ def test_engine_and_launchers_refuse_the_family(smoke_model):
     argv = ["--device", "cpu", "--smoke", "--arch", ARCH]
     with pytest.raises(NotImplementedError, match="'audio' family"):
         SV.main(argv)
-    with pytest.raises(NotImplementedError, match="A11.3"):
+    with pytest.raises(NotImplementedError,
+                       match="feeds only PackedLMDataset"):
         TR.main(argv)

@@ -1,7 +1,8 @@
 """Helpers of the port's per-family training tests
-(``test_torch_train_{moe,hymba,xlstm}.py``): the JAX reference's loss and
-gradients, the port's on bridged weights with and without remat, and
-the map from the port's parameter names to the JAX tree's leaves.
+(``test_torch_train_{moe,hymba,xlstm,dense_families,multimodal}.py``):
+the JAX reference's loss and gradients, the port's on bridged weights
+with and without remat, and the map from the port's parameter names to
+the JAX tree's leaves.
 
 Tolerances, with their reasons (those of ``test_torch_training.py``):
   * the loss: |diff| <= LOSS_TOL = 2e-2 (an fp32 logsumexp over the head
@@ -69,7 +70,11 @@ def flat(tree):
 
 def jax_leaf(fl, name, cfg):
     """The JAX tree's leaf of a port parameter name (a layer's leaf
-    sliced out of its segment's stacked axis)."""
+    sliced out of its segment's stacked axis, an encoder layer's out of
+    the encoder's)."""
+    if name.startswith("encoder.layers."):
+        parts = name.split(".")
+        return fl["encoder/layers/" + "/".join(parts[3:])][int(parts[2])]
     if not name.startswith("layers."):
         return fl[name.replace(".", "/")]
     parts = name.split(".")
