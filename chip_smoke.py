@@ -95,8 +95,16 @@ training at the planner's full width: ``launch.train`` for 30 steps of
 equal no remat bitwise in every loss and parameter, flash_prefill must
 launch once a layer a step (twice with remat) and its backward once),
 with ms a step, tok/s, peak memory and one profiled step's busy share;
-one train_loss and its gradients on the card against the CPU; and the
-GeckOpt gate trained by ``launch.train_planner --full``, its accuracy on
+one train_loss and its gradients on the card against the CPU; the
+distributed layer on the (1, 1) local mesh (``mesh_world1``, a one-rank
+NCCL group): 3 train steps of 8 x 256 through
+``launch.train.train_run(mesh=make_local_mesh("cuda"))`` with DTensor
+parameters, then a 14-token prefill of 2 rows and 8 greedy decode steps,
+against the same on the plain path, bitwise in every loss, parameter,
+logit and token, with every kernel's launch count equal, and the two
+paths' ms a train step; and the
+GeckOpt gate trained by ``launch.train_planner --full`` (GATE_STEPS
+steps), its accuracy on
 48 held-out tasks and its Table-2 row against the ungated agent, its
 checkpoint reloaded into a fresh model (the same batched decisions) and
 served by ``launch.serve --checkpoint``. Then the other families'
@@ -118,7 +126,10 @@ top-8; arctic-480b: one MoE layer of 128 experts top-2), through the
 same functions: dense, paged and (kimi) speculative dense and paged,
 tokens equal to the dense run's and an accept rate of 1.0; budgeted ==
 monolithic and prefix hit == miss, printed at the config's capacity
-factor and asserted at 100; a profile of kimi's decode step; card vs
+factor and asserted at 100; a profile of kimi's decode step; kimi's
+prefill (2 x 64, capacity factor 100) with the expert-parallel dispatch
+on the (1, 1) local mesh against the one dispatch, bitwise, launches
+equal (``mesh_world1_kimi``); card vs
 CPU on both MoE smoke configs. Then hymba-1.5b at full width, its depth
 cut to one unit of 16 hybrid attention + SSM layers (15 of them over
 1,024-row sliding-window rings; the training phase runs all 32): the
@@ -2210,6 +2221,9 @@ TRAIN_LOSS_TOL = 0.05
 # CPU tests' bound against JAX (tests/torch_train_common.py, GRAD_REL)
 NO_DROP_GRAD_REL = 3e-2
 GATE_CKPT = ROOT / "build" / "planner_gate.npz"
+# the gate's training steps (train_planner's default is 300; its loss is
+# under 1e-3 well before 120 at 100% held-out accuracy)
+GATE_STEPS = 120
 
 
 def _train_args(steps: int, remat: bool, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
@@ -2427,7 +2441,8 @@ def gate_training(cfg):
         BatchedNeuralIntentClassifier
     from repro_torch.training.checkpoint import load_checkpoint
     KB.reset_launches()
-    res = TP.main(["--full", "--checkpoint", str(GATE_CKPT)])
+    res = TP.main(["--full", "--steps", str(GATE_STEPS),
+                   "--checkpoint", str(GATE_CKPT)])
     counts = KB.launch_counts()
     check(counts["flash_prefill_bwd"] == res["steps"] * cfg.n_layers,
           f"gate training: {counts['flash_prefill_bwd']} backward launches")
@@ -2448,6 +2463,146 @@ def gate_training(cfg):
                 checkpoint_mb=GATE_CKPT.stat().st_size / 2 ** 20)
 
 
+MESH_STEPS, MESH_SLOTS, MESH_PROMPT, MESH_DECODE = 3, 2, 14, 8
+
+
+def _mesh_serve(cfg, model):
+    """A MESH_PROMPT-token prefill of MESH_SLOTS rows and MESH_DECODE
+    greedy decode steps: every step's logits (whole tensors) and
+    tokens."""
+    from repro_torch.distributed.parallel import full
+    from repro_torch.models import model as MD
+    from repro_torch.models.inputs import make_batch
+    pb = make_batch(cfg, "prefill", MESH_SLOTS, MESH_PROMPT, seed=11,
+                    device="cuda")
+    logits, cache = MD.prefill(model, pb, MESH_PROMPT + MESH_DECODE)
+    out, toks = [full(logits)], []
+    for _ in range(MESH_DECODE):
+        tok = torch.argmax(out[-1], dim=-1)[:, None]
+        toks.append(tok.flatten().tolist())
+        logits, cache = MD.decode_step(model, cache, {"tokens": tok})
+        out.append(full(logits))
+    torch.cuda.synchronize()
+    return out, toks
+
+
+def mesh_world1(cfg):
+    """The distributed layer on one card: the planner at full width on
+    the (1, 1) local mesh (a one-rank NCCL group, destroyed at the end)
+    with DTensor parameters and optimizer state, MESH_STEPS train steps
+    through ``launch.train.train_run(mesh=...)``, then a prefill and
+    greedy decode, against the same on the plain path from the same
+    weights: losses, every parameter after the steps, every step's
+    logits and the tokens bitwise equal, every kernel's launch count
+    equal (the mesh path runs the kernels per shard). ms a train step
+    past the first of each path: DTensor's host cost."""
+    import torch.distributed as dist
+    from repro_torch.distributed.parallel import full
+    from repro_torch.kernels import backend as KB
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import train_run
+    from repro_torch.models.model import init_params
+    t0 = time.time()
+    mesh = make_local_mesh("cuda")
+    try:
+        runs = {}
+        for name, m in (("plain", None), ("mesh", mesh)):
+            model = init_params(cfg, seed=0,
+                                device="cuda").requires_grad_(True)
+            KB.reset_launches()
+            res = train_run(cfg, model, _train_args(MESH_STEPS, False),
+                            mesh=m)
+            train_launches = KB.launch_counts()
+            model.requires_grad_(False)
+            params = {n: full(p).detach()
+                      for n, p in model.named_parameters()}
+            KB.reset_launches()
+            logits, toks = _mesh_serve(cfg, model)
+            runs[name] = dict(losses=res["losses"], step_ms=res["step_ms"],
+                              train_launches=train_launches,
+                              serve_launches=KB.launch_counts(),
+                              params=params, logits=logits, tokens=toks,
+                              placements=str(model.embed.placements)
+                              if m is not None else None)
+            del model
+        a, b = runs["plain"], runs["mesh"]
+        check(a["losses"] == b["losses"],
+              f"mesh_world1: losses {b['losses']} != plain {a['losses']}")
+        leaf = next((n for n in a["params"]
+                     if not torch.equal(a["params"][n], b["params"][n])),
+                    None)
+        check(leaf is None, f"mesh_world1: parameter {leaf} differs")
+        step = next((i for i, (x, y) in enumerate(zip(a["logits"],
+                                                      b["logits"]))
+                     if not torch.equal(x, y)), None)
+        check(step is None, f"mesh_world1: logits differ at step {step}")
+        check(a["tokens"] == b["tokens"], "mesh_world1: tokens differ")
+        for k in ("train_launches", "serve_launches"):
+            check(a[k] == b[k], f"mesh_world1: {k} {b[k]} != plain {a[k]}")
+        check(b["train_launches"]["flash_prefill_bwd"] > 0
+              and b["serve_launches"]["flash_decode"] > 0,
+              f"mesh_world1: kernels not launched {b['serve_launches']}")
+        ms = {k: float(np.mean(r["step_ms"][1:])) for k, r in runs.items()}
+        return dict(steps=MESH_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                    losses=b["losses"], step_ms={k: r["step_ms"]
+                                                 for k, r in runs.items()},
+                    ms_per_step=ms,
+                    dtensor_host_ms_per_step=ms["mesh"] - ms["plain"],
+                    train_launches=b["train_launches"],
+                    serve_launches=b["serve_launches"],
+                    tokens=b["tokens"], embed_placements=b["placements"],
+                    bitwise_equal=True, seconds=time.time() - t0)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_world1_ep(cfg, model):
+    """kimi-k2's prefill on the served weights (2 x 64 tokens, capacity
+    factor 100) with ``moe_dispatch="shard_map"`` on the (1, 1) local
+    mesh against the one dispatch on the plain path: the logits bitwise,
+    every launch count equal (with one ``model`` rank every expert is
+    local). The model is distributed in place: its last use."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.common import perf
+    from repro_torch.distributed.parallel import distribute_model, full
+    from repro_torch.kernels import backend as KB
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model as MD
+    from repro_torch.models.inputs import make_batch
+    t0 = time.time()
+    old = perf.get_flags()
+    pb = make_batch(cfg, "prefill", 2, 64, seed=12, device="cuda")
+    mesh = None
+    try:
+        perf.set_flags(dataclasses.replace(old, moe_capacity_factor=100.0))
+        KB.reset_launches()
+        plain, _ = MD.prefill(model, pb, 64)
+        c_plain = KB.launch_counts()
+        mesh = make_local_mesh("cuda")
+        perf.set_flags(dataclasses.replace(old, moe_capacity_factor=100.0,
+                                           moe_dispatch="shard_map"))
+        distribute_model(model, cfg, mesh)
+        KB.reset_launches()
+        ep, _ = MD.prefill(model, pb, 64)
+        c_ep = KB.launch_counts()
+        ep = full(ep)
+        torch.cuda.synchronize()
+    finally:
+        perf.set_flags(old)
+        if mesh is not None:
+            dist.destroy_process_group()
+    check(torch.equal(ep, plain),
+          f"mesh_world1 kimi: expert-parallel prefill differs from the one "
+          f"dispatch by {float((ep - plain).abs().max())}")
+    check(c_ep == c_plain and c_ep["moe_router_topk"] > 0,
+          f"mesh_world1 kimi: launches {c_ep} != plain {c_plain}")
+    return dict(batch=2, prompt=64, capacity_factor=100.0,
+                launches=c_ep, bitwise_equal=True,
+                experts_placements=str(model.layers[1].moe.w_gate.placements),
+                seconds=time.time() - t0)
+
+
 def training_phases():
     """The planner's training at full width: launch.train on the card
     (remat and not), the card against the CPU, and the GeckOpt gate
@@ -2460,6 +2615,8 @@ def training_phases():
         emit(f"train_card_{name}", **runs[name])
     runs["vs_cpu"] = train_card_vs_cpu(cfg)
     emit("train_card_vs_cpu", **runs["vs_cpu"])
+    runs["mesh_world1"] = mesh_world1(cfg)
+    emit("mesh_world1", **runs["mesh_world1"])
     runs["gate"] = gate_training(cfg)
     emit("gate_training", **runs["gate"])
     emit("training_elapsed", seconds=time.time() - t0)
@@ -2906,7 +3063,8 @@ def moe_equalities(cfg, model):
 
 def moe_phases():
     """kimi-k2 (2 layers) and arctic (1 layer) at full width: init, serve
-    runs, the two equalities, kimi's decode profile, each model freed
+    runs, the two equalities, kimi's decode profile and its
+    expert-parallel prefill on the one-rank mesh, each model freed
     before the next; then card vs CPU on both smoke configs. Returns the
     results by arch."""
     import gc
@@ -2941,6 +3099,9 @@ def moe_phases():
             torch.cuda.max_memory_allocated() / 1e9
         emit(f"moe_memory_{arch}",
              max_memory_allocated_gb=res["max_memory_allocated_gb"])
+        if arch == "kimi-k2-1t-a32b":
+            res["mesh_world1"] = mesh_world1_ep(cfg, model)
+            emit("mesh_world1_kimi", **res["mesh_world1"])
         results[arch] = res
         del model
         gc.collect()

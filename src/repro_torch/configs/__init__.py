@@ -6,10 +6,16 @@ JAX package is ported: the served planner, the two MoE families
 (arctic, kimi-k2), the hybrid attention + SSM hymba, the recurrent
 xlstm, the dense qwen1.5, starcoder2 and gemma2, the vision-language
 qwen2-vl (M-RoPE, patch embeddings) and the encoder-decoder whisper.
+``ARCH_IDS`` are the ten assigned architectures (every config but the
+planner), in the JAX package's order: the dry-run sweeps them.
 """
 from __future__ import annotations
 
 import importlib
+
+ARCH_IDS = ("hymba-1.5b", "arctic-480b", "xlstm-125m", "starcoder2-3b",
+            "qwen2-vl-72b", "whisper-large-v3", "qwen1.5-32b", "gemma2-2b",
+            "kimi-k2-1t-a32b", "qwen1.5-110b")
 
 ALL_IDS = ("planner-proxy-100m", "arctic-480b", "kimi-k2-1t-a32b",
            "hymba-1.5b", "xlstm-125m", "qwen1.5-32b", "qwen1.5-110b",

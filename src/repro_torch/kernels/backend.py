@@ -12,11 +12,19 @@ kernels' autograd Functions, whose backwards are kernels too
 ``mlstm_scan_bwd``, no ops of their own: the JAX package differentiates
 its references); every other call, serving's among them, is the direct
 kernel call.
+
+On the meta device (the dry-run's sizing of a full-width step, which
+holds no data) ``attention``, ``decode_attention``, ``router_topk``,
+``selective_scan`` and ``mlstm_scan`` return empty outputs of their
+shapes and dtypes, differentiable, and add the flops of the call (and
+of its backward, when one runs) to ``META_FLOPS``: no kernel or plain
+version runs, and a 32k-step scan is not stepped.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.flash_decode import flash_decode
@@ -60,6 +68,57 @@ KERNELS = (flash_prefill, flash_decode, flash_decode_paged, flash_verify,
            flash_prefill_bwd, moe_router_bwd, ssm_scan_bwd, mlstm_scan_bwd)
 
 
+#: flops of the calls made on the meta device, by op (``_bwd``: their
+#: backwards); the dry-run resets and reads it
+META_FLOPS: Dict[str, float] = {}
+
+
+def _meta(t) -> bool:
+    return t is not None and t.device.type == "meta"
+
+
+class _MetaOp(torch.autograd.Function):
+    """Empty outputs of the given (shape, dtype)s; the forward's and the
+    backward's flops are counted in ``META_FLOPS``."""
+
+    @staticmethod
+    def forward(ctx, name, flops, bwd_flops, outs, *inputs):
+        META_FLOPS[name] = META_FLOPS.get(name, 0.0) + flops
+        ctx.name, ctx.bwd_flops = name, bwd_flops
+        ctx.ins = [(t.shape, t.dtype) if isinstance(t, torch.Tensor)
+                   else None for t in inputs]
+        return tuple(torch.empty(s, dtype=d, device="meta") for s, d in outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        key = ctx.name + "_bwd"
+        META_FLOPS[key] = META_FLOPS.get(key, 0.0) + ctx.bwd_flops
+        return (None,) * 4 + tuple(
+            torch.empty(s[0], dtype=s[1], device="meta")
+            if s is not None and s[1].is_floating_point else None
+            for s in ctx.ins)
+
+
+def _pairs(Sq: int, Sk: int, causal: bool, window: int, q_offset) -> int:
+    """(query, key) pairs an attention call scores."""
+    if not causal:
+        return Sq * Sk
+    i = int(q_offset) + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i + 1, Sk)
+    lo = np.maximum(i - window + 1, 0) if window else 0
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def _meta_attention(q, k, v, causal, window, q_offset, kv_rows=None):
+    B, Hq, Sq, hd = q.shape
+    pairs = (Sq * kv_rows if kv_rows is not None
+             else _pairs(Sq, k.shape[2], causal, window, q_offset))
+    fl = 4.0 * B * Hq * pairs * hd
+    return _MetaOp.apply("attention" if kv_rows is None
+                         else "decode_attention", fl, 2.5 * fl,
+                         [(tuple(q.shape), q.dtype)], q, k, v)[0]
+
+
 def _grad(*ts) -> bool:
     """Grad is enabled and one of ``ts`` (tensors or None) requires it."""
     return torch.is_grad_enabled() and any(
@@ -79,6 +138,8 @@ def attention(q, k, v, *, causal=True, window=0, cap=0.0, scale=0.0,
               q_offset=0):
     """With grad enabled and an input requiring it, the kernel's backward
     (``flash_prefill_bwd``) is its gradient; otherwise the direct call."""
+    if _meta(q):
+        return _meta_attention(q, k, v, causal, window, q_offset)
     if _grad(q, k, v):
         return FlashPrefillFn.apply(q, k, v, causal, window, cap, scale,
                                     q_offset)
@@ -87,6 +148,9 @@ def attention(q, k, v, *, causal=True, window=0, cap=0.0, scale=0.0,
 
 
 def decode_attention(q, k_cache, v_cache, kv_len, *, cap=0.0, scale=0.0):
+    if _meta(q):
+        return _meta_attention(q[:, :, None], k_cache, v_cache, False, 0, 0,
+                               k_cache.shape[2])[:, :, 0]
     return flash_decode(q, k_cache, v_cache, kv_len, cap=cap, scale=scale)
 
 
@@ -109,6 +173,11 @@ def paged_verify_attention(q, k_pages, v_pages, block_tab, kv_len, *,
 def router_topk(logits, k):
     """logits: (T,E) fp32 -> (weights (T,k) fp32, ids (T,k) int32). With
     grad, the weights' gradient is ``moe_router_bwd``."""
+    if _meta(logits):
+        T, E = logits.shape
+        return _MetaOp.apply("router_topk", T * E * (k + 4.0),
+                             3.0 * T * E, [((T, k), torch.float32),
+                                           ((T, k), torch.int32)], logits)
     if _grad(logits):
         return MoeRouterFn.apply(logits, k)
     return moe_router_topk(logits, k)
@@ -118,6 +187,14 @@ def selective_scan(dt, x, B_, C_, A, h0=None):
     """dt, x: (B,S,di); B_, C_: (B,S,n); A: (di,n); h0: (B,di,n) or None
     (zeros); fp32 -> (y (B,S,di) fp32, h_last (B,di,n) fp32). With grad,
     the gradient is ``ssm_scan_bwd``."""
+    if _meta(x):
+        B, S, di = x.shape
+        n = A.shape[-1]
+        fl = 7.0 * B * S * di * n
+        return _MetaOp.apply("selective_scan", fl, 2.0 * fl,
+                             [((B, S, di), torch.float32),
+                              ((B, di, n), torch.float32)],
+                             dt, x, B_, C_, A, h0)
     if _grad(dt, x, B_, C_, A, h0):
         if h0 is None:
             h0 = torch.zeros((x.shape[0], x.shape[2], A.shape[-1]),
@@ -131,6 +208,15 @@ def mlstm_scan(q, k, v, i_pre, f_pre, state=None, *, scale=0.0):
     n (B,H,hd), m (B,H)) or None (fresh); fp32 -> (h (B,H,S,hd) fp32,
     the state after the last step). With grad, the gradient is
     ``mlstm_scan_bwd``."""
+    if _meta(q):
+        B, H, S, hd = q.shape
+        f32 = torch.float32
+        fl = 6.0 * B * H * S * hd * hd
+        h, C, n, m = _MetaOp.apply(
+            "mlstm_scan", fl, 2.0 * fl,
+            [((B, H, S, hd), f32), ((B, H, hd, hd), f32), ((B, H, hd), f32),
+             ((B, H), f32)], q, k, v, i_pre, f_pre, *(state or ()))
+        return h, (C, n, m)
     if _grad(q, k, v, i_pre, f_pre, *(state or ())):
         B, H, _, hd = q.shape
         if state is None:

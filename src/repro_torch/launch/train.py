@@ -5,34 +5,43 @@ data, on the card unless ``--device cpu`` is given.
       planner-proxy-100m --steps 200 --batch 8 --seq 256 [--remat]
 
 The command line is the JAX launcher's (``repro.launch.train``) plus
-``--device``. One card is the local mesh, so ``--local`` changes
-nothing; ``--multi-pod`` (the production mesh) raises
-``NotImplementedError``: sharding is ROADMAP.md queue A13. Every family
-the engine serves trains: the planner (planner-proxy-100m), the MoE
-stacks (arctic-480b, kimi-k2-1t-a32b; the loss includes their
-load-balance terms), hymba-1.5b, xlstm-125m and the dense qwen1.5-32b,
-qwen1.5-110b, starcoder2-3b and gemma2-2b. The ``vlm`` (qwen2-vl-72b)
-and ``audio`` (whisper-large-v3) families raise ``NotImplementedError``,
-as the JAX launcher cannot train them either: it feeds only
-``PackedLMDataset``'s tokens and labels, and their models read
-``mrope_pos`` or ``frames`` from the batch. They train at the model
-level, ``training/loop.py``'s ``make_train_step`` on
-``models/inputs.py:make_batch`` batches (``train_run`` takes them as
-its ``batches``). It prints the loss and tok/s every
-``--log-every`` steps as the JAX launcher does and, with
-``--checkpoint``, saves the weights in the JAX package's npz format,
-which ``launch.serve --checkpoint`` serves. ``main`` is the command
-line; ``train_run`` trains any ``(cfg, model, args)`` in place and
-returns the run's numbers.
+``--device``. One process is one card: without a launched process group,
+and with ``--local``, the model trains on today's plain path, no
+DTensor. Under a ``torchrun`` launch of 256 ranks (one card each) the
+launcher takes the ``(16, 16)`` production mesh, as the JAX launcher
+does without ``--local``; ``--multi-pod`` takes the ``(2, 16, 16)`` one
+and needs 512 ranks. Any other world size raises, naming the size it
+needs (``launch/mesh.py``). On a mesh the model and AdamW's state are
+distributed by the sharding rules (``distributed/parallel.py``) and each
+rank still draws the whole model first. Every family the engine serves
+trains: the planner (planner-proxy-100m), the MoE stacks (arctic-480b,
+kimi-k2-1t-a32b; the loss includes their load-balance terms),
+hymba-1.5b, xlstm-125m and the dense qwen1.5-32b, qwen1.5-110b,
+starcoder2-3b and gemma2-2b. The ``vlm`` (qwen2-vl-72b) and ``audio``
+(whisper-large-v3) families raise ``NotImplementedError``, as the JAX
+launcher cannot train them either: it feeds only ``PackedLMDataset``'s
+tokens and labels, and their models read ``mrope_pos`` or ``frames``
+from the batch. They train at the model level, ``training/loop.py``'s
+``make_train_step`` on ``models/inputs.py:make_batch`` batches
+(``train_run`` takes them as its ``batches``). It prints the loss and
+tok/s every ``--log-every`` steps as the JAX launcher does and, with
+``--checkpoint``, saves the weights in the JAX package's npz format
+(whole tensors, gathered from a mesh's shards), which ``launch.serve
+--checkpoint`` serves. ``main`` is the command line; ``train_run``
+trains any ``(cfg, model, args)`` in place, distributed over ``mesh``
+when given one, and returns the run's numbers.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.model import init_params, resolve_device
 from repro_torch.training.checkpoint import save_checkpoint
 from repro_torch.training.data import PackedLMDataset, synthetic_docs
@@ -66,10 +75,9 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.multi_pod:
-        raise NotImplementedError("--multi-pod: the production mesh and "
-                                  "its sharding are ROADMAP.md queue A13")
-    device = resolve_device(args.device)
+    mesh = launch_mesh(args)
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if mesh is not None else resolve_device(args.device))
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch))
     if cfg.family in ("vlm", "audio"):
@@ -86,22 +94,43 @@ def main(argv=None) -> dict:
             f"through training/loop.py's make_train_step on "
             f"models/inputs.py's make_batch batches")
     model = init_params(cfg, seed=0, device=device).requires_grad_(True)
-    return train_run(cfg, model, args)
+    return train_run(cfg, model, args, mesh=mesh)
 
 
-def train_run(cfg, model, args, batches=None) -> dict:
+def launch_mesh(args):
+    """The production mesh of a launched group (``--multi-pod``: the
+    multi-pod one), or None: one process, one card (``--local`` too).
+    A launch's group starts here from torchrun's environment."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if not (args.multi_pod or (world > 1 and not args.local)):
+        return None
+    if world > 1 and not dist.is_initialized():
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl")
+    return make_production_mesh(multi_pod=args.multi_pod)
+
+
+def train_run(cfg, model, args, batches=None, mesh=None) -> dict:
     """``args.steps`` AdamW steps of ``model`` (trained in place), a
     batch a step from ``batches`` (any iterator of train batches, as
     ``models/inputs.py:make_batch`` gives a vlm or audio family; by
     default ``synthetic_docs`` packed into (batch, seq) windows). Each
     step ends in a synchronize on the card, so ``step_ms`` are the
     steps' wall times; ``losses`` holds every step's loss; tok/s counts
-    ``args.batch`` x ``args.seq`` rows a step."""
+    ``args.batch`` x ``args.seq`` rows a step. With a ``mesh`` the model
+    and the optimizer state are distributed over it first (the default
+    ``ShardingStrategy``)."""
+    if mesh is not None:
+        from repro_torch.distributed.parallel import distribute_model, \
+            distribute_opt_state
+        distribute_model(model, cfg, mesh)
+        opt_state = distribute_opt_state(adamw_init(model), model)
+    else:
+        opt_state = adamw_init(model)
     device = model.device
     sync = (lambda: torch.cuda.synchronize(device)) \
         if device.type == "cuda" else (lambda: None)
     step_fn = make_train_step(cfg, lr=args.lr, remat=args.remat)
-    opt_state = adamw_init(model)
     data = batches if batches is not None else PackedLMDataset(
         synthetic_docs(cfg.vocab_size), args.batch, args.seq,
         cfg.vocab_size)

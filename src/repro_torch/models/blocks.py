@@ -238,14 +238,45 @@ def _rope_qkv(p: Block, h, cfg: ModelConfig, positions, fixed=False):
     ``"enc"`` layer, as in the JAX package. ``fixed``: products in
     fixed-size calls (prefill and extend)."""
     q, k, v = L.qkv_proj(p.attn, h, cfg, fixed)
-    if cfg.rope_kind == "rope" and p.kind != "enc":
-        q = L.apply_rope(q, positions[:, None], cfg.rope_theta)
-        k = L.apply_rope(k, positions[:, None], cfg.rope_theta)
-    elif cfg.rope_kind == "mrope":
-        p3 = positions[:, :, None]                          # (3,B,1,S)
-        q = L.apply_mrope(q, p3, cfg.rope_theta, cfg.mrope_sections)
-        k = L.apply_mrope(k, p3, cfg.rope_theta, cfg.mrope_sections)
+    q, k = rope(p.kind, q, cfg, positions), rope(p.kind, k, cfg, positions)
     return q, k.to(torch.bfloat16), v.to(torch.bfloat16)
+
+
+def rope(kind: str, t, cfg: ModelConfig, positions):
+    """``_rope_qkv``'s rotation of q or k (B,H,S,hd) of a ``kind``
+    layer."""
+    if cfg.rope_kind == "rope" and kind != "enc":
+        return L.apply_rope(t, positions[:, None], cfg.rope_theta)
+    if cfg.rope_kind == "mrope":
+        return L.apply_mrope(t, positions[:, :, None],      # (3,B,1,S)
+                             cfg.rope_theta, cfg.mrope_sections)
+    return t
+
+
+def prefill_rows(t, Sc: int, window: int):
+    """The rows a prefill's k or v (B,H,S,hd) leaves in an Sc-row
+    cache, from its row 0: in a ring (``window``) all Sc rows in ring
+    order, else the first min(S, Sc) positions. Both the plain and the
+    mesh prefill write these."""
+    if window:
+        return _ring_from_prefill(t, Sc)
+    return t[:, :, :min(t.shape[2], Sc)]
+
+
+def decode_slot(pos, Sc: int, window: int):
+    """The cache row a decode step at ``pos`` (an int, or a (B,) tensor
+    of per-slot positions) writes: ``pos % Sc`` in a ring, else
+    ``min(pos, Sc-1)``."""
+    if isinstance(pos, torch.Tensor) and pos.ndim:
+        return (pos % Sc if window else torch.clamp(pos, max=Sc - 1)).long()
+    return int(pos) % Sc if window else min(int(pos), Sc - 1)
+
+
+def decode_kv_len(pos, Sc: int):
+    """The keys a decode step at ``pos`` reads: ``min(pos + 1, Sc)``."""
+    if isinstance(pos, torch.Tensor) and pos.ndim:
+        return torch.clamp(pos + 1, max=Sc)
+    return min(int(pos) + 1, Sc)
 
 
 def _ring_from_prefill(k, Sc: int):
@@ -278,13 +309,9 @@ def _attn_sublayer(p: Block, x, cfg: ModelConfig, mode: str, cache, pos,
         out = L.attention(q, k, v, causal=True, window=window,
                           cap=cfg.attn_softcap, scale=cfg.attn_scale)
         Sc = cache["k"].shape[2]
-        if window:
-            cache["k"].copy_(_ring_from_prefill(k, Sc))
-            cache["v"].copy_(_ring_from_prefill(v, Sc))
-        else:
-            n = min(k.shape[2], Sc)
-            cache["k"][:, :, :n] = k[:, :, :n]
-            cache["v"][:, :, :n] = v[:, :, :n]
+        for n, t in (("k", k), ("v", v)):
+            rows = prefill_rows(t, Sc, window)
+            cache[n][:, :, :rows.shape[2]] = rows
         return L.out_proj(p.attn, out, fixed), cache
 
     if mode == "extend":
@@ -319,17 +346,15 @@ def _attn_sublayer(p: Block, x, cfg: ModelConfig, mode: str, cache, pos,
     # dense decode: write this token's K/V row at min(pos, Sc-1), or at
     # pos % Sc in a ring
     Sc = cache["k"].shape[2]
-    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
-        slot = (pos % Sc if window else torch.clamp(pos, max=Sc - 1)).long()
+    slot = decode_slot(pos, Sc, window)
+    if isinstance(slot, torch.Tensor):
         rows = torch.arange(x.shape[0], device=slot.device)
         cache["k"][rows, :, slot] = k[:, :, 0]
         cache["v"][rows, :, slot] = v[:, :, 0]
-        kv_len = torch.clamp(pos + 1, max=Sc)
     else:
-        slot = int(pos) % Sc if window else min(int(pos), Sc - 1)
         cache["k"][:, :, slot] = k[:, :, 0]
         cache["v"][:, :, slot] = v[:, :, 0]
-        kv_len = min(int(pos) + 1, Sc)
+    kv_len = decode_kv_len(pos, Sc)
     out = L.attention(q, cache["k"], cache["v"], causal=False,
                       kv_len=kv_len, cap=cfg.attn_softcap,
                       scale=cfg.attn_scale)

@@ -69,6 +69,43 @@ def _walk(tree, prefix: str) -> Iterator[Tuple[str, Any]]:
         yield prefix, tree
 
 
+def layer_slot(cfg: ModelConfig, i: int) -> Tuple[int, int, int]:
+    """(segment, unit kind, repeat) of layer ``i`` in the JAX tree: the
+    layer is ``segments[si][ui][...][r]``."""
+    offset = 0
+    for si, (unit, R) in enumerate(cfg.segments):
+        if i < offset + len(unit) * R:
+            r, ui = divmod(i - offset, len(unit))
+            return si, ui, r
+        offset += len(unit) * R
+    raise IndexError(f"{cfg.name} has {offset} layers, not {i + 1}")
+
+
+def jax_leaf(cfg: ModelConfig, name: str):
+    """(the JAX tree's path keys, the index along the leaf's stack axis
+    or None) of the model tensor ``name``: ``layers.5.attn.wq`` is
+    ``segments/si/ui/attn/wq`` at ``layer_slot(cfg, 5)``'s r,
+    ``encoder.layers.2.attn.wq`` is ``encoder/layers/attn/wq`` at 2, a
+    top-level tensor its own path, unstacked. The keys are strings, as
+    the JAX package's sharding rules read a path."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        si, ui, r = layer_slot(cfg, int(parts[1]))
+        return ("segments", str(si), str(ui), *parts[2:]), r
+    if parts[:2] == ["encoder", "layers"]:
+        return ("encoder", "layers", *parts[3:]), int(parts[2])
+    return tuple(parts), None
+
+
+def stack_len(cfg: ModelConfig, keys) -> int:
+    """The length of the stack axis of the JAX leaf at ``keys`` (a
+    ``jax_leaf`` path of a stacked leaf): its segment's R, or the
+    encoder's layer count."""
+    if keys[0] == "segments":
+        return cfg.segments[int(keys[1])][1]
+    return cfg.n_enc_layers
+
+
 def params_from_numpy(tree, cfg: ModelConfig, device=None) -> Model:
     """A ``Model`` holding the JAX params ``tree`` (numpy leaves)."""
     model = init_params(cfg, seed=0, device=device)
@@ -141,6 +178,10 @@ def load_jax_checkpoint(path: str) -> Dict[str, Any]:
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values as numpy (a DTensor's whole tensor, gathered)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 

@@ -13,8 +13,11 @@ to bf16. A whisper batch's decoder prompt is ``_whisper_dec_len(S)``
 tokens beside the S encoder frames. The draws are the JAX package's:
 one ``np.random.default_rng(seed)`` in its key order, so a port batch
 holds the values of JAX's ``make_batch`` for the same shape and seed.
-The dry-run's ``ShapeDtypeStruct`` batches and caches (``batch_struct``,
-``cache_struct``) are ROADMAP.md queue A13.
+``batch_struct`` and ``cache_struct`` are the dry-run's stand-ins for an
+assigned shape: meta tensors (no storage) with the JAX package's shapes
+and dtypes (int32 ids, bf16 embeddings; a decode cache from
+``model.init_cache``, a whisper cache of ``WHISPER_DEC_CACHE`` decoder
+rows beside the S encoder rows, ``pos`` a 0-d int32).
 """
 from __future__ import annotations
 
@@ -23,8 +26,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.common.config import ModelConfig
-from repro_torch.models.model import WHISPER_DEC_CACHE
+from repro_torch.common.config import ModelConfig, ShapeConfig
+from repro_torch.models.model import WHISPER_DEC_CACHE, init_cache
 
 MODES = ("train", "prefill", "decode")
 
@@ -103,3 +106,30 @@ def grid_mrope_pos(batch: int, seq_len: int, n_vision: int,
     text = start + torch.arange(seq_len - n_vision)
     pos = torch.cat([vis, text.expand(3, -1)], dim=1)         # (3, S)
     return pos[:, None, :].expand(3, batch, seq_len).contiguous()
+
+
+def batch_struct(cfg: ModelConfig, shape: ShapeConfig
+                 ) -> Dict[str, torch.Tensor]:
+    """The batch of ``shape`` as meta tensors, the JAX package's
+    ``batch_struct``: int32 ids and M-RoPE positions, bf16 frames and
+    patch embeddings; a decode batch is its tokens (and positions)."""
+    meta = {"int": torch.int32, "float": torch.bfloat16}
+    return {k: torch.empty(shp, dtype=meta[kind], device="meta")
+            for k, (shp, kind) in batch_shapes(
+                cfg, shape.mode, shape.global_batch, shape.seq_len).items()}
+
+
+def cache_struct(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """The decode cache of ``shape`` as meta tensors, the JAX package's
+    ``cache_struct`` (per layer, without its stack axis): a whisper
+    cache holds ``WHISPER_DEC_CACHE`` decoder rows and S encoder rows."""
+    if shape.mode != "decode":
+        raise ValueError(f"cache_struct: {shape.name} is a "
+                         f"{shape.mode!r} shape, not a decode one")
+    B, S = shape.global_batch, shape.seq_len
+    if cfg.family == "audio":
+        cache = init_cache(cfg, B, WHISPER_DEC_CACHE, "meta", enc_len=S)
+    else:
+        cache = init_cache(cfg, B, S, "meta")
+    cache["pos"] = torch.empty((), dtype=torch.int32, device="meta")
+    return cache

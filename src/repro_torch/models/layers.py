@@ -80,13 +80,21 @@ def matmul_rows(x, w, fixed: bool = False):
     return out.reshape(*lead, N)
 
 
+def _meta(device) -> bool:
+    return torch.device(device).type == "meta"
+
+
 def normal_param(shape, std, gen, dtype, device):
     """Seeded normal init (fp32 draw, cast) — drawn on the CPU so the same
     seed gives the same weights on every device; 0 std means zeros. The
     draw moves to ``device`` in fp32 and is scaled and cast there: the
     same fp32 product and rounding on any device, and on the card it
     spares the host half the work of a full-width model's billions of
-    values."""
+    values. On the meta device (``model.param_shapes``) nothing is
+    drawn."""
+    if _meta(device):
+        return nn.Parameter(torch.empty(shape, dtype=dtype, device="meta"),
+                            requires_grad=False)
     if std == 0.0:
         t = torch.zeros(shape, dtype=dtype, device=device)
     else:
@@ -108,7 +116,10 @@ def expert_param(n: int, shape, std, gen, dtype, device):
     fp32 draw would need twice the stack's memory, so each expert is
     drawn in fp32 and cast into its slot. The same seed gives the same
     stacks on the same device type, and other bits on the card than on
-    the CPU; a comparison across devices copies one model to the other."""
+    the CPU; a comparison across devices copies one model to the other.
+    On the meta device nothing is drawn, from ``gen`` either."""
+    if _meta(device):
+        return normal_param((n, *shape), std, gen, dtype, device)
     seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen))
     dev_gen = torch.Generator(device=device).manual_seed(seed)
     t = torch.empty((n, *shape), dtype=dtype, device=device)
@@ -183,8 +194,10 @@ def apply_mrope(x, positions_3d, theta: float, sections):
                          f"d_head / 2 = {d // 2}")
     freqs = rope_freqs(d, theta, x.device)
     pos = positions_3d.to(x.device).float()
-    sec = torch.repeat_interleave(torch.arange(3, device=x.device),
-                                  torch.tensor(sections, device=x.device))
+    # which of t, h, w each frequency pair takes, from the Python ints
+    # (a shape-dependent op, which the meta device cannot run on data)
+    sec = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)],
+                       device=x.device)
     return _rotate(x, pos[sec].movedim(0, -1) * freqs)
 
 
@@ -295,11 +308,14 @@ class MLP(nn.Module):
 def mlp(p: MLP, x, fixed: bool = False):
     """The GELUs are tanh-approximated, as ``jax.nn.gelu(...,
     approximate=True)``."""
+    return matmul_rows(mlp_hidden(p, x, fixed), p.w_down, fixed)
+
+
+def mlp_hidden(p: MLP, x, fixed: bool = False):
+    """``mlp`` before its down-projection: the (…, d_ff) activations."""
     if p.act == "gelu":
-        h = F.gelu(matmul_rows(x, p.w_up, fixed), approximate="tanh")
-    else:
-        gate = matmul_rows(x, p.w_gate, fixed)
-        act = (F.silu(gate) if p.act == "silu_glu"
-               else F.gelu(gate, approximate="tanh"))
-        h = act * matmul_rows(x, p.w_up, fixed)
-    return matmul_rows(h, p.w_down, fixed)
+        return F.gelu(matmul_rows(x, p.w_up, fixed), approximate="tanh")
+    gate = matmul_rows(x, p.w_gate, fixed)
+    act = (F.silu(gate) if p.act == "silu_glu"
+           else F.gelu(gate, approximate="tanh"))
+    return act * matmul_rows(x, p.w_up, fixed)

@@ -57,6 +57,7 @@ from typing import List
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ModelConfig
@@ -128,6 +129,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     return Model(cfg, gen, dtype, dev).eval()
+
+
+def param_shapes(cfg: ModelConfig, dtype=torch.bfloat16) -> Model:
+    """The ``Model`` of ``cfg`` on the meta device: every tensor's shape
+    and dtype, no storage and no draw (a full-width kimi-k2 builds in
+    about a second). The dry-run sizes its sharding from it."""
+    return Model(cfg, None, dtype, torch.device("meta")).eval()
 
 
 def count_params(model: Model) -> int:
@@ -211,10 +219,14 @@ def _embed_inputs(model: Model, tokens, pos=None, batch=None):
     ``batch`` with ``patch_embeds`` (B, n_vision, d) has them spliced
     over the first n_vision rows; under M-RoPE the positions are the
     batch's ``mrope_pos`` (3, B, S)."""
+    return finish_embed(model.cfg, model.embed[tokens], tokens, pos, batch)
+
+
+def finish_embed(cfg: ModelConfig, x, tokens, pos=None, batch=None):
+    """``_embed_inputs`` after the lookup ``x`` (B,S,d) of ``tokens``:
+    the scale, the patch splice and the positions."""
     B, S = tokens.shape
-    cfg = model.cfg
     batch = batch or {}
-    x = model.embed[tokens]
     if cfg.emb_scale_by_sqrt_d:
         # sqrt(d) rounded to the embedding's dtype first, as the JAX
         # package multiplies by jnp.asarray(d ** 0.5, x.dtype)
@@ -257,17 +269,26 @@ def _sin_at(d: int, positions):
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def _encode(model: Model, frames, remat: bool = False):
-    """whisper's encoder over frame embeddings (B, S_enc, d): the
-    sinusoidal positions 0..S_enc-1 added in the frames' dtype, the
-    ``"enc"`` layers in train mode (non-causal self-attention, no rope,
-    no cache), each under ``torch.utils.checkpoint`` with ``remat``, and
-    the encoder's final norm: the JAX package's ``_encode``."""
-    enc = model.encoder
-    x = torch.as_tensor(frames).to(model.device, model.embed.dtype)
+def encoder_input(cfg: ModelConfig, frames, dtype):
+    """The encoder's input of frame embeddings (B, S_enc, d) on their
+    device: (the frames in ``dtype`` plus the sinusoidal positions
+    0..S_enc-1 in that dtype, those positions (B, S_enc))."""
+    x = frames.to(dtype)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    x = x + _sin_at(model.cfg.d_model, positions).to(x.dtype)
+    return x + _sin_at(cfg.d_model, positions).to(x.dtype), positions
+
+
+def _encode(model: Model, frames, remat: bool = False):
+    """whisper's encoder over frame embeddings (B, S_enc, d): the
+    sinusoidal positions added (``encoder_input``), the ``"enc"`` layers
+    in train mode (non-causal self-attention, no rope, no cache), each
+    under ``torch.utils.checkpoint`` with ``remat``, and the encoder's
+    final norm: the JAX package's ``_encode``."""
+    enc = model.encoder
+    x, positions = encoder_input(
+        model.cfg, torch.as_tensor(frames).to(model.device),
+        model.embed.dtype)
     for blk in enc.layers:
         if remat:
             x, _ = checkpoint(_train_block, blk, x, positions, model.cfg,
@@ -308,11 +329,55 @@ def _logits(model: Model, x, head=None):
     return logits
 
 
+def prefill_cache_len(cfg: ModelConfig, cache_len: int) -> int:
+    """The decoder cache's rows of a prefill asked for ``cache_len``: an
+    encoder-decoder stack's are capped at ``WHISPER_DEC_CACHE``."""
+    return min(cache_len, WHISPER_DEC_CACHE) if cfg.n_enc_layers \
+        else cache_len
+
+
+def check_decoder_cap(cfg: ModelConfig, cache) -> None:
+    """An encoder-decoder stack's decode at a position (any slot's)
+    past its decoder cache raises ValueError, before anything is
+    written (the JAX package would overwrite the last row). ``pos`` may
+    be an int, a tensor or a DTensor (its whole tensor is read); a
+    meta one (the dry-run's sizing) has no values to check."""
+    if not cfg.n_enc_layers:
+        return
+    rows = cache["layers"][0]["k"].shape[2]
+    pos = torch.as_tensor(cache["pos"])
+    if pos.device.type == "meta":
+        return
+    if isinstance(pos, DTensor):
+        pos = pos.full_tensor()
+    last = int(pos.max())
+    if last >= rows:
+        raise ValueError(f"{cfg.name}: decode at position {last} past the "
+                         f"{rows}-row decoder cache")
+
+
 def _no_encdec(model: Model, what: str) -> None:
     if model.cfg.n_enc_layers:
         raise NotImplementedError(f"{what}: encoder-decoder stacks "
                                   f"({model.cfg.name}) take prefill and "
                                   f"decode_step only")
+
+
+def _mesh(model) -> bool:
+    """The model's parameters are DTensors (``parallel.distribute_model``)."""
+    return getattr(model, "mesh_ctx", None) is not None
+
+
+def _parallel():
+    from repro_torch.distributed import parallel
+    return parallel
+
+
+def _no_mesh(model: Model, what: str) -> None:
+    if _mesh(model):
+        raise NotImplementedError(
+            f"{what} under a mesh: the mesh path runs train_loss, prefill "
+            f"and decode_step (dense caches) only")
 
 
 # ------------------------------------------------------------- public API ----
@@ -324,6 +389,7 @@ def forward_hidden(model: Model, batch):
     (B, S, d) final-normed hidden states of ``batch["tokens"]`` from
     position 0, no cache. Every product and norm runs in fixed-size row
     calls, so a row's bits do not depend on B."""
+    _no_mesh(model, "forward_hidden")
     tokens = _tokens(model, batch)
     memory = _memory(model, batch)
     x, positions = _embed_inputs(model, tokens, batch=batch)
@@ -342,6 +408,13 @@ def xent_chunked(model: Model, x, labels, chunk: int = 256):
     fp32 once for all chunks: a cast a chunk would keep one fp32 copy a
     chunk for the backward (5 GB each at qwen2-vl-72b's head) and sum the
     head's gradient in bf16, chunk by chunk."""
+    tot, cnt = xent_sums(model, x, labels, chunk)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def xent_sums(model: Model, x, labels, chunk: int = 256):
+    """(the summed loss, the count of labels) of ``xent_chunked``; the
+    mesh path sums them over the batch shards before the division."""
     B, S, _ = x.shape
     chunk = min(chunk, S)
     if S % chunk:
@@ -359,7 +432,7 @@ def xent_chunked(model: Model, x, labels, chunk: int = 256):
         tot = tot + torch.sum((torch.logsumexp(logits, dim=-1) - picked)
                               * mask)
         cnt = cnt + torch.sum(mask)
-    return tot / torch.clamp(cnt, min=1.0)
+    return tot, cnt
 
 
 def _train_block(blk: Block, x, positions, cfg: ModelConfig, memory=None):
@@ -372,14 +445,17 @@ def _train_block(blk: Block, x, positions, cfg: ModelConfig, memory=None):
 def train_loss(model: Model, batch, remat: bool = True):
     """The training forward and its scalar loss, differentiable: the JAX
     package's ``train_loss``, the LM loss plus the sum of the MoE layers'
-    load-balance terms (each ``load_balance_loss * aux_loss_weight``,
+    load-balance terms (each ``moe.aux_term``,
     added in layer order; 0 in a stack without MoE layers). ``remat``
     recomputes each block in the backward (``torch.utils.checkpoint``,
     non-reentrant), as the JAX package wraps each unit in
     ``jax.checkpoint``: the block returns its aux term through the
     checkpoint, so remat and no remat sum the same terms in the same
     order. An encoder-decoder stack encodes ``batch["frames"]`` first.
-    Tokens and labels move to the model's device."""
+    Tokens and labels move to the model's device. A model distributed
+    over a mesh (``distributed/parallel.py``) runs its mesh path."""
+    if _mesh(model):
+        return _parallel().train_loss(model, batch, remat)
     tokens = _tokens(model, batch)
     labels = torch.as_tensor(batch["labels"], dtype=torch.long,
                              device=model.device)
@@ -398,17 +474,24 @@ def train_loss(model: Model, batch, remat: bool = True):
 
 
 @torch.no_grad()
-def prefill(model: Model, batch, cache_len: int):
+def prefill(model: Model, batch, cache_len: int, seq_axis=None):
     """Process a prompt; returns (last-token logits (B,V) fp32, filled
     cache with ``pos`` = prompt length). An encoder-decoder stack encodes
     ``batch["frames"]`` first, its decoder cache capped at
-    ``WHISPER_DEC_CACHE`` rows, its cross-attention K/V cached."""
+    ``WHISPER_DEC_CACHE`` rows, its cross-attention K/V cached.
+
+    A model distributed over a mesh runs its mesh path: DTensor logits
+    and cache; ``seq_axis`` (a mesh axis name) pins the residual
+    stream's seq dim to it per layer (``annotate.constrain_seq``), the
+    sequence-parallel prefill. Without a mesh it is a no-op, as in the
+    JAX package."""
+    if _mesh(model):
+        return _parallel().prefill(model, batch, cache_len, seq_axis)
     tokens = _tokens(model, batch)
     B, S = tokens.shape
     memory = _memory(model, batch)
     enc_len = 0 if memory is None else memory.shape[1]
-    if memory is not None:
-        cache_len = min(cache_len, WHISPER_DEC_CACHE)
+    cache_len = prefill_cache_len(model.cfg, cache_len)
     x, positions = _embed_inputs(model, tokens, batch=batch)
     cache = init_cache(model.cfg, B, cache_len, model.device, enc_len)
     x, layers = _apply_stack(model, x, mode="prefill", cache=cache, pos=0,
@@ -428,6 +511,7 @@ def prefill_extend(model: Model, cache, batch, n_valid=None):
     writes before they become visible. An encoder-decoder stack raises,
     as the JAX package asserts."""
     _no_encdec(model, "prefill_extend")
+    _no_mesh(model, "prefill_extend")
     pos = int(cache["pos"])
     tokens = _tokens(model, batch)
     S = tokens.shape[1]
@@ -451,12 +535,9 @@ def decode_step(model: Model, cache, batch):
     the batch carries ``mrope_pos`` (3, B, 1). An encoder-decoder
     stack's decode past its decoder cache raises ValueError and writes
     nothing (the JAX package would overwrite the last row)."""
-    if model.cfg.n_enc_layers:
-        rows = cache["layers"][0]["k"].shape[2]
-        last = int(torch.as_tensor(cache["pos"]).max())
-        if last >= rows:
-            raise ValueError(f"{model.cfg.name}: decode at position {last} "
-                             f"past the {rows}-row decoder cache")
+    if _mesh(model):
+        return _parallel().decode_step(model, cache, batch)
+    check_decoder_cap(model.cfg, cache)
     pos, tab, plan = _step_inputs(model, cache, 1)
     tokens = _tokens(model, batch)
     x, positions = _embed_inputs(model, tokens, pos=pos, batch=batch)
@@ -486,6 +567,7 @@ def verify_extend(model: Model, cache, batch):
     bitwise the logits of the i'th sequential ``decode_step``. An
     encoder-decoder stack raises, as the JAX package asserts."""
     _no_encdec(model, "verify_extend")
+    _no_mesh(model, "verify_extend")
     tokens = _tokens(model, batch)
     W = tokens.shape[1]
     pos, tab, plan = _step_inputs(model, cache, W)

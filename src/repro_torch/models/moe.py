@@ -25,6 +25,18 @@ function (the JAX package's ``_dispatch_gather``):
   * each token sums its kept choices' outputs weighted by the routing
     weights cast to the activation dtype, in choice order.
 
+Under a mesh with a ``model`` axis, ``moe_dispatch="shard_map"`` runs
+the expert-parallel dispatch (``_dispatch_ep``, the JAX package's
+``_dispatch_shard_map``) per rank: the rank owns E/m contiguous
+experts, gathers its own choices from the ``model``-replicated tokens
+into buffers of ``capacity`` of its LOCAL tokens (all B*S of them, in
+(token, choice) order, as JAX counts them) and returns its share of the
+combine, summed over the ``model`` group by the caller
+(``distributed/parallel.py``). Its capacity differs from the one
+dispatch's (a row's S tokens), so the two agree where no choice is
+dropped. At S = 1 and without a mesh the one dispatch runs, as JAX
+falls back.
+
 The load-balance loss is computed only when a caller asks for it
 (``with_aux``): training does (``model.train_loss`` adds it), no serve
 mode does. Under grad the routing weights' gradient is the router's
@@ -95,12 +107,20 @@ def router_topk(p: MoE, x, mcfg: MoEConfig, fixed: bool = False):
     return w.reshape(B, S, k), idx.reshape(B, S, k), logits
 
 
-def load_balance_loss(probs, idx, mcfg: MoEConfig):
-    """Switch/GShard auxiliary loss E * sum_e(f_e * p_e) over the top-1
-    choices; probs: (B,S,E) router softmax, idx: (B,S,k)."""
-    E = mcfg.n_experts
+def balance_stats(probs, idx, E: int):
+    """(f, p) of the load-balance loss: the share of tokens whose top-1
+    choice is each expert and the mean router probability of each, (E,)
+    fp32 over the (B,S) tokens."""
     f = F.one_hot(idx[..., 0].long(), E).float().mean(dim=(0, 1))
-    return E * torch.sum(f * probs.float().mean(dim=(0, 1)))
+    return f, probs.float().mean(dim=(0, 1))
+
+
+def aux_term(f, p, mcfg: MoEConfig):
+    """The layer's aux loss of ``balance_stats``' (f, p): the
+    Switch/GShard load-balance loss E * sum_e(f_e * p_e) over the top-1
+    choices, times its weight (the mesh path sums f and p over its batch
+    shards first)."""
+    return mcfg.n_experts * torch.sum(f * p) * mcfg.aux_loss_weight
 
 
 def _dispatch(p: MoE, x, w, idx, mcfg: MoEConfig):
@@ -126,14 +146,47 @@ def _dispatch(p: MoE, x, w, idx, mcfg: MoEConfig):
     del buf, xe
     ye = torch.bmm(h, p.w_down)
     out = ye.view(-1, d)[torch.clamp(slot, max=n - 1)]
-    out = out.view(B, S, K, d).float()
-    # weights in the activation dtype (0 if dropped); products and their
-    # sum in fp32 in choice order, rounded once
-    wk = (w * keep.view(B, S, K)).to(x.dtype).float()
+    return _combine(out.view(B, S, K, d).float(), w, keep.view(B, S, K),
+                    x.dtype)
+
+
+def _combine(out, w, keep, dtype):
+    """Each token's kept choices' outputs out (B,S,K,d) fp32, weighted
+    by w (B,S,K) cast to ``dtype`` (0 if dropped), summed in fp32 in
+    choice order and rounded once."""
+    wk = (w * keep).to(dtype).float()
     y = out[:, :, 0] * wk[:, :, 0, None]
-    for j in range(1, K):
+    for j in range(1, out.shape[2]):
         y = y + out[:, :, j] * wk[:, :, j, None]
-    return y.to(x.dtype)
+    return y.to(dtype)
+
+
+def _dispatch_ep(p, x, w, idx, mcfg: MoEConfig, rank: int):
+    """The expert-parallel dispatch of one ``model`` rank (module note):
+    p holds the rank's E/m experts ``[rank * E/m, (rank + 1) * E/m)``;
+    x (B,S,d), w, idx (B,S,k) are the rank's tokens. Returns the rank's
+    share of the combine (B,S,d) in x's dtype."""
+    B, S, d = x.shape
+    N, K = B * S, mcfg.top_k
+    el = p.w_gate.shape[0]
+    C = capacity(mcfg, N)
+    loc = idx.reshape(N * K).long() - rank * el              # local ids
+    mine = (loc >= 0) & (loc < el)
+    e_loc = torch.where(mine, loc, el)                       # el: overflow
+    counts = F.one_hot(e_loc, el + 1).cumsum(dim=0)
+    pos = counts.gather(1, e_loc[:, None])[:, 0] - 1
+    keep = mine & (pos < C)
+    n = el * C
+    slot = torch.where(keep, e_loc * C + pos, n)
+    buf = x.new_zeros((n + 1, d))
+    buf[slot] = x.reshape(N, 1, d).expand(N, K, d).reshape(N * K, d)
+    xe = buf[:-1].view(el, C, d)
+    h = F.silu(torch.bmm(xe, p.w_gate)) * torch.bmm(xe, p.w_up)
+    del buf, xe
+    ye = torch.bmm(h, p.w_down)
+    out = ye.reshape(n, d)[torch.clamp(slot, max=n - 1)]
+    return _combine(out.view(B, S, K, d).float(), w,
+                    keep.view(B, S, K), x.dtype)
 
 
 def moe_ffn(p: MoE, x, cfg: ModelConfig, *, fixed: bool = False,
@@ -149,6 +202,6 @@ def moe_ffn(p: MoE, x, cfg: ModelConfig, *, fixed: bool = False,
         y = y + L.mlp(p.shared_expert, x, fixed)
     aux = None
     if with_aux:
-        aux = load_balance_loss(torch.softmax(logits, dim=-1), idx,
-                                mcfg) * mcfg.aux_loss_weight
+        aux = aux_term(*balance_stats(torch.softmax(logits, dim=-1), idx,
+                                      mcfg.n_experts), mcfg)
     return y, aux

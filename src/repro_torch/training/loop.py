@@ -11,6 +11,10 @@ batch (numpy or tensors: packed tokens and labels, or a
 ``mrope_pos`` or an audio stack's ``frames``, the JAX package's way to
 train those families) moves to the model's device inside the step.
 Metrics stay 0-d tensors on the device; reading one waits for the step.
+A model distributed over a mesh (``distributed/parallel.py``) trains the
+same way: every batch key is laid out by ``sharding.batch_sharding``
+inside the step, its parameters and gradients are DTensors, and the
+metrics are the replicated scalars' local values.
 ``init_params`` and the weight bridge build frozen (serving) models: a
 model to train has ``requires_grad_(True)`` first.
 """
@@ -31,16 +35,25 @@ def make_train_step(cfg: ModelConfig, *, lr=3e-4,
                     grad_clip: float = 1.0) -> Callable:
     def train_step(model: Model, opt_state: AdamWState, batch):
         params = dict(model.named_parameters())
+        if getattr(model, "mesh_ctx", None) is not None:
+            from repro_torch.distributed.parallel import distribute_batch
+            batch = distribute_batch(batch, model, "train")
         loss = train_loss(model, batch, remat=remat)
         grads = dict(zip(params, torch.autograd.grad(
             loss, list(params.values()))))
         model, opt_state, gnorm = adamw_update(
             model, grads, opt_state, lr=lr, weight_decay=weight_decay,
             grad_clip=grad_clip)
-        metrics = {"loss": loss.detach(), "grad_norm": gnorm,
+        metrics = {"loss": _local(loss.detach()), "grad_norm": _local(gnorm),
                    "step": opt_state.step}
         return model, opt_state, metrics
     return train_step
+
+
+def _local(t):
+    """A DTensor scalar's value on this rank (a tensor as it is)."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def train(cfg: ModelConfig, data_iter, n_steps: int, *, seed: int = 0,

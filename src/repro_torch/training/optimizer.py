@@ -14,6 +14,13 @@ parameter with its gradient) and one parameter's fp32 temporaries at a
 time: the functional form held every fp32 gradient twice and the old
 beside the new m and v, ~30 bytes a parameter, which a one-layer
 qwen2-vl-72b (3.4 B parameters) does not fit in 80 GB.
+
+A model distributed over a mesh (``distributed/parallel.py``) has
+DTensor parameters and gradients; the same code updates them shard by
+shard (m and v laid out by ``parallel.distribute_opt_state``), and the
+global gradient norm is the norm over the whole sharded leaves: each
+leaf's sum of squares is a DTensor reduced over the mesh before the
+square root.
 """
 from __future__ import annotations
 
@@ -29,9 +36,19 @@ class AdamWState(NamedTuple):
     v: Dict[str, torch.Tensor]
 
 
+def _zeros(p):
+    """fp32 zeros shaped as p; for a DTensor p, laid out as p (each rank
+    its shard's zeros, on the shard's device)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(p, DTensor):
+        return DTensor.from_local(
+            torch.zeros_like(p.to_local(), dtype=torch.float32),
+            p.device_mesh, p.placements, run_check=False)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
 def adamw_init(model) -> AdamWState:
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    zeros = _zeros
     ps = dict(model.named_parameters())
     return AdamWState(step=0, m={n: zeros(p) for n, p in ps.items()},
                       v={n: zeros(p) for n, p in ps.items()})

@@ -363,7 +363,9 @@ def test_train_launcher_cli_and_serve_of_its_checkpoint(tmp_path, capsys):
 
 
 def test_train_launcher_refuses_multi_pod():
-    with pytest.raises(NotImplementedError, match="A13"):
+    """--multi-pod needs a launch of 512 ranks; one process raises,
+    naming the size, and builds no smaller mesh."""
+    with pytest.raises(RuntimeError, match="512 ranks"):
         LT.main(["--device", "cpu", "--smoke", "--multi-pod"])
 
 
