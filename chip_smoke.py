@@ -3,8 +3,13 @@
   python3 chip_smoke.py [--kernels-only]
 
 Builds the port's twelve Hopper kernels from ``src/repro_torch/csrc/``
-and checks that flash_prefill's SASS runs on the tensor cores (HGMMA
-instructions at every head dim, ``cuobjdump -sass``), then holds each
+and runs the port's static-analysis sweep (``analysis_sweep``:
+``repro_torch.analysis.run_repo`` gives no unsuppressed error, every
+``_build.entry`` site is resolved, and every ``extern "C"`` entry the
+RL203 pass parsed resolves by ``getattr`` in its built library, as many
+as there are sites), checks that flash_prefill's SASS runs on the tensor
+cores (HGMMA instructions at every head dim, ``cuobjdump -sass``), then
+holds each
 kernel against its plain PyTorch version on the card: the attention
 kernels at the served planner's shapes (head dim 64) and at head dims
 128 and 32 with the MoE families' heads (kimi-k2's 64/8 and arctic's
@@ -57,11 +62,17 @@ arctic's and kimi-k2's full E, tied logits; hymba's (2, 2,048, 1,600,
 8; xlstm's (8, 4, 256, 192) and a 1,024-step sequence, each from a
 fresh and from a given state), each with the same sha256 on a second
 call, its device time a call (by kernel for the scans) and the
-registers and spills of each of their kernels. Then it serves
-planner-proxy-100m at full width through the launcher's serving
-function (dense monolithic and chunked, paged, speculative dense and
-paged, ``--draft-k 21`` (66 verify rows per kv head), paged with a pool
-small enough to preempt, and paged with 8-row blocks), checks that
+registers and spills of each of their kernels. Then the JAX package's
+end-to-end example, ``launch/serve_copilot.py`` (``copilot_example``),
+through its ``main`` on the card and on the CPU: the agent's report rows
+equal exactly, flash_prefill and flash_decode launched, and the card's
+T=0 tokens held to the CPU's by the card-vs-CPU rule (logits along the
+card's tokens within LOGIT_TOL; a token parts only at a near tie,
+counted). Then it serves planner-proxy-100m at full width through the
+launcher's serving function (dense monolithic and chunked, paged,
+speculative dense and paged, ``--draft-k 21`` (66 verify rows per kv
+head), paged with a pool small enough to preempt, and paged with 8-row
+blocks), checks that
 every run emits the monolithic run's tokens with a self-draft accept
 rate of 1.0, that chunked prefill and prefix hits of 1,312-token prompts
 do too, profiles a full-width decode step and a speculative round, dense
@@ -3831,6 +3842,134 @@ def a12_train(arch: str, model):
     return run
 
 
+# ------------------------------------------------- the analysis slice ----
+
+def analysis_sweep() -> dict:
+    """The port's static-analysis sweep (``run_repo``) on this machine:
+    no unsuppressed error; every ``_build.entry`` site resolved; every C
+    entry the RL203 pass parsed from ``csrc/*.cu`` resolves by
+    ``getattr`` in its built ``lib<source>.so``, as many entries as there
+    are sites, one a kernel of ``KB.KERNELS``."""
+    from repro_torch.analysis import active, run_repo
+    from repro_torch.analysis.kernel_contracts import c_entries, \
+        entry_sites
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import backend as KB
+    t0 = time.time()
+    findings = run_repo()
+    errors = active(findings)
+    check(not errors, "analysis: unsuppressed errors: "
+          + "; ".join(f.render() for f in errors))
+    sites = [s for p in sorted((ROOT / "src/repro_torch/kernels")
+                               .glob("*.py"))
+             for s in entry_sites(p, p.read_text())]
+    skipped = [s.symbol for s in sites if not s.resolved]
+    check(not skipped, f"analysis: entry sites not resolved: {skipped}")
+    parsed = [(cu.stem, e.symbol) for cu in sorted(
+        (ROOT / "src/repro_torch/csrc").glob("*.cu"))
+        for e in c_entries(cu.read_text())]
+    missing = [f"lib{stem}.so:{sym}" for stem, sym in parsed
+               if not hasattr(_build.load(stem), sym)]
+    check(not missing, f"analysis: C entries missing from the built "
+                       f"libraries: {missing}")
+    check(len(parsed) == len(sites) == len(KB.KERNELS),
+          f"analysis: {len(parsed)} C entries, {len(sites)} entry sites, "
+          f"{len(KB.KERNELS)} kernels")
+    return dict(seconds=time.time() - t0, findings=len(findings),
+                errors=len(errors), warnings=len(active(findings,
+                                                          "warning")),
+                suppressed=[f"{f.rule} {f.path}:{f.line} ({f.suppressed})"
+                            for f in findings if f.suppressed],
+                entry_sites=len(sites), c_entries=len(parsed),
+                symbols_resolved=len(parsed) - len(missing))
+
+
+def _copilot(argv):
+    """``serve_copilot.main(argv)`` with its printed lines captured."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve_copilot as SC
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = SC.main(argv)
+    return res, buf.getvalue().splitlines()
+
+
+def forced_logits(model, prompt, tokens):
+    """(len(tokens), V) fp32 logits of ``model`` along ``tokens`` after
+    ``prompt``: a prefill, then a decode step a forced token."""
+    from repro_torch.launch.serve_copilot import CACHE_LEN
+    from repro_torch.models.model import decode_step, prefill
+    lg, cache = prefill(model, {"tokens": np.asarray([prompt])}, CACHE_LEN)
+    seq = [lg.float().cpu()]
+    for t in tokens[:-1]:
+        lg, cache = decode_step(model, cache, {"tokens": [[int(t)]]})
+        seq.append(lg.float().cpu())
+    return torch.cat(seq)
+
+
+def copilot_example() -> dict:
+    """``launch/serve_copilot.py`` (the JAX package's deliverable-b
+    example: the smoke planner served by a 4-slot engine with a 256-row
+    cache, 12 gate prompts, 4 new tokens at T=0, the agent run with and
+    without the gate) through its ``main`` on the card, launches counted
+    (set to 0 just before, read just after), then on the CPU: the agent
+    report rows equal exactly; flash_prefill and flash_decode launched;
+    the card's tokens held to the CPU's by the card-vs-CPU rule: each
+    request's logits along the card's tokens within LOGIT_TOL on the
+    two devices (the same seeded weights), and a token parts from the
+    CPU's only where the CPU's top-2 margin is at most 2 * LOGIT_TOL (a
+    near tie; the count is reported)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import backend as KB
+    from repro_torch.launch import serve_copilot as SC
+    from repro_torch.models.model import init_params
+    KB.reset_launches()
+    t0 = time.time()
+    card, lines = _copilot([])
+    seconds = time.time() - t0
+    counts = KB.launch_counts()
+    missing = [k for k in ("flash_prefill", "flash_decode") if not counts[k]]
+    check(not missing, f"copilot: no launch of {missing}")
+    t1 = time.time()
+    cpu, cpu_lines = _copilot(["--device", "cpu"])
+    cpu_seconds = time.time() - t1
+    check(card["reports"] == cpu["reports"],
+          f"copilot: card report rows {card['reports']} != CPU's "
+          f"{cpu['reports']}")
+    check(lines[:-1] == cpu_lines[:-1], "copilot: printed lines differ")
+    check(card["prompts"] == cpu["prompts"], "copilot: prompts differ")
+    cfg = get_smoke_config(SC.ARCH)
+    models = {dev: init_params(cfg, seed=0, device=dev)
+              for dev in ("cuda", "cpu")}
+    diff, parted, margins = 0.0, 0, []
+    for prompt, ours, theirs in zip(card["prompts"], card["outputs"],
+                                    cpu["outputs"]):
+        lg = {dev: forced_logits(m, prompt, ours)
+              for dev, m in models.items()}
+        check(bool(torch.isfinite(lg["cuda"]).all()),
+              "copilot: non-finite card logits")
+        diff = max(diff, float((lg["cuda"] - lg["cpu"]).abs().max()))
+        j = next((i for i, (a, b) in enumerate(zip(ours, theirs))
+                  if a != b), None)
+        if j is not None:
+            top2 = lg["cpu"][j].topk(2).values
+            margins.append(float(top2[0] - top2[1]))
+            parted += 1
+            check(margins[-1] <= 2 * LOGIT_TOL,
+                  f"copilot: a token parts at position {j} where the "
+                  f"CPU's top-2 margin is {margins[-1]}")
+    check(diff <= LOGIT_TOL, f"copilot: card vs CPU logits differ by {diff}")
+    return dict(seconds=seconds, cpu_seconds=cpu_seconds,
+                engine_seconds=card["seconds"], tok_s=card["tok_s"],
+                requests=card["requests"], launches=counts,
+                reports=card["reports"], reports_equal_cpu=True,
+                max_abs_logit_diff=diff, tol=LOGIT_TOL,
+                tokens_equal_cpu=card["outputs"] == cpu["outputs"],
+                requests_parted_at_near_tie=parted,
+                near_tie_margins=margins, lines=lines)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
@@ -3865,6 +4004,7 @@ def main(argv=None) -> int:
     emit("build", seconds=time.time() - t0, dir=str(build.relative_to(ROOT)),
          sources=sorted(p.name for p in (ROOT / "src/repro_torch/csrc")
                         .glob("*.cu")))
+    emit("analysis_sweep", **analysis_sweep())
     OUT_DIR.mkdir(exist_ok=True)
     logs = _build.build_logs()
     hgmma = prefill_sass(build)
@@ -3983,6 +4123,8 @@ def main(argv=None) -> int:
             RESULTS, indent=1, default=str))
         return 0
 
+    copilot = copilot_example()
+    emit("copilot_example", **copilot)
     runs, cluster = planner_phases()
     geckopt = geckopt_phases()
     train = training_phases()
@@ -4026,6 +4168,8 @@ def main(argv=None) -> int:
         if "device_ms" in c:       # the decode family: profiler times
             rows[-1].update(device_ms=c["device_ms"],
                             library_device_ms=c["library_device_ms"])
+        # the serve_copilot example's run (the smoke planner's engine)
+        rows[-1]["copilot_launches"] = copilot["launches"][fn.__name__]
         # the GeckOpt pipeline's dense run (gate waves, prefixes, turns)
         rows[-1]["geckopt_launches"] = \
             geckopt["dense"]["launches"][fn.__name__]

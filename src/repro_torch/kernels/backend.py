@@ -22,7 +22,8 @@ version runs, and a 32k-step scan is not stepped.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import inspect
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,6 +62,43 @@ OP_SURFACE: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
 }
 
 OPS: Tuple[str, ...] = tuple(OP_SURFACE)
+
+
+def check_op_signature(op: str, impl: Callable) -> Optional[str]:
+    """Return a defect description if ``impl`` cannot accept the
+    declared :data:`OP_SURFACE` call for ``op``, else None (the JAX
+    package's rule, ``repro.kernels.backend.check_op_signature``).
+
+    Rules: the leading positional parameter names must match the
+    surface exactly (callers pass them positionally); every declared
+    keyword-only name must be accepted; any parameter beyond the
+    surface must have a default (so surface-shaped calls still bind).
+    """
+    pos_names, kw_names = OP_SURFACE[op]
+    try:
+        params = list(inspect.signature(impl).parameters.values())
+    except (TypeError, ValueError):          # builtins / C callables
+        return None
+    pos = [p for p in params if p.kind in (p.POSITIONAL_ONLY,
+                                           p.POSITIONAL_OR_KEYWORD)]
+    kws = {p.name: p for p in params if p.kind == p.KEYWORD_ONLY}
+    has_var_kw = any(p.kind == p.VAR_KEYWORD for p in params)
+    got = tuple(p.name for p in pos[:len(pos_names)])
+    if got != pos_names:
+        return (f"positional params {got} != declared {pos_names}")
+    for extra in pos[len(pos_names):]:
+        if extra.default is extra.empty:
+            return (f"extra positional param {extra.name!r} without a "
+                    f"default breaks surface-shaped calls")
+    if not has_var_kw:
+        missing = [n for n in kw_names if n not in kws]
+        if missing:
+            return f"missing keyword params {missing}"
+    for name, p in kws.items():
+        if name not in kw_names and p.default is p.empty:
+            return (f"extra keyword-only param {name!r} without a "
+                    f"default breaks surface-shaped calls")
+    return None
 
 #: every ported kernel wrapper; each counts its launches in ``.launches``
 KERNELS = (flash_prefill, flash_decode, flash_decode_paged, flash_verify,

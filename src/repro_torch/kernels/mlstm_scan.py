@@ -192,15 +192,17 @@ def mlstm_scan_bwd(q, k, v, i_pre, f_pre, state, dh, dstate, *,
         return mlstm_scan_bwd_ref(q, k, v, i_pre, f_pre, state, dh, dstate,
                                   scale=scale)
     ks = (k * scale).contiguous()
+    C0, n0, m0 = state
+    dC, dn, dm = dstate
     grads = tuple(torch.empty_like(t)
-                  for t in (q, k, v, i_pre, f_pre, *state))
+                  for t in (q, k, v, i_pre, f_pre, C0, n0, m0))
     scratch = tuple(torch.empty(shape, dtype=torch.float32, device=q.device)
                     for shape in bwd_scratch_shapes(B, H, S, hd))
     fn = _build.entry("mlstm_scan_bwd", "mlstm_scan_bwd_f32", _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*(t.data_ptr() for t in (q, ks, v, i_pre, f_pre, *state, dh,
-                                         *dstate) + grads + scratch),
+        rc = fn(*(t.data_ptr() for t in (q, ks, v, i_pre, f_pre, C0, n0, m0,
+                                         dh, dC, dn, dm) + grads + scratch),
                 B * H, S, hd, float(scale), stream)
     _build.check_rc("mlstm_scan_bwd", rc)
     mlstm_scan_bwd.launches += 1

@@ -36,7 +36,16 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.distributed.annotate",
             "repro_torch.distributed.parallel", "repro_torch.launch.mesh",
             "repro_torch.launch.dryrun",
-            "repro_torch.launch.profiles"} <= set(mods)
+            "repro_torch.launch.profiles", "repro_torch.analysis",
+            "repro_torch.analysis.__main__", "repro_torch.analysis.cli",
+            "repro_torch.analysis.runner", "repro_torch.analysis.findings",
+            "repro_torch.analysis.determinism",
+            "repro_torch.analysis.effects_check",
+            "repro_torch.analysis.backend_check",
+            "repro_torch.analysis.kernel_contracts",
+            "repro_torch.launch.quickstart",
+            "repro_torch.launch.gating_ablation",
+            "repro_torch.launch.serve_copilot"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"mods = {mods!r}\n"
