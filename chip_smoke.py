@@ -8,8 +8,9 @@ and runs the port's static-analysis sweep (``analysis_sweep``:
 ``_build.entry`` site is resolved, and every ``extern "C"`` entry the
 RL203 pass parsed resolves by ``getattr`` in its built library, as many
 as there are sites), checks that flash_prefill's SASS runs on the tensor
-cores (HGMMA instructions at every head dim, ``cuobjdump -sass``), then
-holds each
+cores (HGMMA instructions at every head dim, ``cuobjdump -sass``), and
+so does each of flash_prefill_bwd's three passes at every head dim,
+then holds each
 kernel against its plain PyTorch version on the card: the attention
 kernels at the served planner's shapes (head dim 64) and at head dims
 128 and 32 with the MoE families' heads (kimi-k2's 64/8 and arctic's
@@ -46,8 +47,9 @@ SDPA's device time beside it); flash_prefill's backward
 version (autograd through the plain forward) at the planner's training
 shapes (8 x 256 and 16 x 64), a 1,024-token row, kimi-k2's heads, head
 dim 32, a window and a softcap, with the same sha256 on a second call,
-its device time a call (by pass at the training shape) beside SDPA's
-backward, and its three passes' registers and spills, and at the A12
+its device time a call (by pass at the planner's and starcoder2-3b's
+training shapes) beside SDPA's backward, and its three passes'
+registers and spills, and at the A12
 families' training shapes: head dim 16 (qwen1.5-110b-smoke's 8/2),
 gemma2-2b's 8/4 of 256 with its cap 50 and 4,096 window over 4,608 rows
 and without either at 1,024, and whisper's 20/20 of 64 non-causal, its
@@ -241,11 +243,13 @@ Tolerances:
   * flash_prefill's rows in prefill and in extend: bitwise;
   * flash_prefill_bwd vs its plain version (bf16 out, fp32 inside):
     |kernel - plain| <= 2e-2 + 2e-2 * |plain| (BWD_ATOL, BWD_RTOL),
-    twice the forward's: the kernel recomputes p in fp32 but takes
-    D = rowsum(dO O) from the forward kernel's output, whose P V rounds
-    P to bf16, while the plain version differentiates its own fp32
-    forward; the gradients reach |dk| ~ 8, where one bf16 step is
-    0.031. Two calls: the same bits (no atomics, fixed sum orders);
+    twice the forward's: the kernel recomputes p in fp32 but rounds P
+    and dS to bf16 before its tensor-core products, while the plain
+    version differentiates its own fp32 forward; the gradients reach
+    |dk| ~ 8, where one bf16 step is 0.031 (the CPU tests hold an
+    emulation of the kernel's rounding points to jax.grad of the JAX
+    oracle within this tolerance). Two calls: the same bits (no
+    atomics, fixed sum orders);
   * training: remat vs no remat, bitwise (every loss and parameter);
     card vs CPU, one loss of the full-width planner and of each smoke
     config within TRAIN_LOSS_TOL = 0.05 (the forward's bf16 roundings,
@@ -319,7 +323,16 @@ Tolerances:
     product shapes for the same logits);
   * kimi-smoke's gradients card vs CPU with no expert choice dropped
     (capacity factor 100): every leaf's relative norm <=
-    NO_DROP_GRAD_REL = 3e-2, the CPU tests' bound against JAX.
+    NO_DROP_GRAD_REL = 3e-2, the CPU tests' bound against JAX;
+  * every training phase's card gradients with the backward kernel
+    against the same run with the plain attention backward on the card:
+    every leaf's relative norm <= BWD_GRAD_REL = 3e-2;
+  * every kernel case that reports a device time reports one (the
+    decode family's, the router's and the scans' run before the
+    backwards' cases, after which torch.profiler may miss launches;
+    where every profile of a case missed some, its call is timed by CUDA
+    events queued behind a spin, ``queued_ms``, and kernel_device_times
+    lists it under ``by_events``).
 """
 from __future__ import annotations
 
@@ -336,9 +349,12 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.launch.decode_bench import (  # noqa: E402
-    HYMBA_RINGS, KV_LENS, cuda_ms, device_ms, shuffled_pools)
+    HYMBA_RINGS, KV_LENS, cuda_ms, device_ms as profiled_ms, queued_ms,
+    shuffled_pools)
 from repro_torch.kernels.ref import identity_pool  # noqa: E402
 from repro_torch.launch import scan_bench  # noqa: E402
+from repro_torch.launch.attn_bwd_bench import (  # noqa: E402
+    BWD_CASES, BWD_LONG_WORK, bwd_bound, ptxas as bwd_ptxas, sass_hgmma)
 from repro_torch.launch.router_bench import (  # noqa: E402
     INSTANCES as ROUTER_INSTANCES, KERNEL as ROUTER_KERNEL, ROUTER_CASES,
     ROUTER_EXTRA_CASES, ROUTER_WTOL, router_logits)
@@ -380,6 +396,30 @@ def emit(phase: str, **kw):
 def check(ok: bool, msg: str):
     if not ok:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+# the kernel names (or "call") whose device time came from queued_ms
+# because every torch.profiler try missed launches (kernel_device_times)
+BY_EVENTS: list = []
+
+
+def device_ms(fn, kernel: str = "", iters: int = 20, tries: int = 3,
+              floor: bool = False):
+    """``decode_bench.device_ms``: the named kernel's own device time a
+    call from torch.profiler; and where every profile missed launches (on
+    some runs torch.profiler stops seeing launches part way through the
+    process), the whole call's device time from ``queued_ms`` instead,
+    noted in BY_EVENTS. With ``floor`` the floor then is a one-element
+    ``zero_()``'s queued time."""
+    got = profiled_ms(fn, kernel, iters, tries, floor)
+    if (got[0] if floor else got) is not None:
+        return got
+    BY_EVENTS.append(kernel or "call")
+    ms = queued_ms(fn, iters)
+    if not floor:
+        return ms
+    z = torch.empty(1, device="cuda")
+    return ms, queued_ms(z.zero_, iters)
 
 
 def bound(bytes_moved: float, flops: float, flop_s: float = BF16_FLOP_S,
@@ -1890,42 +1930,17 @@ def geckopt_phases():
 # attention_ref): both recompute p in fp32 from bf16 q, k and v; sums in
 # other orders, outputs rounded to bf16
 BWD_ATOL = BWD_RTOL = 2e-2
-# (B, Sq, Sk, (Hq, Hkv, hd), window, cap, causal, family): the planner's
-# train shapes (launch.train's 8 x 256, train_planner's 16 x 64), a
-# 1,024-token row, kimi-k2's heads at head dim 128, head dim 32, a window
-# and a softcap; then the A12 families' training: head dim 16
-# (qwen1.5-110b-smoke's 8/2), gemma2-2b's 8/4 of 256 with its cap and
-# window at 4,608 rows (the window crossed) and without either at 1,024,
-# and whisper's 20/20 of 64 non-causal, its encoder (1,500 frames) and
-# its cross-attention (16 decoder rows over the 1,500); then the other
-# heads and rows that the A12 training runs (A12_TRAIN) give it:
-# whisper's causal decoder self-attention (16 rows), qwen1.5-32b's
-# 40/40 of 128 (G = 1) at 1,024 rows, starcoder2-3b's 24/2 of 128 with
-# its 4,096 window at 4,608 rows, qwen2-vl-72b's 64/8 of 128 at 1,280
-BWD_CASES = [
-    (8, 256, 256, (HQ, HKV, HD), 0, 0.0, True, "train"),
-    (16, 64, 64, (HQ, HKV, HD), 0, 0.0, True, "gate"),
-    (1, 1024, 1024, (HQ, HKV, HD), 0, 0.0, True, "long"),
-    (1, 512, 512, MOE_HEADS["kimi"] + (128,), 0, 0.0, True, "kimi"),
-    (2, 256, 256, (HQ, HKV, 32), 0, 0.0, True, "hd32"),
-    (2, 512, 512, (HQ, HKV, HD), 100, 0.0, True, "window"),
-    (2, 256, 256, (HQ, HKV, HD), 0, 30.0, True, "cap"),
-    (2, 256, 256, DENSE_HEADS["qwen110_smoke"], 0, 0.0, True, "hd16"),
-    (1, 4608, 4608, DENSE_HEADS["gemma2"], GEMMA2_WINDOW, GEMMA2_CAP, True,
-     "gemma2"),
-    (1, 1024, 1024, DENSE_HEADS["gemma2"], 0, 0.0, True, "hd256"),
-    (WHISPER_B, WHISPER_ENC, WHISPER_ENC, WHISPER_HEADS, 0, 0.0, False,
-     "whisper_enc"),
-    (WHISPER_B, WHISPER_PROMPT, WHISPER_ENC, WHISPER_HEADS, 0, 0.0, False,
-     "whisper_cross"),
-    (WHISPER_B, WHISPER_PROMPT, WHISPER_PROMPT, WHISPER_HEADS, 0, 0.0, True,
-     "whisper_self"),
-    (1, 1024, 1024, DENSE_HEADS["qwen32"], 0, 0.0, True, "qwen32"),
-    (1, 4608, 4608, (24, 2, 128), 4096, 0.0, True, "starcoder2"),
-    (1, 1280, 1280, (64, 8, 128), 0, 0.0, True, "qwen2vl")]
-BWD_PASSES = ("bwd_rows_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")
-# a case whose B Hq Sq Sk hd passes this is timed over 5 calls, not 20
-BWD_LONG_WORK = 4e9
+# BWD_CASES, (B, Sq, Sk, (Hq, Hkv, hd), window, cap, causal, family), are
+# launch/attn_bwd_bench.py's (their home, so that the bench times a
+# parent tree at the same cases): the planner's train shapes, kimi-k2's
+# heads, head dims 16, 32 and 256, a window and softcaps, whisper's
+# non-causal encoder and cross-attention and the A12 families' training
+# rows (tests/test_torch_attn_bwd_bench.py holds them to the heads
+# above); a case whose B Hq Sq Sk hd passes BWD_LONG_WORK is timed over
+# 5 calls, not 20. The kernel's three passes:
+BWD_PASSES = ("prefill_bwd_rows", "prefill_bwd_dkdv", "prefill_bwd_dq")
+# the cases whose device time is also taken by pass
+BWD_PASS_CASES = ("train", "starcoder2")
 
 
 def bwd_case(gen, B, Sq, Sk, heads, window, cap, causal, family):
@@ -1969,11 +1984,9 @@ def bwd_case(gen, B, Sq, Sk, heads, window, cap, causal, family):
         mask &= kpos <= qpos
     if window:
         mask &= qpos - kpos < window
-    pairs = B * int(mask.sum())                   # visible (q, k) a head
     # five hd-long products a visible pair and q head; q, dout, k, v read
     # once, dq, dk, dv written once
-    b_ms, b_by = bound(2 * hd * B * (3 * Hq * Sq + 4 * Hkv * Sk),
-                       10 * hd * Hq * pairs)
+    b_ms, b_by = bwd_bound((B, Sq, Sk, heads, window, cap, causal))
     iters = 20 if B * Hq * Sq * Sk * hd < BWD_LONG_WORK else 5
     res = dict(family=family, B=B, Sq=Sq, Sk=Sk, heads=list(heads),
                window=window, cap=cap, causal=causal,
@@ -1984,8 +1997,11 @@ def bwd_case(gen, B, Sq, Sk, heads, window, cap, causal, family):
                                                           **kw), iters=3),
                bound_ms=b_ms, bound_by=b_by, library_ms=None,
                library_device_ms=None)
-    if family == "train":
-        res["pass_device_ms"] = {p: device_ms(run, p) for p in BWD_PASSES}
+    if family in BWD_PASS_CASES:
+        # torch.profiler alone splits a call by kernel: null where it
+        # missed launches
+        res["pass_device_ms"] = {p: profiled_ms(run, p, iters=iters)
+                                 for p in BWD_PASSES}
     if not cap:
         qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
         o = F.scaled_dot_product_attention(
@@ -2000,9 +2016,26 @@ def bwd_case(gen, B, Sq, Sk, heads, window, cap, causal, family):
 
 def bwd_cases(gen, build_log: str):
     """The backward at BWD_CASES and its three passes' registers and
-    spills by head dim (``-Xptxas -v``)."""
-    ptxas = {p: ptxas_instances(build_log, p) for p in BWD_PASSES}
+    spills by head dim and warpgroups a block (``-Xptxas -v``)."""
+    ptxas = bwd_ptxas(build_log)
+    check(sorted(ptxas) == sorted(BWD_PASSES)
+          and all(sorted({i["hd"] for i in v}) == list(ATTN_HEAD_DIMS)
+                  and all(i.get("registers") for i in v)
+                  for v in ptxas.values()),
+          f"ptxas report lacks a flash_prefill_bwd instance: {ptxas}")
     return [bwd_case(gen, *c) for c in BWD_CASES], ptxas
+
+
+def prefill_bwd_sass(build: Path) -> dict:
+    """The HGMMA (wgmma) instructions in the SASS of each
+    flash_prefill_bwd pass's instances, by head dim (``cuobjdump -sass``
+    of the built library); fails unless every pass (each does products)
+    has some at every head dim of ATTN_HEAD_DIMS."""
+    counts = sass_hgmma(build / "libflash_prefill_bwd.so", BWD_PASSES)
+    check(all(sorted(c) == sorted(f"hd{h}" for h in ATTN_HEAD_DIMS)
+              and all(c.values()) for c in counts.values()),
+          f"flash_prefill_bwd's SASS lacks HGMMA instructions: {counts}")
+    return counts
 
 
 # ---------------------------- the backwards of the router and the scans ----
@@ -2054,8 +2087,9 @@ def _bwd_result(name, got, ref, again, run, plain_ms, bound_args, kernel,
     """The common record of a backward case: each output's max |diff| and
     relative norm against the plain version, both calls' sha256 (asserted
     equal), the CUDA-event ms a call, the device time a call of each of
-    its kernels (``pass_device_ms``, ``torch.profiler``) and their sum
-    (``device_ms``; None where a profile missed a kernel's events), the
+    its kernels (``pass_device_ms``, ``torch.profiler``; None where every
+    profile missed a kernel's launches) and their sum (``device_ms``; the
+    call's, by ``device_ms``, where a pass has none), the
     plain version's time, the bound; library_ms None (no one PyTorch call
     computes it)."""
     from repro_torch.launch.decode_bench import digest
@@ -2068,8 +2102,8 @@ def _bwd_result(name, got, ref, again, run, plain_ms, bound_args, kernel,
     check(bits == [digest(t) for t in again],
           f"{kernel}: two calls give other bits")
     b_ms, b_by = bound(*bound_args, FP32_FLOP_S)
-    by_pass = {k: device_ms(run, k, tries=5) for k in passes}
-    dev = (None if None in by_pass.values()
+    by_pass = {k: profiled_ms(run, k, tries=5) for k in passes}
+    dev = (device_ms(run) if None in by_pass.values()
            else sum(by_pass.values()))
     return dict(extra, max_abs_err=max(err.values()), err=err,
                 rel_norm_err=rel, bits=bits, ms=cuda_ms(run),
@@ -2231,6 +2265,11 @@ TRAIN_LOSS_TOL = 0.05
 # kimi-smoke's gradients card vs CPU with no expert choice dropped: the
 # CPU tests' bound against JAX (tests/torch_train_common.py, GRAD_REL)
 NO_DROP_GRAD_REL = 3e-2
+# each leaf's gradient with the backward kernel against the same run with
+# the plain attention backward on the card (relative norm): the same
+# bound (the kernel rounds P and dS to bf16, which the bf16 backward of
+# the layers below carries down)
+BWD_GRAD_REL = 3e-2
 GATE_CKPT = ROOT / "build" / "planner_gate.npz"
 # the gate's training steps (train_planner's default is 300; its loss is
 # under 1e-3 well before 120 at 100% held-out accuracy)
@@ -2246,8 +2285,9 @@ def _train_args(steps: int, remat: bool, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
 
 def _profile_train_step(cfg, model):
     """One more train step (fresh optimizer state) under torch.profiler:
-    its wall ms, device busy ms and share, and the device time of its
-    heaviest kernels."""
+    its wall ms, device busy ms and share, the device time of its
+    heaviest kernels and of its attention kernels (flash_prefill's and
+    its backward's passes)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.training.data import PackedLMDataset, synthetic_docs
     from repro_torch.training.loop import make_train_step
@@ -2269,11 +2309,15 @@ def _profile_train_step(cfg, model):
                               getattr(e, "self_cuda_time_total", 0.0))
     busy = sum(dev_t(e) for e in dev) / 1e3
     top = sorted(dev, key=dev_t, reverse=True)[:8]
+    attn = [e for e in dev if "flash_prefill_kernel" in e.key
+            or any(p in e.key for p in BWD_PASSES)]
     return dict(wall_ms=1e3 * wall, busy_ms=busy,
                 busy_share=busy / (1e3 * wall),
                 kernels=sum(e.count for e in dev),
                 top=[dict(name=e.key[:80], ms=dev_t(e) / 1e3, count=e.count)
-                     for e in top])
+                     for e in top],
+                attention=[dict(name=e.key[:80], ms=dev_t(e) / 1e3,
+                                count=e.count) for e in attn])
 
 
 def train_card(cfg):
@@ -2434,6 +2478,9 @@ def train_card_vs_cpu(cfg):
         kernel_vs_plain_worst=k_p_worst,
         leaf={n: dict(card_vs_cpu=rel[n], plain_vs_cpu=p_cpu[n],
                       kernel_vs_plain=k_p[n]) for n, _ in worst})
+    check(max(k_p.values()) <= BWD_GRAD_REL,
+          f"train {cfg.name}: the backward kernel's gradients differ from "
+          f"the plain backward's by {k_p_worst}")
     return res
 
 
@@ -4008,10 +4055,13 @@ def main(argv=None) -> int:
     OUT_DIR.mkdir(exist_ok=True)
     logs = _build.build_logs()
     hgmma = prefill_sass(build)
+    bwd_hgmma = prefill_bwd_sass(build)
     (OUT_DIR / "chip_smoke_build.log").write_text(
         "\n".join(f"== {k}\n{v}" for k, v in logs.items())
         + f"\n== flash_prefill SASS: HGMMA instructions by head dim "
-          f"(cuobjdump -sass)\n{json.dumps(hgmma)}\n")
+          f"(cuobjdump -sass)\n{json.dumps(hgmma)}\n"
+        + f"== flash_prefill_bwd SASS: HGMMA instructions by pass and "
+          f"head dim\n{json.dumps(bwd_hgmma)}\n")
     # registers and spills by head dim (a spill is recorded, not failed:
     # hd 256 keeps 128 fp32 accumulators a thread)
     emit("build_prefill_sass", hgmma=hgmma,
@@ -4056,14 +4106,52 @@ def main(argv=None) -> int:
         torch.Generator(device="cuda").manual_seed(7))
     for phase, c in whisper_cases:
         emit(phase, **c)
-    # the backward's cases, profiled early too, on their own draws
+    # every other case that reports device time (the decode family's, the
+    # router's and the scans') before the backwards' cases, after which
+    # torch.profiler misses launches; each group on its own draws
+    dgen = torch.Generator(device="cuda").manual_seed(8)
+    dec = [decode_case(KV_LENS, CACHE, dgen)]
+    for c in dec:
+        emit("kernel_decode", **c)
+    paged_dec = paged_decode_case(dgen)
+    emit("kernel_decode_paged", **paged_dec)
+    ver = verify_cases(dgen)
+    for name, c in ver.items():
+        emit(f"kernel_{name[6:]}", **c)
+    hd_cases = head_dim_cases(dgen)
+    hd_cases += verify_over_64_cases(dgen)
+    hd_cases += block_size_cases(dgen)
+    hd_cases.append(("kernel_decode", wide_group_case(dgen)))
+    hd_cases += dense_head_cases(dgen)
+    hymba_attn = hymba_attention_cases(dgen)
+    for phase, c in hd_cases + hymba_attn:
+        emit(phase, **c)
+    build_log = (OUT_DIR / "chip_smoke_build.log").read_text()
+    rout, router_ptxas = router_cases(
+        torch.Generator(device="cuda").manual_seed(9), build_log)
+    emit("build_router_ptxas", instances=router_ptxas)
+    for c in rout:
+        emit("kernel_router", **c)
+    scan, seams = ssm_cases(torch.Generator(device="cuda").manual_seed(10),
+                            build_log)
+    for c in scan:
+        emit("kernel_ssm_scan", **c)
+    emit("kernel_ssm_scan_seams", **seams)
+    mlstm, mlstm_seams = mlstm_cases(
+        torch.Generator(device="cuda").manual_seed(11), build_log)
+    for c in mlstm:
+        emit("kernel_mlstm_scan", **c)
+    emit("kernel_mlstm_scan_seams", **mlstm_seams)
+    timed_cases = (pre_serve + pre_gate + dec + [paged_dec]
+                   + list(ver.values()) + rout + scan + mlstm
+                   + [c for _, c in whisper_cases + hd_cases + hymba_attn])
+    # the backward's cases, on their own draws
     bwd, bwd_ptxas = bwd_cases(torch.Generator(device="cuda").manual_seed(3),
                                logs["flash_prefill_bwd"])
-    emit("build_prefill_bwd_ptxas", **bwd_ptxas)
+    emit("build_prefill_bwd_ptxas", **bwd_ptxas, hgmma=bwd_hgmma)
     for c in bwd:
         emit("kernel_prefill_bwd", **c)
-    # the training slice's other backwards, early too, each on its own
-    # draws
+    # the training slice's other backwards, each on its own draws
     router_bwd = router_bwd_cases(
         torch.Generator(device="cuda").manual_seed(4))
     for c in router_bwd:
@@ -4076,45 +4164,22 @@ def main(argv=None) -> int:
     mlstm_bwd = mlstm_bwd_cases(torch.Generator(device="cuda").manual_seed(6))
     for c in mlstm_bwd:
         emit("kernel_mlstm_scan_bwd", **c)
-    dec = [decode_case(KV_LENS, CACHE, gen)]
-    for c in dec:
-        emit("kernel_decode", **c)
-    paged_dec = paged_decode_case(gen)
-    emit("kernel_decode_paged", **paged_dec)
-    ver = verify_cases(gen)
-    for name, c in ver.items():
-        emit(f"kernel_{name[6:]}", **c)
-    hd_cases = head_dim_cases(gen)
-    hd_cases += verify_over_64_cases(gen)
-    hd_cases += block_size_cases(gen)
-    hd_cases.append(("kernel_decode", wide_group_case(gen)))
-    hd_cases += dense_head_cases(gen)
-    for phase, c in hd_cases:
-        emit(phase, **c)
-    hd_cases += whisper_cases
+    timed_cases += bwd + router_bwd + ssm_bwd + mlstm_bwd
+    key = lambda c: (c.get("family"), c.get("T"), c.get("B"), c.get("S"))
+    nulls = [key(c) for c in timed_cases if "device_ms" in c
+             and (c["device_ms"] is None or c.get("floor_ms", 0) is None)]
+    emit("kernel_device_times", cases=len(timed_cases), nulls=nulls,
+         by_events=BY_EVENTS,
+         pass_nulls=[key(c) for c in timed_cases if None in (
+             c.get("pass_device_ms") or {}).values()])
+    check(not nulls, f"kernel cases without a device time: {nulls}")
     emit("kernel_decode_family_sweep", **decode_family_sweep(gen))
     pre_ext = prefill_extend_cases(gen)
     for c in pre_ext:
         emit("kernel_prefill_bitwise", **c)
+    hd_cases += whisper_cases + hymba_attn
     hd_cases += [("kernel_prefill", c)
                  for c in pre_ext + pre_serve + pre_gate]
-    build_log = (OUT_DIR / "chip_smoke_build.log").read_text()
-    rout, router_ptxas = router_cases(gen, build_log)
-    emit("build_router_ptxas", instances=router_ptxas)
-    for c in rout:
-        emit("kernel_router", **c)
-    scan, seams = ssm_cases(gen, build_log)
-    for c in scan:
-        emit("kernel_ssm_scan", **c)
-    emit("kernel_ssm_scan_seams", **seams)
-    hymba_attn = hymba_attention_cases(gen)
-    for phase, c in hymba_attn:
-        emit(phase, **c)
-    hd_cases += hymba_attn
-    mlstm, mlstm_seams = mlstm_cases(gen, build_log)
-    for c in mlstm:
-        emit("kernel_mlstm_scan", **c)
-    emit("kernel_mlstm_scan_seams", **mlstm_seams)
     mlstm_model = mlstm_model_cases()
     emit("kernel_mlstm_scan_model_inputs", **mlstm_model)
     emit("build_bwd_ptxas", **bwd_kernels_ptxas(build_log))

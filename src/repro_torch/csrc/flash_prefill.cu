@@ -43,7 +43,8 @@
 //     slower on an H100 80GB HBM3 at 700 W (148 registers at hd 128);
 //   * shared-memory tiles are panels of the swizzle span (128 bytes =
 //     64 columns; 64 bytes at hd 32) in the 128/64-byte swizzle that
-//     TMA writes and the wgmma descriptors name; hd is a template
+//     TMA writes and the wgmma descriptors name (csrc/wgmma.cuh, shared
+//     with the backward, csrc/flash_prefill_bwd.cu); hd is a template
 //     parameter and the panels a multiple of it, so a larger hd is one
 //     more instance: hd 256 is four panels and an m64n256 P V product
 //     (128 fp32 accumulators a thread), its 32 KB Q tile and three
@@ -84,10 +85,12 @@
 #include <cuda_bf16.h>
 
 #include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 using namespace tma;
+using namespace wg;
 
 constexpr int BQ = 64;        // q rows per block: one warpgroup's M
 constexpr int BK = 64;        // keys per k tile, tiles from key 0
@@ -96,194 +99,18 @@ constexpr int SMEM_MAX = 232448;   // shared memory a block may hold
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// The head dim the tiles of head dim HD hold: hd 16 runs the hd-32
-// tiles, its columns past 16 zeros.
+// Shared memory of tile head dim HD (panels: wgmma.cuh): the Q tile,
+// then STAGES (K tile, V tile) pairs, 1,024-byte aligned, with 1 KB of
+// the block's shared memory left for its barriers.
 template <int HD>
-__host__ __device__ constexpr int tile_hd() { return HD < 32 ? 32 : HD; }
-
-// Shared memory of tile head dim HD: a tile of R rows is NP panels of R
-// rows of SW bytes (PC columns), each panel swizzled over SW bytes; the
-// Q tile, then STAGES (K tile, V tile) pairs, 1,024-byte aligned, with
-// 1 KB of the block's shared memory left for its barriers.
-template <int HD>
-struct Layout {
-  static_assert(HD % 32 == 0, "panels of 64 or 128 bytes");
-  static constexpr int SW = HD == 32 ? 64 : 128;
-  static constexpr int PC = SW / 2;
-  static constexpr int NP = HD / PC;
+struct Layout : Panels<HD> {
   static constexpr int Q_BYTES = BQ * HD * 2;
   static constexpr int T_BYTES = BK * HD * 2;
   static constexpr int FIT = (SMEM_MAX - 2048 - Q_BYTES) / (2 * T_BYTES);
   static constexpr int STAGES = FIT < 3 ? FIT : 3;   // K/V tiles in flight
   static_assert(STAGES >= 2, "two K/V stages at least");
   static constexpr int SMEM = 1024 + Q_BYTES + STAGES * 2 * T_BYTES;
-  // wgmma descriptor layout type: 1 = 128-byte, 2 = 64-byte swizzle
-  static constexpr uint64_t MODE = SW == 128 ? 1 : 2;
-  static constexpr CUtensorMapSwizzle TMA_SWIZZLE =
-      SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
 };
-
-// ------------------------------------------------------------ wgmma ----
-
-// Shared-memory matrix descriptor: start address, leading and stride
-// byte offsets, layout type (swizzle).
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t mode) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4)
-         | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
-         | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (mode << 62);
-}
-
-// K-major operand (rows x HD, HD contiguous: Q or K) of a tile of R rows
-// at `tile`, columns [16 kk, 16 kk + 16): 8-row groups SW * 8 bytes
-// apart; a step inside a swizzled panel moves the start by 32 bytes.
-template <int HD, int R>
-__device__ __forceinline__ uint64_t desc_kmajor(const uint8_t* tile,
-                                                int kk) {
-  using L = Layout<HD>;
-  const int col = 16 * kk;
-  const uint32_t addr = smem_u32(tile) + (col / L::PC) * R * L::SW
-                        + (col % L::PC) * 2;
-  return make_desc(addr, 16, 8 * L::SW, L::MODE);
-}
-
-// MN-major operand (keys x HD, HD contiguous: V as the B of P V), keys
-// [16 kk, 16 kk + 16): 8-key groups SW * 8 bytes apart (stride offset),
-// panels of PC columns BK * SW bytes apart (leading offset).
-template <int HD>
-__device__ __forceinline__ uint64_t desc_v(const uint8_t* tile, int kk) {
-  using L = Layout<HD>;
-  return make_desc(smem_u32(tile) + 16 * kk * L::SW, BK * L::SW,
-                   8 * L::SW, L::MODE);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving accesses of a wgmma's registers across
-// the fence / wait that order them
-template <int N>
-__device__ __forceinline__ void reg_fence(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-#define ACC4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define ACC16(d) ACC4(d, 0), ACC4(d, 4), ACC4(d, 8), ACC4(d, 12)
-#define ACC32(d) ACC16(d), ACC4(d, 16), ACC4(d, 20), ACC4(d, 24), \
-    ACC4(d, 28)
-#define ACC64(d) ACC32(d), ACC4(d, 32), ACC4(d, 36), ACC4(d, 40),      \
-    ACC4(d, 44), ACC4(d, 48), ACC4(d, 52), ACC4(d, 56), ACC4(d, 60)
-// registers b .. b + 63 of d (the second half of m64n256's 128)
-#define ACC16_AT(d, b) ACC4(d, b), ACC4(d, b + 4), ACC4(d, b + 8),    \
-    ACC4(d, b + 12)
-#define ACC64_AT(d, b) ACC16_AT(d, b), ACC16_AT(d, b + 16),            \
-    ACC16_AT(d, b + 32), ACC16_AT(d, b + 48)
-
-// D (64 x N, fp32): wgmma_ss_n64 sets (scale_d = 0) or adds A (64 x 16,
-// shared, K-major) B^T (B 64 x 16, shared, K-major); wgmma_rs_nN adds
-// A (64 x 16, four bf16x2 registers a thread) B (16 x N, shared,
-// MN-major, imm-trans-b = 1).
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : ACC32(d)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : ACC16(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : ACC32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : ACC64(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
-      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
-      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : ACC64(d), ACC64_AT(d, 64)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
-                                         uint64_t db) {
-  if constexpr (HD == 32) wgmma_rs_n32(o, a, db);
-  else if constexpr (HD == 64) wgmma_rs_n64(o, a, db);
-  else if constexpr (HD == 128) wgmma_rs_n128(o, a, db);
-  else wgmma_rs_n256(o, a, db);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // K/V tile `i` of a block's loop (keys [k0, k0 + BK) of kv head row
 // `kvh`) into ring stage i % STAGES, arming its barrier (HD: the tile
@@ -463,7 +290,8 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
     reg_fence<NO>(o);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) wgmma_pv<TH>(o, pa[kk], desc_v<TH>(sV, kk));
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_rs<TH>(o, pa[kk], desc_mn<TH, BK>(sV, kk));
     wg_commit();
     wg_wait0();
     reg_fence<NO>(o);
@@ -497,26 +325,6 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // --------------------------------------------------------------- host ----
-
-// A (hd, rows, heads) bf16 tensor map whose box is one panel of
-// `box_rows` rows of one head; out-of-range rows read as zeros, and so
-// do the columns past 16 of hd 16's 32-column box.
-template <int HD>
-bool make_map(PFN_cuTensorMapEncodeTiled_v12000 enc, CUtensorMap* map,
-              const void* ptr, int rows, int heads, int box_rows) {
-  using L = Layout<tile_hd<HD>()>;
-  const cuuint64_t dims[3] = {(cuuint64_t)HD, (cuuint64_t)rows,
-                              (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)HD * 2,
-                                 (cuuint64_t)rows * HD * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)L::PC, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-             const_cast<void*>(ptr), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, L::TMA_SWIZZLE,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,

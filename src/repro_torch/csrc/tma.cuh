@@ -1,6 +1,7 @@
 // Shared memory addresses, mbarriers and the copy engine (TMA) on Hopper
 // (sm_90a), for the kernels that stage their tiles by TMA: flash_prefill
-// (csrc/flash_prefill.cu) and the decode family (csrc/decode_warp.cuh);
+// (csrc/flash_prefill.cu), its backward (csrc/flash_prefill_bwd.cu) and
+// the decode family (csrc/decode_warp.cuh);
 // and per-thread asynchronous copies, for the scans (csrc/ssm_scan.cu,
 // csrc/mlstm_scan.cu), which stage the next tile while they step this one.
 #pragma once

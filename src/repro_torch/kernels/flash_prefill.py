@@ -17,8 +17,9 @@ tensor it runs the plain version, ``ref.attention_ref``.
 Its gradient is ``flash_prefill_bwd``, a kernel with no TPU counterpart
 (``csrc/flash_prefill_bwd.cu``: dQ, dK, dV from q, k, v and dO, causal
 or not, Sq rows over Sk keys, at every head dim of HEAD_DIMS, q_offset
-0), whose plain version is ``ref.attention_bwd_ref`` (autograd through
-``attention_ref``), with the same arguments.
+0; three passes, every product on the tensor cores, P and dS rounded to
+bf16 before theirs), whose plain version is ``ref.attention_bwd_ref``
+(autograd through ``attention_ref``), with the same arguments.
 ``FlashPrefillFn`` joins the two for training: its forward is
 ``flash_prefill`` as it is, its backward the backward kernel (on the CPU
 both plain versions). ``backend.attention`` goes through it only when
@@ -41,6 +42,8 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 # cap, scale; stream
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
              + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+# the backward's q tile: its lse/dsum scratch holds Sq rounded up to it
+BWD_ROWS = 64
 # q, k, v, dout, dq, dk, dv, lse, dsum; B, Hq, Hkv, Sq, Sk, hd, causal,
 # window; cap, scale; stream
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
@@ -120,8 +123,11 @@ def flash_prefill_bwd(q, k, v, dout, *, causal: bool = True,
     Hkv, Sk = k.shape[1], k.shape[2]
     scale = scale if scale else 1.0 / math.sqrt(hd)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    # each row's log-sum-exp and rowsum(dO * O), fp32 scratch
-    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    # each row's log-sum-exp and D = sum p dP, fp32 scratch of Sq rows
+    # rounded up to the kernel's 64-row tiles (a tile's 64 values are one
+    # aligned copy)
+    lse = torch.empty((B, Hq, -(-Sq // BWD_ROWS) * BWD_ROWS),
+                      dtype=torch.float32, device=q.device)
     dsum = torch.empty_like(lse)
     fn = _build.entry("flash_prefill_bwd", "flash_prefill_bwd_bf16",
                       _BWD_ARGTYPES)

@@ -121,6 +121,35 @@ def device_ms(fn, kernel: str = "", iters: int = 20, tries: int = 3,
     return (None, None) if floor else None
 
 
+def queued_ms(fn, iters: int = 20, spin_cycles: int = 1 << 24,
+              tries: int = 4):
+    """Device time per call of ``fn`` by CUDA events, without
+    ``torch.profiler``: the card spins (``torch.cuda._sleep``) while the
+    host queues ``iters`` calls behind the spin, so the events time the
+    calls back to back on the card, free of the host's launch gaps (the
+    card's own gaps between kernels stay in, as do all of a call's
+    kernels). A measurement counts only if the card was still spinning
+    when the host had queued the last call; else the spin doubles, up to
+    ``tries`` times, and None stands where none counted."""
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        behind = not start.query()
+        torch.cuda.synchronize()
+        if behind:
+            return start.elapsed_time(end) / iters
+        spin_cycles *= 2
+    return None
+
+
 def digest(t) -> str:
     torch.cuda.synchronize()
     return hashlib.sha256(t.view(torch.int16).cpu().numpy().tobytes()

@@ -301,12 +301,15 @@ def _bwd_case(G, window, cap, hd, Sq=19, Sk=19, causal=True):
 # causal at S 19, then heads of 16 and 256 (with a cap and a window: the
 # dense families' training), and non-causal at Sq != Sk (whisper's
 # cross-attention) and at Sq = Sk (its encoder)
-@pytest.mark.parametrize("G,window,cap,hd,Sq,Sk,causal", [
+BWD_PARAMS = [
     _bwd_case(1, 0, 0.0, 64), _bwd_case(3, 0, 0.0, 64),
     _bwd_case(2, 5, 0.0, 32), _bwd_case(2, 0, 20.0, 128),
     _bwd_case(4, 7, 30.0, 64), _bwd_case(4, 0, 0.0, 16),
     _bwd_case(2, 6, 50.0, 256), _bwd_case(1, 0, 0.0, 64, 5, 19, False),
-    _bwd_case(2, 0, 0.0, 32, 17, 17, False)])
+    _bwd_case(2, 0, 0.0, 32, 17, 17, False)]
+
+
+@pytest.mark.parametrize("G,window,cap,hd,Sq,Sk,causal", BWD_PARAMS)
 def test_attention_bwd_ref_is_jax_grad_of_the_oracle(G, window, cap, hd, Sq,
                                                      Sk, causal):
     rng = np.random.default_rng(G * 100 + hd)
@@ -326,6 +329,139 @@ def test_attention_bwd_ref_is_jax_grad_of_the_oracle(G, window, cap, hd, Sq,
     wrapped = flash_prefill_bwd(tq, tk, tv, tdo, **kw)
     for a, b in zip(wrapped, got):
         assert torch.equal(a, b)
+
+
+# the card's tolerance of flash_prefill_bwd against its plain version
+# (chip_smoke.py's BWD_ATOL, BWD_RTOL)
+BWD_ATOL = BWD_RTOL = 2e-2
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def emulated_kernel_bwd(q, k, v, do, *, causal, window, cap):
+    """csrc/flash_prefill_bwd.cu's arithmetic in plain fp32 torch on
+    bf16-valued inputs: S = q k^T and dP = dO v^T in fp32; each row's L
+    over its visible keys and D = sum p dP from that p; dS = p (dP - D)
+    dx/ds; P and dS rounded to bf16 before the dV += P^T dO, dK += dS^T q
+    and dQ += dS k products, whose sums are fp32 (the G q heads of a kv
+    head summed in fp32); outputs rounded to bf16. Masked p and dS are
+    exactly 0."""
+    B, Hq, Sq, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / np.sqrt(hd)
+    kq, vq = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+    s = q @ kq.transpose(-1, -2)
+    if cap:
+        th = torch.tanh(s * scale / cap)
+        x, dxds = cap * th, scale * (1 - th * th)
+    else:
+        x, dxds = s * scale, torch.full_like(s, scale)
+    rows, keys = torch.arange(Sq)[:, None], torch.arange(Sk)[None, :]
+    vis = torch.ones(Sq, Sk, dtype=torch.bool)
+    if causal:
+        vis &= keys <= rows
+    if window:
+        vis &= rows - keys < window
+    x = torch.where(vis, x, torch.tensor(-torch.inf))
+    p = torch.where(vis, torch.exp(x - torch.logsumexp(x, -1, keepdim=True)),
+                    torch.tensor(0.0))
+    dp = do @ vq.transpose(-1, -2)
+    D = (p * dp).sum(-1, keepdim=True)
+    ds = torch.where(vis, p * (dp - D) * dxds, torch.tensor(0.0))
+    pb, dsb = _bf16(p), _bf16(ds)
+    per_head = lambda t: t.reshape(B, Hkv, G, Sk, hd).sum(2)
+    dv = per_head(pb.transpose(-1, -2) @ do)
+    dk = per_head(dsb.transpose(-1, -2) @ q)
+    dq = dsb @ kq
+    return tuple(_bf16(t) for t in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("G,window,cap,hd,Sq,Sk,causal", BWD_PARAMS)
+def test_kernel_rounding_points_hold_the_card_tolerance(G, window, cap, hd,
+                                                        Sq, Sk, causal):
+    """The backward kernel's rounding points (P and dS in bf16 before
+    their products; fp32 S, dP, sums; D = sum p dP of its own p), emulated
+    on bf16 inputs drawn as the card's cases draw them (N(0, 1) rounded
+    to bf16), against jax.grad of the JAX oracle on the same inputs:
+    within the card's BWD_ATOL + BWD_RTOL |ref|, so the tolerance that
+    chip_smoke.py holds the kernel to can hold."""
+    rng = np.random.default_rng(G * 1000 + hd + Sq)
+    mk = lambda *s: _bf16(torch.from_numpy(
+        rng.standard_normal(s, dtype=np.float32)))
+    B, Hkv = 2, 2
+    q, k, v = mk(B, Hkv * G, Sq, hd), mk(B, Hkv, Sk, hd), mk(B, Hkv, Sk, hd)
+    do = mk(B, Hkv * G, Sq, hd)
+    kw = dict(causal=causal, window=window, cap=cap)
+    f = lambda a, b, c: jnp.sum(JR.attention_ref(a, b, c, **kw)
+                                * do.numpy())
+    want = jax.jit(jax.grad(f, argnums=(0, 1, 2)))(
+        *(t.numpy() for t in (q, k, v)))
+    got = emulated_kernel_bwd(q, k, v, do, **kw)
+    for name, t, j in zip(("dq", "dk", "dv"), got, want):
+        ref = torch.from_numpy(np.array(j))
+        diff = (t - ref).abs()
+        assert bool((diff <= BWD_ATOL + BWD_RTOL * ref.abs()).all()), \
+            (name, float(diff.max()))
+        # the rounding points move the result, but by bf16 roundings only
+        assert float((t - ref).norm() / ref.norm()) < 1e-2, name
+
+
+def _device_functions(text):
+    """{name: body} of every __global__ / __device__ function defined in
+    a CUDA source, braces matched."""
+    import re
+    out = {}
+    for m in re.finditer(r"(?:__global__|__device__)[^;{}]*?\b((?!__)\w+)\s*\(",
+                         text):
+        i = text.find("{", m.end())
+        if i < 0 or ";" in text[m.end():i]:
+            continue
+        depth, j = 0, i
+        while True:
+            depth += {"{": 1, "}": -1}.get(text[j], 0)
+            j += 1
+            if depth == 0:
+                break
+        out[m.group(1)] = text[i:j]
+    return out
+
+
+def test_every_backward_pass_issues_wgmma():
+    """Each of the backward's three kernels reaches a wgmma.mma_async (in
+    its own body or a device function it calls, csrc/wgmma.cuh's included):
+    every product of every pass is on the tensor cores. On the card
+    chip_smoke.py counts the HGMMA instructions of each pass in the SASS."""
+    import re
+    from repro_torch.kernels import _build
+    funcs = {}
+    for name in ("wgmma.cuh", "tma.cuh", "flash_prefill_bwd.cu"):
+        funcs.update(_device_functions(
+            (_build.CSRC / name).read_text()))
+    src = (_build.CSRC / "flash_prefill_bwd.cu").read_text()
+    assert '#include "wgmma.cuh"' in src
+    kernels = re.findall(r"__global__ void __launch_bounds__\([^)]*\)\s*"
+                         r"(\w+)\(", src)
+    assert sorted(kernels) == ["prefill_bwd_dkdv", "prefill_bwd_dq",
+                               "prefill_bwd_rows"]
+
+    def reaches(name, seen):
+        body = funcs[name]
+        if "wgmma.mma_async" in body:
+            return True
+        seen.add(name)
+        return any(reaches(c, seen) for c in re.findall(r"\b(\w+)\s*[<(]",
+                                                        body)
+                   if c in funcs and c not in seen)
+
+    for k in kernels:
+        assert reaches(k, set()), k
+    # and the dK/dV and dQ passes take their A operand from registers
+    # (the RS form): P^T, dS^T and dS rounded to bf16
+    assert "wgmma_rs<" in funcs["kv_item"] and "wgmma_rs<" in \
+        funcs["q_tile_pass"]
 
 
 def test_backward_refuses_a_q_offset():
