@@ -353,6 +353,9 @@ from repro_torch.launch.decode_bench import (  # noqa: E402
     shuffled_pools)
 from repro_torch.kernels.ref import identity_pool  # noqa: E402
 from repro_torch.launch import scan_bench  # noqa: E402
+from repro_torch.launch.scan_bench import MLSTM_BWD_CASES, MLSTM_TOL, \
+    SSM_BWD_CASES, SSM_BWD_REL, mlstm_bwd_tolerance, mlstm_bwd_work, \
+    mlstm_conditioning, rel_norm, ssm_bwd_work  # noqa: E402
 from repro_torch.launch.attn_bwd_bench import (  # noqa: E402
     BWD_CASES, BWD_LONG_WORK, bwd_bound, ptxas as bwd_ptxas, sass_hgmma)
 from repro_torch.launch.router_bench import (  # noqa: E402
@@ -1227,7 +1230,6 @@ XLSTM = "xlstm-125m"
 MLSTM_CASES = [(1, 4, 1024, 192), (1, 4, 1300, 192), (8, 4, 1, 192),
                (1, 4, 40, 32), (1, 4, 256, 64), (1, 4, 256, 128),
                (1, 4, 14, 192)]
-MLSTM_TOL = 1e-4
 
 
 def _mlstm_inputs(gen, B, H, S, hd, random_state=True):
@@ -1239,40 +1241,6 @@ def _mlstm_inputs(gen, B, H, S, hd, random_state=True):
           else mlstm_zero_state(B, H, hd, "cuda"))
     return [r(B, H, S, hd), r(B, H, S, hd), r(B, H, S, hd), r(B, H, S),
             r(B, H, S) + 3.0], st
-
-
-@torch.no_grad()
-def mlstm_conditioning(q, k, v, i_pre, f_pre, state):
-    """What bounds the rounding of each output of the mLSTM scan: the
-    plain recurrence stepped again (fp32, scale 1/sqrt(hd)), giving per
-    (b, h, t, e) ``(sum_d |C[d,e] q_d| + |h_e| sum_d |n_d q_d|) / den``,
-    the sums of absolute terms of the two reductions over d (a reordered
-    fp32 sum errs by a few ulps of these) divided by the cancelled
-    denominator; and the smallest ``den / (|n| |q|)`` seen (1 or more
-    where exp(-m) wins over |n . q|)."""
-    import torch.nn.functional as F
-    B, H, S, hd = q.shape
-    C, n, m = (t.clone() for t in state)
-    ks = k / hd ** 0.5
-    scales, ratios = [], []
-    for t in range(S):
-        q_t, i_t = q[:, :, t], i_pre[:, :, t]
-        logf = F.logsigmoid(f_pre[:, :, t])
-        m_new = torch.maximum(logf + m, i_t)
-        fw = torch.exp(logf + m - m_new)[..., None]
-        iw = torch.exp(i_t - m_new)[..., None]
-        C = C * fw[..., None] + iw[..., None] * (ks[:, :, t, :, None]
-                                                 * v[:, :, t, None, :])
-        n = n * fw + iw * ks[:, :, t]
-        den = torch.maximum((n * q_t).sum(-1).abs(), torch.exp(-m_new))
-        num_abs = (C.abs() * q_t.abs()[..., None]).sum(-2)
-        h_abs = (C * q_t[..., None]).sum(-2).abs() / den[..., None]
-        nq_abs = (n.abs() * q_t.abs()).sum(-1)
-        scales.append((num_abs + h_abs * nq_abs[..., None])
-                      / den[..., None])
-        ratios.append((den / (n.norm(dim=-1) * q_t.norm(dim=-1))).min())
-        m = m_new
-    return torch.stack(scales, dim=2), float(torch.stack(ratios).min())
 
 
 def mlstm_err(out, ref, state, ref_state, scale):
@@ -2048,25 +2016,13 @@ ROUTER_BWD_CASES = [(1024, 16, 2, "randn"), (1024, 128, 2, "randn"),
 # (the forward's weights are within 1.8e-7 of it) and leaves ~1e-9 on
 # the unchosen logits
 ROUTER_BWD_TOL = 1e-6
-# (B, S, di, n, h0): hymba-1.5b's training shape, a ragged 1,300-step
-# prompt from a given state, n = 8 (hymba-smoke's state) from a given one
-SSM_BWD_CASES = [(2, 2048, 1600, 16, "zeros"), (1, 1300, 1600, 16, "random"),
-                 (2, 300, 256, 8, "random")]
-# each output's relative norm ||kernel - plain|| / ||plain||: the
-# forward's tolerance (1e-4), the two scans' fp32 reverse recurrences and
-# sums over up to 4,096 terms (dA) in other orders
-SSM_BWD_REL = 1e-4
-# (B, H, S, hd): xlstm-125m's training shape and a 1,024-token sequence,
-# each from a fresh and from a given state
-MLSTM_BWD_CASES = [(8, 4, 256, 192), (1, 4, 1024, 192)]
-SSM_BWD_PASSES = ("ssm_scan_bwd_kernel", "ssm_scan_bwd_reduce")
-MLSTM_BWD_PASSES = ("mlstm_bwd_gates", "mlstm_bwd_columns",
-                    "mlstm_bwd_heads")
-
-
-def _rel(a, b) -> float:
-    return float((a.float() - b.float()).norm()
-                 / b.float().norm().clamp(min=1e-30))
+# SSM_BWD_CASES, SSM_BWD_REL, MLSTM_BWD_CASES and the mLSTM backward's
+# tolerance live in launch/scan_bench.py, which times any tree's
+# backwards at them; the backwards' kernels: a direct ssm_scan_bwd call
+# walks to the saved states with the forward kernel first
+SSM_BWD_PASSES = ("ssm_scan_kernel", "ssm_bwd_scan", "ssm_bwd_reduce")
+MLSTM_BWD_PASSES = ("mlstm_bwd_gates", "mlstm_bwd_den", "mlstm_bwd_columns",
+                    "mlstm_bwd_sums", "mlstm_bwd_chain")
 
 
 def _once(fn):
@@ -2097,7 +2053,7 @@ def _bwd_result(name, got, ref, again, run, plain_ms, bound_args, kernel,
     for n, a, b in zip(name, got, ref):
         check(bool(torch.isfinite(a).all()), f"{kernel}: non-finite {n}")
         err[n] = float((a - b).abs().max())
-        rel[n] = _rel(a, b)
+        rel[n] = rel_norm(a, b)
     bits = [digest(t) for t in got]
     check(bits == [digest(t) for t in again],
           f"{kernel}: two calls give other bits")
@@ -2146,9 +2102,14 @@ def ssm_bwd_cases(gen):
     1,300-step case split at 700, the first part's state fed to the
     second and the second part's dh0 fed back as the first's dh_last,
     gives one backward's ddt, dx, dB_, dC_ and dh0 bitwise (dA, a sum over
-    t that the split reorders, within SSM_BWD_REL)."""
+    t that the split reorders, within SSM_BWD_REL). And at every case the
+    training route, the forward with its states saved
+    (``ssm_scan_with_states``: y and h_last bitwise ``ssm_scan``'s) and the
+    backward on them, gives the direct call's bits (``saved``, with that
+    backward's device time)."""
     from repro_torch.kernels.ref import selective_scan_bwd_ref
-    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd, \
+        ssm_scan_with_states
     names = ("ddt", "dx", "dB", "dC", "dA", "dh0")
     out, seam = [], None
     for B, S, di, n, h0k in SSM_BWD_CASES:
@@ -2160,14 +2121,23 @@ def ssm_bwd_cases(gen):
         ref, plain_ms = _once(lambda: selective_scan_bwd_ref(*args, dy,
                                                              dh))
         res = _bwd_result(
-            names, got, ref, again, run, plain_ms,
-            (4 * (5 * B * S * di + 4 * B * S * n + 2 * di * n
-                  + 3 * B * di * n), 12 * B * S * di * n),
+            names, got, ref, again, run, plain_ms, ssm_bwd_work(B, S, di, n),
             "ssm_scan_bwd", dict(B=B, S=S, di=di, n=n, h0=h0k),
             SSM_BWD_PASSES)
         bad = {k: v for k, v in res["rel_norm_err"].items()
                if v > SSM_BWD_REL}
         check(not bad, f"ssm_scan_bwd {(B, S, di, n)}: {bad}")
+        y2, h2, states = ssm_scan_with_states(*args)
+        y1, h1 = ssm_scan(*args)
+        check(torch.equal(y2, y1) and torch.equal(h2, h1),
+              f"ssm_scan_with_states {(B, S, di, n)}: y or h_last differs "
+              f"from ssm_scan's")
+        saved = lambda: ssm_scan_bwd(*args, dy, dh, saved_states=states)
+        check(all(torch.equal(a, b) for a, b in zip(saved(), got)),
+              f"ssm_scan_bwd {(B, S, di, n)} on the saved states differs "
+              f"from the direct call")
+        res["saved"] = dict(bitwise=True, device_ms=device_ms(saved,
+                                                              tries=5))
         out.append(res)
         if S == 1300:
             cut = 700
@@ -2183,29 +2153,12 @@ def ssm_bwd_cases(gen):
                       f"ssm_scan_bwd split at {cut}: {nm} differs")
             check(torch.equal(g1[5], got[5]),
                   f"ssm_scan_bwd split at {cut}: dh0 differs")
-            seam_rel = _rel(g1[4] + g2[4], got[4])
+            seam_rel = rel_norm(g1[4] + g2[4], got[4])
             check(seam_rel <= SSM_BWD_REL,
                   f"ssm_scan_bwd split at {cut}: dA {seam_rel}")
             seam = dict(split_at=cut, bitwise=list(names[:4]) + ["dh0"],
                         dA_rel_norm_err=seam_rel)
     return out, seam
-
-
-def mlstm_bwd_tolerance(q, k, v, i_pre, f_pre, state) -> float:
-    """The relative-norm tolerance of the mLSTM backward on these inputs,
-    from the forward's conditioning-scaled bound: the forward holds each
-    output within MLSTM_TOL of its conditioning scale
-    (``mlstm_conditioning``: the sums of absolute terms of its two
-    reductions over the cancelled denominator), so in norm within
-    MLSTM_TOL ||scale|| / ||h|| of ||h||. The backward runs the same
-    recurrence in reverse through the same denominators and is held to
-    that relative bound: MLSTM_TOL times the ratio, at least MLSTM_TOL."""
-    from repro_torch.kernels.ref import mlstm_scan_ref
-    scale, _ = mlstm_conditioning(q, k, v, i_pre, f_pre, state)
-    with torch.no_grad():
-        h = mlstm_scan_ref(q, k, v, i_pre, f_pre, state)[0]
-    return MLSTM_TOL * max(1.0, float(scale.norm()
-                                      / h.norm().clamp(min=1e-30)))
 
 
 def mlstm_bwd_cases(gen):
@@ -2236,9 +2189,7 @@ def mlstm_bwd_cases(gen):
             tol = mlstm_bwd_tolerance(*args, st)
             res = _bwd_result(
                 names, got, ref, again, run, plain_ms,
-                (4 * (7 * B * H * S * hd + 4 * B * H * S
-                      + 3 * B * H * (hd * hd + hd + 1)),
-                 12 * B * H * S * hd * hd), "mlstm_scan_bwd",
+                mlstm_bwd_work(B, H, S, hd), "mlstm_scan_bwd",
                 dict(B=B, H=H, S=S, hd=hd,
                      state="random" if random_state else "fresh",
                      rel_tol=tol), MLSTM_BWD_PASSES)
@@ -2250,13 +2201,17 @@ def mlstm_bwd_cases(gen):
 
 
 def bwd_kernels_ptxas(build_log: str) -> dict:
-    """Registers, stack and spills of the three backwards' kernels."""
+    """Registers, stack and spills of the three backwards' kernels; fails
+    where an instance spills."""
     out = {sym: scan_bench.ptxas_instances(build_log, sym)
            for sym in ("moe_router_bwd_kernel",) + SSM_BWD_PASSES
            + MLSTM_BWD_PASSES}
     check(all(v and all(i.get("registers") for i in v)
               for v in out.values()),
           f"ptxas report lacks a backward kernel: {out}")
+    check(not any(i.get("spill_stores") or i.get("spill_loads")
+                  for v in out.values() for i in v),
+          f"a backward kernel instance spills: {out}")
     return out
 
 

@@ -37,51 +37,79 @@
 // df once (~28 hd bytes): at hd = 192, ~80 operations a byte, above the
 // fp32 CUDA-core rate's ~20: bound by operations. At xlstm-125m's
 // training shape (B 8, H 4, S 256, hd 192) that is ~3.6 G operations,
-// ~54 us at 67 TFLOP/s. The sequential chain over S is what sets the
-// time of this first kernel.
+// ~54 us at 67 TFLOP/s. Only three chains are serial over t: the scalar
+// m, n (a row at a time, its gain the scalar fw) and, given the forward's
+// gates, each element of G (its own scalar recurrence); dn and dm follow
+// from their sums. The design runs those chains alone and everything
+// else beside them, in parallel over t or over the (row, column) plane.
 //
-// Design (correct and simple first): three launches from one C entry
-// point, in order on one stream.
-//   * gates: a warp a bh steps the forward's gate chain and n (lane l
-//     holds rows l, l + 32, ...) with the forward kernel's operations, and
-//     writes each step's fw, iw, exp(-m), n . q, den, a and m and each
-//     step's n to scratch. n . q is each lane's rows in order, then a
-//     butterfly over the lanes, lane 0's bits.
-//   * columns: the forward's split of C, a block a (tile of EC = 8
-//     columns, bh), 8 row groups x EC threads, thread (g, l) holding the
-//     rows [g hd/8, (g+1) hd/8) of column tile*8 + l. It steps C forward
-//     from C0 with the forward's operations (so C meets the forward's
-//     bits) and writes C every CK = 8 steps to scratch; then, CK steps at
-//     a time from the last, it recomputes those steps' C into shared
-//     memory and steps G back over them. Each step's sums over its rows
-//     and columns go through shared memory in a fixed order (a row's over
-//     the block's columns in order, a column's over the row groups in
-//     order, then the tile's scalars over its columns in order): the
-//     tile's partials of dq and dks's G v (rows), dv (whole: a column's
-//     rows are all in the block), and the tile's partial sums of dh . num,
-//     v . G^T ks and <G, C_{t-1}>. After the first step it writes G as
-//     dC0.
-//   * heads: a block of hd threads a bh steps back over t: sums the
-//     tiles' partials in tile order, adds the n terms (dn is carried
-//     here, a row a thread; its two dot products a warp butterfly, then
-//     the warps in order), and runs the gates' reverse chain.
-// No atomics and every sum in a fixed order: two calls give the same
-// bits.
+// Five launches from one C entry point, in order on one stream:
+//   * gates, a block of hd threads a bh, S in chunks of CH = 32 steps
+//     staged two deep (ks, i, f): the chunk's logsigmoid(f) in parallel,
+//     the scalar m chain alone on one thread, then fw, iw, exp(-m) in
+//     parallel; n's chain a row a thread (the forward's operations, so n
+//     meets its bits). Each step's gates and n go to scratch.
+//   * den, a block a (16 steps, bh), in parallel over t: n . q a warp a
+//     step (each lane's rows in order, then a butterfly: the first form's
+//     bits), den, and dnum = dh / den for all (t, e).
+//   * columns: the (row, column) plane of G is independent given the
+//     gates, so a block holds all hd rows of EC = 4 columns, a row a
+//     thread (grid hd / 4 column tiles x BH: 192 blocks at a B H = 4
+//     prefill), in thread block clusters of CL = 8 tiles. A first walk
+//     steps C forward over S with the forward's operations and writes it
+//     at the start of every CK = 8-step chunk; then, a chunk at a time
+//     from the last, a thread rebuilds the chunk's C rows in registers and
+//     steps G back over them. q, ks, v, dnum and the gates are staged two
+//     chunks deep by per-thread cp.async. Each step's row sums over the
+//     tile's 4 columns (C dnum, G v) are a thread's own; its column sums
+//     (G^T ks, for dv, and <G, C_{t-1}>) are a warp's shuffles in a fixed
+//     pattern, two steps' ten sums at once, kept in shared memory until
+//     the chunk's end, when the block meets once and adds its warps in
+//     order (dv written; the tile's <G, C_{t-1}> to scratch). The row sums go across the
+//     cluster's 8 tiles through distributed shared memory, in tile order,
+//     a step a block, and only those sums reach device memory (hd/32
+//     partials a step, a CL-th of one a tile); the cluster's
+//     barrier is split: a block arrives after a chunk, waits at the start
+//     of the next and issues its reads of the other tiles' row sums there,
+//     and adds them after that chunk's walk, which hides the reads.
+//   * sums, a block a (16 steps, bh), all in parallel over t: the
+//     clusters' row sums in cluster order, the tiles' <G, C_{t-1}> in tile
+//     order; dden from q . (C dnum) (= num . dnum) and the max's split,
+//     dq = n dnq + C dnum, and the G-part of diw as ks . (G v).
+//   * chain, a block a bh, 16-step chunks staged two deep: dn's reverse
+//     chain a row a thread (its inputs read first, then the chain alone,
+//     then dk and the two products of each step, with n_{t-1} and ks_t),
+//     the products' sums over the rows (one butterfly a warp for all the
+//     chunk's 32 sums, then the warps in order), then the scalar dm chain
+//     alone on one thread; di and df in parallel after it.
+// What holds it back on the card: the columns pass, a chunk's phases one
+// after another at 3 blocks (18 warps) an SM, its column sums (8
+// shuffles a step) and its rebuild of C; the chains' passes, one block
+// a bh, where B H is small.
+// No atomics, and every sum in a fixed order that depends on neither S
+// nor the launch: two calls give the same bits.
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
+#include "tma.cuh"
+
 namespace {
 
-constexpr int RG = 8;           // row groups of a column tile
-constexpr int EC = 8;           // columns of C a block (the backward's)
-constexpr int CK = 8;           // steps between two checkpoints of C
+constexpr int EC = 4;           // columns of dC a block
+constexpr int CL = 8;           // column tiles a thread block cluster
+constexpr int CK = 8;           // steps a chunk (between two saved C)
+constexpr int CH = 32;          // steps a chunk of the gates pass
+constexpr int DCH = 16;         // steps a block of the den pass
+constexpr int HCH = 16;         // steps a block of the sums, a chunk of dn
 constexpr int NG = 7;           // gate planes: fw iw em nq den a m
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Params {
   const float *q, *ks, *v, *ig, *fg, *C0, *n0, *m0, *dh, *dC1, *dn1, *dm1;
   float *dq, *dk, *dv, *di, *df, *dC0, *dn0, *dm0;
-  float *gates, *nS, *Cck, *pscal, *pdq, *pdk;
+  float *gates, *nS, *dnum, *Cck, *pscal, *pdq, *pdk;
   int BH, S;
   float scale;
 };
@@ -91,236 +119,26 @@ __device__ __forceinline__ float log_sigmoid(float x) {
   return __fsub_rn(fminf(x, 0.f), log1pf(expf(-fabsf(x))));
 }
 
-__device__ __forceinline__ float* gate(const Params& p, long long bh,
-                                       int plane, int t) {
-  return p.gates + (bh * NG + plane) * p.S + t;
-}
-
-// ---------------------------------------------------------------- gates --
-template <int HD>
-__global__ void __launch_bounds__(32) mlstm_bwd_gates(const Params p) {
-  constexpr int R = HD / 32;
-  const long long bh = blockIdx.x;
-  const int lane = threadIdx.x;
-  const int S = p.S;
-  float n[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) n[r] = p.n0[bh * HD + lane + 32 * r];
-  float m = p.m0[bh];
-  for (int t = 0; t < S; ++t) {
-    const long long row = (bh * S + t) * HD;
-    const float it = p.ig[bh * S + t];
-    const float a = __fadd_rn(log_sigmoid(p.fg[bh * S + t]), m);
-    const float mn = fmaxf(a, it);
-    const float fw = expf(__fsub_rn(a, mn));
-    const float iw = expf(__fsub_rn(it, mn));
-    const float em = expf(-mn);
-    float nq = 0.f;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int d = lane + 32 * r;
-      n[r] = __fadd_rn(__fmul_rn(n[r], fw), __fmul_rn(iw, p.ks[row + d]));
-      nq = fmaf(n[r], p.q[row + d], nq);
-      p.nS[row + d] = n[r];
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) nq += __shfl_xor_sync(FULL, nq, o);
-    nq = __shfl_sync(FULL, nq, 0);
-    if (lane == 0) {
-      *gate(p, bh, 0, t) = fw;
-      *gate(p, bh, 1, t) = iw;
-      *gate(p, bh, 2, t) = em;
-      *gate(p, bh, 3, t) = nq;
-      *gate(p, bh, 4, t) = fmaxf(fabsf(nq), em);
-      *gate(p, bh, 5, t) = a;
-      *gate(p, bh, 6, t) = mn;
-    }
-    m = mn;
-  }
-}
-
-// -------------------------------------------------------------- columns --
-template <int HD>
-struct ColSmem {
-  static constexpr int RPT = HD / RG;
-  static constexpr int CSTR = HD * EC + RG * 8;  // a step of Cs, padded
-  static constexpr int FLOATS = (CK + 1) * CSTR + 2 * CK * HD + 2 * CK * EC
-                                + 3 * CK + 2 * HD * (EC + 1) + 3 * RG * EC
-                                + 3 * EC;
-};
-
-template <int HD>
-__global__ void __launch_bounds__(EC * RG) mlstm_bwd_columns(const Params p) {
-  using L = ColSmem<HD>;
-  constexpr int RPT = L::RPT, NTILE = HD / EC;
-  extern __shared__ float smem[];
-  float* Cs = smem;                               // [CK+1] steps of C
-  float* sq = Cs + (CK + 1) * L::CSTR;            // [CK][HD]
-  float* sk = sq + CK * HD;                       // [CK][HD]
-  float* sv = sk + CK * HD;                       // [CK][EC]
-  float* sdh = sv + CK * EC;                      // [CK][EC]
-  float* sg = sdh + CK * EC;                      // [3][CK] fw iw den
-  float* rows_a = sg + 3 * CK;                    // [HD][EC+1] C dnum
-  float* rows_b = rows_a + HD * (EC + 1);         // [HD][EC+1] G v
-  float* cols = rows_b + HD * (EC + 1);           // [3][RG][EC]
-  float* cout = cols + 3 * RG * EC;               // [3][EC]
-
-  const int tile = blockIdx.x;
-  const long long bh = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int l = tid % EC, g = tid / EC;
-  const int e = tile * EC + l;
-  const int d0 = g * RPT;
-  const int S = p.S;
-  const int chunks = (S + CK - 1) / CK;
-  const long long qrow0 = bh * S;
-  auto cs = [&](int j, int r) -> float& {
-    return Cs[j * L::CSTR + (d0 + r) * EC + l + g * 8];
-  };
-  auto ck_at = [&](int k, int r) {   // (bh, chunk k, row, column)
-    return ((bh * chunks + k) * HD + d0 + r) * HD + e;
-  };
-
-  // forward: C at the start of every chunk
-  float c[RPT];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) c[r] = p.C0[(bh * HD + d0 + r) * HD + e];
-  for (int k = 0; k < chunks; ++k) {
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) p.Cck[ck_at(k, r)] = c[r];
-    const int nt = min(CK, S - k * CK);
-    for (int j = 0; j < nt; ++j) {
-      const int t = k * CK + j;
-      const float fw = *gate(p, bh, 0, t), iw = *gate(p, bh, 1, t);
-      const float ve = p.v[(qrow0 + t) * HD + e];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const float kd = p.ks[(qrow0 + t) * HD + d0 + r];
-        c[r] = __fadd_rn(__fmul_rn(c[r], fw),
-                         __fmul_rn(iw, __fmul_rn(kd, ve)));
-      }
-    }
-  }
-
-  // reverse, a chunk at a time from the last
-  float G[RPT];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) G[r] = p.dC1[(bh * HD + d0 + r) * HD + e];
-  for (int k = chunks - 1; k >= 0; --k) {
-    const int t0 = k * CK, nt = min(CK, S - t0);
-    __syncthreads();            // the last chunk's shared values are read
-    for (int x = tid; x < nt * HD; x += EC * RG) {
-      sq[x] = p.q[(qrow0 + t0) * HD + x];
-      sk[x] = p.ks[(qrow0 + t0) * HD + x];
-    }
-    for (int x = tid; x < nt * EC; x += EC * RG) {
-      const int j = x / EC, ll = x % EC;
-      sv[x] = p.v[(qrow0 + t0 + j) * HD + tile * EC + ll];
-      sdh[x] = p.dh[(qrow0 + t0 + j) * HD + tile * EC + ll];
-    }
-    for (int x = tid; x < 3 * nt; x += EC * RG) {
-      const int w = x / nt, j = x % nt;
-      sg[w * CK + j] = *gate(p, bh, w == 2 ? 4 : w, t0 + j);
-    }
-    __syncthreads();
-    // this chunk's C, recomputed from its checkpoint
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      c[r] = p.Cck[ck_at(k, r)];
-      cs(0, r) = c[r];
-    }
-    for (int j = 0; j < nt; ++j) {
-      const float fw = sg[j], iw = sg[CK + j], ve = sv[j * EC + l];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        c[r] = __fadd_rn(__fmul_rn(c[r], fw),
-                         __fmul_rn(iw, __fmul_rn(sk[j * HD + d0 + r], ve)));
-        cs(j + 1, r) = c[r];
-      }
-    }
-    for (int j = nt - 1; j >= 0; --j) {
-      const int t = t0 + j;
-      const float fw = sg[j], iw = sg[CK + j], den = sg[2 * CK + j];
-      const float ve = sv[j * EC + l];
-      const float dnum = __fdiv_rn(sdh[j * EC + l], den);
-      float gks = 0.f, num = 0.f, gcp = 0.f;
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const int d = d0 + r;
-        const float qd = sq[j * HD + d], kd = sk[j * HD + d];
-        const float ct = cs(j + 1, r);
-        G[r] = fmaf(qd, dnum, G[r]);
-        rows_a[d * (EC + 1) + l] = __fmul_rn(ct, dnum);
-        rows_b[d * (EC + 1) + l] = __fmul_rn(G[r], ve);
-        gks = fmaf(G[r], kd, gks);
-        num = fmaf(ct, qd, num);
-        gcp = fmaf(G[r], cs(j, r), gcp);
-      }
-      cols[(0 * RG + g) * EC + l] = gks;
-      cols[(1 * RG + g) * EC + l] = num;
-      cols[(2 * RG + g) * EC + l] = gcp;
-      __syncthreads();          // the step's row and column partials
-      const long long prow = ((bh * NTILE + tile) * S + t) * HD;
-      for (int d = tid; d < HD; d += EC * RG) {
-        float sa = 0.f, sb = 0.f;
-#pragma unroll
-        for (int ll = 0; ll < EC; ++ll) {
-          sa = __fadd_rn(sa, rows_a[d * (EC + 1) + ll]);
-          sb = __fadd_rn(sb, rows_b[d * (EC + 1) + ll]);
-        }
-        p.pdq[prow + d] = sa;
-        p.pdk[prow + d] = sb;
-      }
-      if (tid < EC) {
-        float cg = 0.f, cn = 0.f, cc = 0.f;
-#pragma unroll
-        for (int w = 0; w < RG; ++w) {
-          cg = __fadd_rn(cg, cols[(0 * RG + w) * EC + tid]);
-          cn = __fadd_rn(cn, cols[(1 * RG + w) * EC + tid]);
-          cc = __fadd_rn(cc, cols[(2 * RG + w) * EC + tid]);
-        }
-        p.dv[(qrow0 + t) * HD + tile * EC + tid] = __fmul_rn(iw, cg);
-        cout[tid] = __fmul_rn(sv[j * EC + tid], cg);
-        cout[EC + tid] = __fmul_rn(sdh[j * EC + tid], cn);
-        cout[2 * EC + tid] = cc;
-      }
-      __syncthreads();          // the tile's column sums
-      if (tid == 0) {
-        float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-#pragma unroll
-        for (int ll = 0; ll < EC; ++ll) {
-          s0 = __fadd_rn(s0, cout[EC + ll]);
-          s1 = __fadd_rn(s1, cout[ll]);
-          s2 = __fadd_rn(s2, cout[2 * EC + ll]);
-        }
-        float* ps = p.pscal + (bh * NTILE + tile) * 3 * S + t;
-        ps[0] = s0;             // dh . num over the tile's columns
-        ps[S] = s1;             // v . G^T ks
-        ps[2 * S] = s2;         // <G, C_{t-1}>
-      }
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) G[r] = __fmul_rn(G[r], fw);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) p.dC0[(bh * HD + d0 + r) * HD + e] = G[r];
-}
-
-// ---------------------------------------------------------------- heads --
-// the sum of one value a thread over the block's HD threads: a butterfly
-// a warp, then the warps in order; every thread gets the same bits
-template <int HD>
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  constexpr int W = HD / 32;
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  __syncthreads();              // red's last values are read
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = 0.f;
+  return v;
+}
+
+// the sums over a warp of 2M values a lane, halving them at each level
+// (a lane keeps the half its bit of the level picks and adds its
+// partner's): lane l is left with value l's sum
+template <int M>
+__device__ __forceinline__ void warp_halve(float (&v)[2 * M], int lane) {
+  const bool hi = lane & M;
 #pragma unroll
-  for (int w = 0; w < W; ++w) s = __fadd_rn(s, red[w]);
-  return s;
+  for (int q = 0; q < M; ++q) {
+    const float keep = hi ? v[q + M] : v[q];
+    const float send = hi ? v[q] : v[q + M];
+    v[q] = __fadd_rn(keep, __shfl_xor_sync(FULL, send, M));
+  }
+  if constexpr (M > 1) warp_halve<M / 2>(reinterpret_cast<float(&)[M]>(v),
+                                         lane);
 }
 
 // the max's share of a cotangent: (to x, to y) for max(x, y), half each
@@ -331,73 +149,616 @@ __device__ __forceinline__ float2 max_split(float x, float y, float g) {
   return make_float2(0.5f * g, 0.5f * g);
 }
 
+// ---------------------------------------------------------------- gates --
 template <int HD>
-__global__ void __launch_bounds__(HD) mlstm_bwd_heads(const Params p) {
-  constexpr int NTILE = HD / EC;
-  __shared__ float red[HD / 32];
+struct GateSmem {
+  __align__(16) float ks[2][CH][HD];
+  float ig[2][CH], fg[2][CH];
+  float lf[CH], a[CH], m[CH], fw[CH], iw[CH];
+};
+
+// the true chains, a block a bh: m on one thread, n a row a thread
+template <int HD>
+__global__ void __launch_bounds__(HD) mlstm_bwd_gates(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  GateSmem<HD>& sm = *reinterpret_cast<GateSmem<HD>*>(smem_raw);
+  const float* __restrict__ ks = p.ks;
+  float* __restrict__ nS = p.nS;
   const long long bh = blockIdx.x;
   const int d = threadIdx.x;
   const int S = p.S;
+  float* gp = p.gates + bh * NG * S;
+  auto stage = [&](int t0, int u) {
+    const int nt = min(CH, S - t0);
+    const long long r0 = (bh * S + t0) * HD;
+    for (int x = d; x < nt * HD / 4; x += HD)
+      tma::copy_async<16>(&sm.ks[u][0][0] + 4 * x, ks + r0 + 4 * x);
+    if (d < nt) {
+      tma::copy_async<4>(&sm.ig[u][d], p.ig + bh * S + t0 + d);
+      tma::copy_async<4>(&sm.fg[u][d], p.fg + bh * S + t0 + d);
+    }
+  };
+  float n = p.n0[bh * HD + d];
+  float m = p.m0[bh];
+  if (S > 0) stage(0, 0);
+  int u = 0;
+  for (int t0 = 0; t0 < S; t0 += CH, u ^= 1) {
+    const int nt = min(CH, S - t0);
+    tma::copy_wait();
+    __syncthreads();            // the chunk has landed; the last is read
+    if (t0 + CH < S) stage(t0 + CH, u ^ 1);
+    if (d < nt) sm.lf[d] = log_sigmoid(sm.fg[u][d]);
+    __syncthreads();
+    if (d == 0) {               // the m chain
+#pragma unroll 8
+      for (int j = 0; j < nt; ++j) {
+        const float a = __fadd_rn(sm.lf[j], m);
+        m = fmaxf(a, sm.ig[u][j]);
+        sm.a[j] = a;
+        sm.m[j] = m;
+      }
+    }
+    __syncthreads();
+    if (d < nt) {
+      const float a = sm.a[d], mn = sm.m[d];
+      const float fw = expf(__fsub_rn(a, mn));
+      const float iw = expf(__fsub_rn(sm.ig[u][d], mn));
+      sm.fw[d] = fw;
+      sm.iw[d] = iw;
+      gp[t0 + d] = fw;
+      gp[S + t0 + d] = iw;
+      gp[2 * S + t0 + d] = expf(-mn);
+      gp[5 * S + t0 + d] = a;
+      gp[6 * S + t0 + d] = mn;
+    }
+    __syncthreads();
+    const long long r0 = (bh * S + t0) * HD;
+#pragma unroll 8
+    for (int j = 0; j < nt; ++j) {  // n's chain, the forward's operations
+      n = __fadd_rn(__fmul_rn(n, sm.fw[j]), __fmul_rn(sm.iw[j],
+                                                     sm.ks[u][j][d]));
+      nS[r0 + j * HD + d] = n;
+    }
+  }
+}
+
+// -------------------------------------------------------------- den --
+// in parallel, a block a (DCH steps, bh): n . q a warp a step (each lane's
+// rows in order, then a butterfly), den, and dnum = dh / den
+template <int HD>
+__global__ void __launch_bounds__(HD) mlstm_bwd_den(const Params p) {
+  constexpr int W = HD / 32, R = HD / 32;
+  __shared__ float sden[DCH];
+  const float* __restrict__ q = p.q;
+  const float* __restrict__ nS = p.nS;
+  const float* __restrict__ dh = p.dh;
+  float* __restrict__ dnum = p.dnum;
+  const long long bh = blockIdx.y;
+  const int t0 = blockIdx.x * DCH;
+  const int d = threadIdx.x, lane = d & 31, w = d >> 5;
+  const int S = p.S, nt = min(DCH, S - t0);
+  float* gp = p.gates + bh * NG * S;
+  for (int j = w; j < nt; j += W) {
+    const long long r0 = (bh * S + t0 + j) * HD;
+    float nq = 0.f;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      nq = fmaf(nS[r0 + lane + 32 * r], q[r0 + lane + 32 * r], nq);
+    nq = __shfl_sync(FULL, warp_sum(nq), 0);
+    if (lane == 0) {
+      const float den = fmaxf(fabsf(nq), gp[2 * S + t0 + j]);
+      gp[3 * S + t0 + j] = nq;
+      gp[4 * S + t0 + j] = den;
+      sden[j] = den;
+    }
+  }
+  __syncthreads();
+#pragma unroll 4
+  for (int j = 0; j < nt; ++j) {
+    const long long r = (bh * S + t0 + j) * HD + d;
+    dnum[r] = __fdiv_rn(dh[r], sden[j]);
+  }
+}
+
+// -------------------------------------------------------------- columns --
+template <int HD>
+struct ColSmem {
+  __align__(16) float q[2][CK][HD];
+  __align__(16) float ks[2][CK][HD];
+  __align__(16) float v[2][CK][EC];
+  __align__(16) float dn[2][CK][EC];
+  float fw[2][CK], iw[2][CK];
+  float rows[2][CK][2][HD];     // C dnum, G v of each row, two chunks deep
+  float wred[CK][HD / 32][EC + 1];  // a warp's G^T ks and <G, C_{t-1}>
+};
+
+template <int HD>
+__global__ void __cluster_dims__(CL, 1, 1)
+__launch_bounds__(HD, HD >= 64 ? 576 / HD : 8)  // hd 32: one warp a block
+mlstm_bwd_columns(const Params p) {
+  using L = ColSmem<HD>;
+  constexpr int W = HD / 32, NTILE = HD / EC, NCL = HD / EC / CL;
+  constexpr int PER = CK * 2 * HD / CL;  // row sums a block adds a chunk
+  static_assert(CK % 2 == 0 && 2 * (EC + 1) <= 16,
+                "whole pairs of steps, a pair's sums in 16 slots");
+  static_assert(PER % HD == 0, "a block adds whole rows of partials");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  L& sm = *reinterpret_cast<L*>(smem_raw);
+  const float* __restrict__ q = p.q;
+  const float* __restrict__ ks = p.ks;
+  const float* __restrict__ v = p.v;
+  const float* __restrict__ dnum = p.dnum;
+  const float* __restrict__ gates = p.gates;
+  float* __restrict__ Cck = p.Cck;
+  const int tile = blockIdx.x;
+  const long long bh = blockIdx.y;
+  const int d = threadIdx.x, lane = d & 31, w = d >> 5;
+  const int e0 = tile * EC;
+  const int S = p.S;
+  const int chunks = (S + CK - 1) / CK;
+  const uint32_t rank = tma::cluster_rank();
+  const int cid = tile / CL;
+  const long long qrow0 = bh * S;
+  auto ck_at = [&](int k) {     // (bh, tile, chunk k, row d) of C_ck
+    return (((bh * NTILE + tile) * chunks + k) * HD + d) * EC;
+  };
+  // chunk k into buffer u: ks, v and the gates; q and dnum for the walk
+  // back (rev)
+  auto stage = [&](int k, int u, bool rev) {
+    const int t0 = k * CK, nt = min(CK, S - t0);
+    const long long r0 = (qrow0 + t0) * HD;
+    for (int x = d; x < nt * HD / 4; x += HD) {
+      tma::copy_async<16>(&sm.ks[u][0][0] + 4 * x, ks + r0 + 4 * x);
+      if (rev) tma::copy_async<16>(&sm.q[u][0][0] + 4 * x, q + r0 + 4 * x);
+    }
+    if (d < nt) {
+      tma::copy_async<16>(&sm.v[u][d][0], v + r0 + d * HD + e0);
+      if (rev)
+        tma::copy_async<16>(&sm.dn[u][d][0], dnum + r0 + d * HD + e0);
+      tma::copy_async<4>(&sm.fw[u][d], gates + bh * NG * S + t0 + d);
+      tma::copy_async<4>(&sm.iw[u][d], gates + (bh * NG + 1) * S + t0 + d);
+    }
+  };
+  // one forward step of this thread's row, the forward kernel's operations
+  auto fstep = [&](float (&c)[EC], int u, int j) {
+    const float fw = sm.fw[u][j], iw = sm.iw[u][j], kd = sm.ks[u][j][d];
+    const float4 v4 = *reinterpret_cast<const float4*>(&sm.v[u][j][0]);
+    const float ve[EC] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+    for (int e = 0; e < EC; ++e)
+      c[e] = __fadd_rn(__fmul_rn(c[e], fw), __fmul_rn(iw, __fmul_rn(kd,
+                                                                  ve[e])));
+  };
+  // the cluster's sums of chunk k's row sums, this block's rows of them:
+  // the blocks' rows read (right after the cluster's wait), then, once the
+  // chunk's walk has hidden that read, added in tile order and stored
+  constexpr int NR = PER / HD;  // rows of sums a thread takes
+  auto cluster_load = [&](int k, float (&y)[NR][CL]) {
+#pragma unroll
+    for (int x = 0; x < NR; ++x) {
+      const int f = rank * PER + x * HD + d;
+#pragma unroll
+      for (int r = 0; r < CL; ++r)
+        y[x][r] = *tma::cluster_map(
+            &sm.rows[k & 1][f / (2 * HD)][f / HD % 2][f % HD], r);
+    }
+  };
+  auto cluster_store = [&](int k, const float (&y)[NR][CL]) {
+    const int t0 = k * CK, nt = min(CK, S - t0);
+#pragma unroll
+    for (int x = 0; x < NR; ++x) {
+      const int f = rank * PER + x * HD + d;
+      const int j = f / (2 * HD), which = f / HD % 2, dd = f % HD;
+      if (j < nt) {
+        float s = 0.f;
+#pragma unroll
+        for (int r = 0; r < CL; ++r) s = __fadd_rn(s, y[x][r]);
+        (which ? p.pdk : p.pdq)[((bh * NCL + cid) * S + t0 + j) * HD + dd] =
+            s;
+      }
+    }
+  };
+
+  // forward: C at the start of every chunk
+  float c[EC];
+  {
+    const float4 c4 = *reinterpret_cast<const float4*>(
+        p.C0 + (bh * HD + d) * HD + e0);
+    c[0] = c4.x; c[1] = c4.y; c[2] = c4.z; c[3] = c4.w;
+  }
+  if (chunks > 1) stage(0, 0, false);
+  for (int k = 0; k < chunks; ++k) {
+    const int u = k & 1;
+    tma::copy_wait();
+    __syncthreads();            // chunk k has landed; chunk k-1 is read
+    if (k + 2 < chunks) stage(k + 1, u ^ 1, false);
+    *reinterpret_cast<float4*>(Cck + ck_at(k)) =
+        make_float4(c[0], c[1], c[2], c[3]);
+    if (k + 1 < chunks) {       // the last chunk's steps are not needed
+#pragma unroll                  // (and every other chunk is whole)
+      for (int j = 0; j < CK; ++j) fstep(c, u, j);
+    }
+  }
+  __syncthreads();              // the walk's buffers are read
+
+  // back, a chunk at a time from the last
+  float G[EC];
+  {
+    const float4 g4 = *reinterpret_cast<const float4*>(
+        p.dC1 + (bh * HD + d) * HD + e0);
+    G[0] = g4.x; G[1] = g4.y; G[2] = g4.z; G[3] = g4.w;
+  }
+  float4 cnext = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (chunks > 0) {
+    stage(chunks - 1, 0, true);
+    cnext = *reinterpret_cast<const float4*>(Cck + ck_at(chunks - 1));
+  }
+  int u = 0;
+  for (int k = chunks - 1; k >= 0; --k, u ^= 1) {
+    const int t0 = k * CK, nt = min(CK, S - t0);
+    tma::copy_wait();
+    __syncthreads();            // chunk k has landed; chunk k+1 is read
+    if (k > 0) stage(k - 1, u ^ 1, true);
+    float ys[NR][CL];
+    if (k + 1 < chunks) {       // chunk k+1's row sums are in every block
+      tma::cluster_wait();
+      cluster_load(k + 1, ys);
+    }
+    const float4 cstart = cnext;
+    if (k > 0)
+      cnext = *reinterpret_cast<const float4*>(Cck + ck_at(k - 1));
+    // the chunk's walks; a whole chunk's steps take no test of their own,
+    // so the compiler may overlap a step's loads and sums with the last
+    auto walk = [&](auto full) {
+    constexpr bool F = decltype(full)::value;
+    float ch[CK + 1][EC];       // C before each step of the chunk
+    ch[0][0] = cstart.x; ch[0][1] = cstart.y;
+    ch[0][2] = cstart.z; ch[0][3] = cstart.w;
+#pragma unroll
+    for (int j = 0; j < CK; ++j) {
+#pragma unroll
+      for (int e = 0; e < EC; ++e) ch[j + 1][e] = ch[j][e];
+      if (F || j < nt) fstep(ch[j + 1], u, j);
+    }
+    // a pair of steps' column terms (G ks, <G, C_{t-1}>), the odd step's
+    // first: their sums over the warp are taken a pair at a time
+    float pc[2 * (EC + 1)];
+#pragma unroll
+    for (int j = CK - 1; j >= 0; --j) {
+      const int o = j % 2 ? 0 : EC + 1;
+      if (F || j < nt) {
+        const float qd = sm.q[u][j][d], kd = sm.ks[u][j][d];
+        const float fw = sm.fw[u][j];
+        const float4 n4 = *reinterpret_cast<const float4*>(&sm.dn[u][j][0]);
+        const float4 v4 = *reinterpret_cast<const float4*>(&sm.v[u][j][0]);
+        const float dn[EC] = {n4.x, n4.y, n4.z, n4.w};
+        const float ve[EC] = {v4.x, v4.y, v4.z, v4.w};
+        float rdq = 0.f, rgv = 0.f, gcp = 0.f;
+#pragma unroll
+        for (int e = 0; e < EC; ++e) {
+          G[e] = fmaf(qd, dn[e], G[e]);          // the gradient of C_t
+          rdq = fmaf(ch[j + 1][e], dn[e], rdq);  // C_t dnum
+          rgv = fmaf(G[e], ve[e], rgv);          // G v_t
+          pc[o + e] = __fmul_rn(G[e], kd);       // G^T ks_t, this row
+          gcp = fmaf(G[e], ch[j][e], gcp);       // <G, C_{t-1}>, this row
+        }
+        pc[o + EC] = gcp;
+        sm.rows[k & 1][j][0][d] = rdq;
+        sm.rows[k & 1][j][1][d] = rgv;
+#pragma unroll
+        for (int e = 0; e < EC; ++e) G[e] = __fmul_rn(G[e], fw);
+      } else {
+#pragma unroll
+        for (int e = 0; e <= EC; ++e) pc[o + e] = 0.f;
+      }
+      if (j % 2 == 0) {         // the pair's 10 sums over the warp
+        float v[16];
+#pragma unroll
+        for (int q = 0; q < 16; ++q) v[q] = q < 2 * (EC + 1) ? pc[q] : 0.f;
+        warp_halve<8>(v, lane);  // lanes l, l + 16: half-warp sums of l % 16
+        const float sum = __fadd_rn(v[0], __shfl_xor_sync(FULL, v[0], 16));
+        const int slot = lane % 16;  // both halves hold it: both store it
+        if (slot < 2 * (EC + 1))
+          sm.wred[slot <= EC ? j + 1 : j][w][slot % (EC + 1)] = sum;
+      }
+    }
+    };
+    if (nt == CK)
+      walk(std::true_type{});
+    else
+      walk(std::false_type{});
+    if (k + 1 < chunks) cluster_store(k + 1, ys);
+    __syncthreads();            // the chunk's row and warp sums
+    // dv and the tile's <G, C_{t-1}>: the warps in order
+    for (int x = d; x < nt * (EC + 1); x += HD) {
+      const int j = x / (EC + 1), e = x % (EC + 1);
+      float s = 0.f;
+#pragma unroll
+      for (int ww = 0; ww < W; ++ww) s = __fadd_rn(s, sm.wred[j][ww][e]);
+      if (e < EC)
+        p.dv[(qrow0 + t0 + j) * HD + e0 + e] = __fmul_rn(sm.iw[u][j], s);
+      else
+        p.pscal[(bh * (NTILE + 4) + tile) * S + t0 + j] = s;
+    }
+    tma::cluster_arrive();
+  }
+  if (chunks > 0) {
+    float ys[NR][CL];
+    tma::cluster_wait();
+    cluster_load(0, ys);
+    cluster_store(0, ys);
+  }
+  tma::cluster_arrive();        // no block leaves while its sums are read
+  tma::cluster_wait();          // by another
+  *reinterpret_cast<float4*>(p.dC0 + (bh * HD + d) * HD + e0) =
+      make_float4(G[0], G[1], G[2], G[3]);
+}
+
+// ----------------------------------------------------------------- sums --
+template <int HD>
+__global__ void __launch_bounds__(HD) mlstm_bwd_sums(const Params p) {
+  constexpr int W = HD / 32, R = HD / 32, NTILE = HD / EC,
+                NCL = HD / EC / CL;
+  __shared__ float spq[HCH][HD], spk[HCH][HD];
+  __shared__ float sdnq[HCH];
+  const float* __restrict__ q = p.q;
+  const float* __restrict__ ks = p.ks;
+  const float* __restrict__ pdq = p.pdq;
+  float* __restrict__ pdk = p.pdk;
+  const long long bh = blockIdx.y;
+  const int t0 = blockIdx.x * HCH;
+  const int d = threadIdx.x, lane = d & 31, w = d >> 5;
+  const int S = p.S, nt = min(HCH, S - t0);
+  const float* gp = p.gates + bh * NG * S;
+  float* ps = p.pscal + bh * (NTILE + 4) * S;
+  for (int j = 0; j < nt; ++j) {   // the clusters' sums, in cluster order
+    const long long t = t0 + j;
+    float pq = 0.f, pk = 0.f;
+#pragma unroll
+    for (int c = 0; c < NCL; ++c) {
+      const long long off = ((bh * NCL + c) * S + t) * HD + d;
+      pq = __fadd_rn(pq, pdq[off]);
+      pk = __fadd_rn(pk, pdk[off]);
+    }
+    spq[j][d] = pq;
+    spk[j][d] = pk;
+    pdk[(bh * NCL * S + t) * HD + d] = pk;  // G v, for the chain
+  }
+  __syncthreads();
+  for (int j = w; j < nt; j += W) {  // a warp a step
+    const int t = t0 + j;
+    const long long r0 = (bh * S + t) * HD;
+    float x = 0.f, y = 0.f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int dd = lane + 32 * r;
+      x = fmaf(q[r0 + dd], spq[j][dd], x);   // num . dnum
+      y = fmaf(ks[r0 + dd], spk[j][dd], y);  // v . G^T ks
+    }
+    x = warp_sum(x);
+    y = warp_sum(y);
+    if (lane == 0) {
+      const float den = gp[4 * S + t], nq = gp[3 * S + t];
+      const float dden = -__fdiv_rn(x, den);
+      const float2 sp = max_split(fabsf(nq), gp[2 * S + t], dden);
+      const float sgn = nq > 0.f ? 1.f : (nq < 0.f ? -1.f : 0.f);
+      const float dnq = __fmul_rn(sp.x, sgn);
+      float sfw = 0.f;
+      for (int c = 0; c < NTILE; ++c) sfw = __fadd_rn(sfw, ps[c * S + t]);
+      ps[NTILE * S + t] = dnq;
+      ps[(NTILE + 1) * S + t] = sp.y;      // dem
+      ps[(NTILE + 2) * S + t] = y;         // diw's G term
+      ps[(NTILE + 3) * S + t] = sfw;       // dfw's G term
+      sdnq[j] = dnq;
+    }
+  }
+  __syncthreads();
+  for (int j = 0; j < nt; ++j) {
+    const long long r = (bh * S + t0 + j) * HD + d;
+    p.dq[r] = fmaf(p.nS[r], sdnq[j], spq[j][d]);
+  }
+}
+
+// ---------------------------------------------------------------- chain --
+template <int HD>
+struct ChainSmem {
+  // a chunk's q, ks, G v and n_{t-1} rows and its steps' scalars, two
+  // chunks deep
+  __align__(16) float rows[2][4][HCH][HD];
+  float sc[2][10][HCH];         // dnq dem diw_G dfw_G fw iw em a i f
+  float red[HD / 32][2 * HCH];  // each warp's sums of dn n_{t-1}, dn ks
+  // a step's dem exp(-m), dfw fw, diw iw, 1 + exp(f) and which of a, i
+  // the max took; then the dm chain's da and the max's share to i
+  float X[HCH], Y[HCH], Z[HCH], ef[HCH], da[HCH], msy[HCH];
+  int cmp[HCH];
+};
+
+// a block a bh: dn's reverse chain a row a thread (its inputs read first,
+// then the chain alone, then dk and the two products of each step), the
+// products' sums over the rows (a warp's butterfly that leaves lane l
+// with value l, then the warps in order), the dm chain's terms a thread a
+// step, the scalar dm chain alone on one thread; di and df of the chunk
+// follow in parallel
+template <int HD>
+__global__ void __launch_bounds__(HD) mlstm_bwd_chain(const Params p) {
+  constexpr int W = HD / 32, NTILE = HD / EC, NCL = HD / EC / CL;
+  static_assert(2 * HCH == 32, "a chunk's products are a warp's values");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  ChainSmem<HD>& sm = *reinterpret_cast<ChainSmem<HD>*>(smem_raw);
+  float* __restrict__ dk = p.dk;
+  const long long bh = blockIdx.x;
+  const int d = threadIdx.x, lane = d & 31, w = d >> 5;
+  const int S = p.S;
+  const float* gp = p.gates + bh * NG * S;
+  const float* ps = p.pscal + (bh * (NTILE + 4) + NTILE) * S;
+  const float* pkb = p.pdk + bh * NCL * S * HD;
+  const int chunks = (S + HCH - 1) / HCH;
+  // chunk k into buffer u
+  auto stage = [&](int k, int u) {
+    const int t0 = k * HCH, nt = min(HCH, S - t0);
+    const long long r0 = (bh * S + t0) * HD;
+    for (int x = d; x < nt * HD / 4; x += HD) {
+      tma::copy_async<16>(&sm.rows[u][0][0][0] + 4 * x, p.q + r0 + 4 * x);
+      tma::copy_async<16>(&sm.rows[u][1][0][0] + 4 * x, p.ks + r0 + 4 * x);
+      tma::copy_async<16>(&sm.rows[u][2][0][0] + 4 * x,
+                          pkb + (long long)t0 * HD + 4 * x);
+      const int j = 4 * x / HD;  // n_{t-1}: n0 before the first step
+      tma::copy_async<16>(&sm.rows[u][3][0][0] + 4 * x,
+                          t0 + j > 0 ? p.nS + r0 - HD + 4 * x
+                                     : p.n0 + bh * HD + 4 * x - j * HD);
+    }
+    if (d < nt) {
+      const float* src[10] = {ps, ps + S, ps + 2 * S, ps + 3 * S, gp,
+                              gp + S, gp + 2 * S, gp + 5 * S,
+                              p.ig + bh * S, p.fg + bh * S};
+#pragma unroll
+      for (int k2 = 0; k2 < 10; ++k2)
+        tma::copy_async<4>(&sm.sc[u][k2][d], src[k2] + t0 + d);
+    }
+  };
+  // di and df of chunk k from its da and the max's shares
+  auto finish = [&](int k) {
+    const int t0 = k * HCH;
+    if (d < min(HCH, S - t0)) {
+      p.di[bh * S + t0 + d] = __fadd_rn(sm.Z[d], sm.msy[d]);
+      p.df[bh * S + t0 + d] = __fdiv_rn(sm.da[d], sm.ef[d]);
+    }
+  };
   float dn = p.dn1[bh * HD + d];
   float dm = p.dm1[bh];
-  for (int t = S - 1; t >= 0; --t) {
-    const long long row = (bh * S + t) * HD;
-    const float fw = *gate(p, bh, 0, t), iw = *gate(p, bh, 1, t);
-    const float em = *gate(p, bh, 2, t), nq = *gate(p, bh, 3, t);
-    const float den = *gate(p, bh, 4, t), a = *gate(p, bh, 5, t);
-    const float it = p.ig[bh * S + t], ft = p.fg[bh * S + t];
-    float snum = 0.f, sdiw = 0.f, sdfw = 0.f, pq = 0.f, pk = 0.f;
-    for (int k = 0; k < NTILE; ++k) {
-      const float* ps = p.pscal + (bh * NTILE + k) * 3 * S + t;
-      snum = __fadd_rn(snum, ps[0]);
-      sdiw = __fadd_rn(sdiw, ps[S]);
-      sdfw = __fadd_rn(sdfw, ps[2 * S]);
-      const long long prow = ((bh * NTILE + k) * S + t) * HD + d;
-      pq = __fadd_rn(pq, p.pdq[prow]);
-      pk = __fadd_rn(pk, p.pdk[prow]);
+  if (chunks > 0) stage(chunks - 1, 0);
+  int u = 0;
+  for (int k = chunks - 1; k >= 0; --k, u ^= 1) {
+    const int t0 = k * HCH, nt = min(HCH, S - t0);
+    tma::copy_wait();
+    __syncthreads();            // the chunk has landed; the last is done
+    if (k + 1 < chunks) finish(k + 1);
+    if (k > 0) stage(k - 1, u ^ 1);
+    const float(*sc)[HCH] = sm.sc[u];
+    float v[2 * HCH];           // the steps' dn n_{t-1}, then dn ks
+    auto dn_walk = [&](auto full) {
+      constexpr bool F = decltype(full)::value;
+      float qv[HCH], dnq[HCH], fw[HCH], dnt[HCH];
+#pragma unroll
+      for (int j = 0; j < HCH; ++j) {
+        qv[j] = sm.rows[u][0][j][d];
+        dnq[j] = sc[0][j];
+        fw[j] = sc[4][j];
+      }
+#pragma unroll
+      for (int j = HCH - 1; j >= 0; --j) {
+        if (F || j < nt) {
+          dnt[j] = fmaf(qv[j], dnq[j], dn);  // the gradient of n_t
+          dn = __fmul_rn(dnt[j], fw[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < HCH; ++j) {
+        v[j] = v[HCH + j] = 0.f;
+        if (F || j < nt) {
+          dk[(bh * S + t0 + j) * HD + d] = __fmul_rn(
+              __fmul_rn(sc[5][j], __fadd_rn(sm.rows[u][2][j][d], dnt[j])),
+              p.scale);
+          v[j] = __fmul_rn(dnt[j], sm.rows[u][3][j][d]);
+          v[HCH + j] = __fmul_rn(dnt[j], sm.rows[u][1][j][d]);
+        }
+      }
+    };
+    if (nt == HCH)
+      dn_walk(std::true_type{});
+    else
+      dn_walk(std::false_type{});
+    warp_halve<HCH>(v, lane);   // lane l: the warp's sum of value l
+    sm.red[w][lane] = v[0];
+    __syncthreads();            // the warps' sums
+    if (d < nt) {               // step d's terms of the dm chain
+      float x = 0.f, y = 0.f;
+#pragma unroll
+      for (int ww = 0; ww < W; ++ww) {
+        x = __fadd_rn(x, sm.red[ww][d]);
+        y = __fadd_rn(y, sm.red[ww][HCH + d]);
+      }
+      const float dfw = __fadd_rn(sc[3][d], x);
+      const float diw = __fadd_rn(sc[2][d], y);
+      const float a = sc[7][d], it = sc[8][d];
+      sm.X[d] = __fmul_rn(sc[1][d], sc[6][d]);
+      sm.Y[d] = __fmul_rn(dfw, sc[4][d]);
+      sm.Z[d] = __fmul_rn(diw, sc[5][d]);
+      sm.ef[d] = __fadd_rn(1.f, expf(sc[9][d]));
+      sm.cmp[d] = a > it ? 0 : (it > a ? 1 : 2);
     }
-    const float dden = -__fdiv_rn(snum, __fmul_rn(den, den));
-    const float2 sp = max_split(fabsf(nq), em, dden);
-    const float sgn = nq > 0.f ? 1.f : (nq < 0.f ? -1.f : 0.f);
-    const float dnq = __fmul_rn(sp.x, sgn), dem = sp.y;
-    const float nt = p.nS[row + d];
-    const float np = t > 0 ? p.nS[row - HD + d] : p.n0[bh * HD + d];
-    const float kd = p.ks[row + d];
-    dn = fmaf(p.q[row + d], dnq, dn);              // the gradient of n_t
-    p.dq[row + d] = fmaf(nt, dnq, pq);
-    p.dk[row + d] = __fmul_rn(__fmul_rn(iw, __fadd_rn(pk, dn)), p.scale);
-    const float dfw = __fadd_rn(sdfw, block_sum<HD>(__fmul_rn(dn, np), red));
-    const float diw = __fadd_rn(sdiw, block_sum<HD>(__fmul_rn(dn, kd), red));
-    const float dmt = __fsub_rn(
-        __fsub_rn(__fsub_rn(dm, __fmul_rn(dem, em)), __fmul_rn(dfw, fw)),
-        __fmul_rn(diw, iw));
-    const float2 ms = max_split(a, it, dmt);
-    const float da = __fadd_rn(__fmul_rn(dfw, fw), ms.x);
-    if (d == 0) {
-      p.di[bh * S + t] = __fadd_rn(__fmul_rn(diw, iw), ms.y);
-      p.df[bh * S + t] = __fdiv_rn(da, __fadd_rn(1.f, expf(ft)));
+    __syncthreads();            // the chunk's dm terms
+    if (d == 0) {               // the dm chain: its terms first, then alone
+      float X[HCH], Y[HCH], Z[HCH], da[HCH], sy[HCH];
+      int cmp[HCH];
+#pragma unroll
+      for (int j = 0; j < HCH; ++j) {
+        X[j] = sm.X[j];
+        Y[j] = sm.Y[j];
+        Z[j] = sm.Z[j];
+        cmp[j] = sm.cmp[j];
+      }
+#pragma unroll
+      for (int j = HCH - 1; j >= 0; --j) {
+        if (j < nt) {
+          const float dmt = __fsub_rn(__fsub_rn(__fsub_rn(dm, X[j]), Y[j]),
+                                      Z[j]);
+          // max_split(a, i, dmt)
+          const float sx = cmp[j] == 0 ? dmt
+                                       : (cmp[j] == 1 ? 0.f : 0.5f * dmt);
+          sy[j] = cmp[j] == 1 ? dmt : (cmp[j] == 0 ? 0.f : 0.5f * dmt);
+          dm = __fadd_rn(Y[j], sx);
+          da[j] = dm;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < HCH; ++j) {
+        if (j < nt) {
+          sm.da[j] = da[j];
+          sm.msy[j] = sy[j];
+        }
+      }
     }
-    dm = da;
-    dn = __fmul_rn(dn, fw);
   }
+  __syncthreads();              // chunk 0's da
+  if (chunks > 0) finish(0);
   p.dn0[bh * HD + d] = dn;
   if (d == 0) p.dm0[bh] = dm;
 }
 
+template <typename K>
+cudaError_t smem_attr(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
 template <int HD>
 cudaError_t launch(const Params& p, cudaStream_t st) {
-  mlstm_bwd_gates<HD><<<p.BH, 32, 0, st>>>(p);
-  cudaError_t err = cudaGetLastError();
+  const int gsm = (int)sizeof(GateSmem<HD>);
+  const int csm = (int)sizeof(ColSmem<HD>);
+  const int hsm = (int)sizeof(ChainSmem<HD>);
+  cudaError_t err = smem_attr(mlstm_bwd_gates<HD>, gsm);
+  if (err == cudaSuccess) err = smem_attr(mlstm_bwd_columns<HD>, csm);
+  if (err == cudaSuccess) err = smem_attr(mlstm_bwd_chain<HD>, hsm);
   if (err != cudaSuccess) return err;
-  const int smem = ColSmem<HD>::FLOATS * 4;
-  err = cudaFuncSetAttribute(mlstm_bwd_columns<HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return err;
-  mlstm_bwd_columns<HD><<<dim3(HD / EC, p.BH), EC * RG, smem, st>>>(p);
+  mlstm_bwd_gates<HD><<<p.BH, HD, gsm, st>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  mlstm_bwd_heads<HD><<<p.BH, HD, 0, st>>>(p);
+  if (p.S > 0) {
+    mlstm_bwd_den<HD><<<dim3((p.S + DCH - 1) / DCH, p.BH), HD, 0, st>>>(p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  mlstm_bwd_columns<HD><<<dim3(HD / EC, p.BH), HD, csm, st>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (p.S > 0) {
+    mlstm_bwd_sums<HD><<<dim3((p.S + HCH - 1) / HCH, p.BH), HD, 0, st>>>(p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  mlstm_bwd_chain<HD><<<p.BH, HD, hsm, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -406,19 +767,20 @@ cudaError_t launch(const Params& p, cudaStream_t st) {
 // q, ks (k times scale), v, dh: (BH,S,hd); ig, fg: (BH,S); C0, dC1:
 // (BH,hd,hd); n0, dn1: (BH,hd); m0, dm1: (BH,); outputs dq, dk (k's
 // gradient: scale times ks's), dv (BH,S,hd), di, df (BH,S), dC0, dn0, dm0
-// shaped as the state; scratch gates (BH,7,S), n_steps (BH,S,hd), C_ck
-// (BH, ceil(S/8), hd, hd), p_scal (BH, hd/8, 3, S), p_dq and p_dk (BH,
-// hd/8, S, hd). All fp32, contiguous, on the device. hd in {32, 64, 128,
-// 192}; any other returns cudaErrorInvalidValue. Launches on `stream`
-// and returns the first launch error, or cudaGetLastError().
+// shaped as the state; scratch gates (BH,7,S), n_steps and dnum (BH,S,hd),
+// C_ck (BH, hd/4, ceil(S/8), hd, 4), p_scal (BH, hd/4 + 4, S), p_dq and
+// p_dk (BH, hd/32, S, hd). All fp32, contiguous, 16-byte aligned, on the
+// device. hd in {32, 64, 128, 192}; any other returns
+// cudaErrorInvalidValue. Launches on `stream` and returns the first launch
+// error, or cudaGetLastError().
 extern "C" int mlstm_scan_bwd_f32(
     const void* q, const void* ks, const void* v, const void* ig,
     const void* fg, const void* C0, const void* n0, const void* m0,
     const void* dh, const void* dC1, const void* dn1, const void* dm1,
     void* dq, void* dk, void* dv, void* di, void* df, void* dC0, void* dn0,
-    void* dm0, void* gates, void* n_steps, void* C_ck, void* p_scal,
-    void* p_dq, void* p_dk, int BH, int S, int hd, float scale,
-    void* stream) {
+    void* dm0, void* gates, void* n_steps, void* dnum, void* C_ck,
+    void* p_scal, void* p_dq, void* p_dk, int BH, int S, int hd,
+    float scale, void* stream) {
   if (BH < 0 || S < 0) return (int)cudaErrorInvalidValue;
   if (hd != 32 && hd != 64 && hd != 128 && hd != 192)
     return (int)cudaErrorInvalidValue;
@@ -429,8 +791,8 @@ extern "C" int mlstm_scan_bwd_f32(
                  (const float*)dC1, (const float*)dn1, (const float*)dm1,
                  (float*)dq, (float*)dk, (float*)dv, (float*)di, (float*)df,
                  (float*)dC0, (float*)dn0, (float*)dm0, (float*)gates,
-                 (float*)n_steps, (float*)C_ck, (float*)p_scal, (float*)p_dq,
-                 (float*)p_dk, BH, S, scale};
+                 (float*)n_steps, (float*)dnum, (float*)C_ck, (float*)p_scal,
+                 (float*)p_dq, (float*)p_dk, BH, S, scale};
   const cudaStream_t st = (cudaStream_t)stream;
   switch (hd) {
     case 32: return (int)launch<32>(p, st);

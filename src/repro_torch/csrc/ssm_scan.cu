@@ -54,6 +54,13 @@
 // one-step launches give the bits of one S-step launch. These are also
 // the bits of the one-thread-per-channel form of this kernel, which did
 // the same operations in the same order.
+//
+// For the backward (csrc/ssm_scan_bwd.cu) an instance of the kernel also
+// writes the state at the start of every CKS = 16 steps, `h_ck`, as it
+// steps past it (the training forward, kernels/ssm_scan.py:SsmScanFn),
+// and another writes those states alone (no y, no C_ staged): the
+// backward's walk to them when it is called without them. The outputs are
+// a template argument, so the plain scan's instance tests for neither.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -63,16 +70,21 @@ namespace {
 
 constexpr int NT = 128;        // threads per block
 constexpr int TS = 64;         // timesteps staged per tile
+constexpr int CKS = 16;        // timesteps between two saved states
+// what an instance writes: y and h_last; those and the saved states; the
+// saved states alone
+constexpr int SCAN = 0, SCAN_STATES = 1, STATES = 2;
 
-template <int N>
+template <int N, int OUT>
 __global__ void __launch_bounds__(NT)
 ssm_scan_kernel(const float* __restrict__ dt, const float* __restrict__ x,
                 const float* __restrict__ Bm, const float* __restrict__ Cm,
                 const float* __restrict__ A, const float* __restrict__ h0,
-                float* __restrict__ y, float* __restrict__ h_last, int S,
-                int di) {
+                float* __restrict__ y, float* __restrict__ h_last,
+                float* __restrict__ h_ck, int S, int di) {
   constexpr int CPB = NT / N;  // channels per block
   constexpr int HS = N + 1;    // padded row of a history and of C_
+  constexpr bool Y = OUT != STATES, CK = OUT != SCAN;
   __shared__ float sdt[2][TS][CPB];
   __shared__ float sx[2][TS][CPB];
   __shared__ float sB[2][TS][N];
@@ -102,11 +114,13 @@ ssm_scan_kernel(const float* __restrict__ dt, const float* __restrict__ x,
     }
     for (int k = threadIdx.x; k < nt * N; k += NT) {
       tma::copy_async<4>(&sB[u][k / N][k % N], Bm + (row0 + t0) * N + k);
-      tma::copy_async<4>(&sC[u][k / N][k % N], Cm + (row0 + t0) * N + k);
+      if (Y)
+        tma::copy_async<4>(&sC[u][k / N][k % N], Cm + (row0 + t0) * N + k);
     }
   };
 
   const float a_i = active ? A[(long long)(d0 + c) * N + i] : 0.f;
+  const int cks = (S + CKS - 1) / CKS;
   float h = active ? h0[st] : 0.f;
   if (S > 0) fetch(0, 0);
   int u = 0;
@@ -117,6 +131,9 @@ ssm_scan_kernel(const float* __restrict__ dt, const float* __restrict__ x,
     if (t0 + TS < S) fetch(t0 + TS, u ^ 1);
     for (int s0 = 0; s0 < nt; s0 += N) {
       const int ns = min(N, nt - s0);
+      if (CK && active && (t0 + s0) % CKS == 0)
+        h_ck[(((long long)b * cks + (t0 + s0) / CKS) * di + d0 + c) * N + i]
+            = h;
       if (ns == N) {            // the same for every lane of the block
         // every step's gain and input first, then the chain
         float av[N], bx[N];
@@ -130,7 +147,7 @@ ssm_scan_kernel(const float* __restrict__ dt, const float* __restrict__ x,
 #pragma unroll
         for (int k = 0; k < N; ++k) {
           h = fmaf(av[k], h, bx[k]);
-          hist[c][k][i] = h;
+          if (Y) hist[c][k][i] = h;
         }
       } else {                  // a short tail (a decode's one step)
         for (int k = 0; k < ns; ++k) {
@@ -138,56 +155,69 @@ ssm_scan_kernel(const float* __restrict__ dt, const float* __restrict__ x,
           const float dx = __fmul_rn(dtv, sx[u][s0 + k][c]);
           const float a = expf(__fmul_rn(dtv, a_i));
           h = fmaf(a, h, __fmul_rn(dx, sB[u][s0 + k][i]));
-          hist[c][k][i] = h;
+          if (Y) hist[c][k][i] = h;
         }
       }
-      __syncwarp();
-      if (i < ns) {
-        float acc = 0.f;
+      if (Y) {
+        __syncwarp();
+        if (i < ns) {
+          float acc = 0.f;
 #pragma unroll
-        for (int n = 0; n < N; ++n)
-          acc = fmaf(hist[c][i][n], sC[u][s0 + i][n], acc);
-        sy[s0 + i][c] = acc;
+          for (int n = 0; n < N; ++n)
+            acc = fmaf(hist[c][i][n], sC[u][s0 + i][n], acc);
+          sy[s0 + i][c] = acc;
+        }
+        __syncwarp();           // the history is read before it is reused
       }
-      __syncwarp();             // the history is read before it is reused
     }
-    __syncthreads();            // the tile's y is in shared memory
-    for (int k = threadIdx.x; k < nt * CPB; k += NT) {
-      const int t = k / CPB, cc = k % CPB;
-      if (d0 + cc < di) y[(row0 + t0 + t) * di + d0 + cc] = sy[t][cc];
+    if (Y) {
+      __syncthreads();          // the tile's y is in shared memory
+      for (int k = threadIdx.x; k < nt * CPB; k += NT) {
+        const int t = k / CPB, cc = k % CPB;
+        if (d0 + cc < di) y[(row0 + t0 + t) * di + d0 + cc] = sy[t][cc];
+      }
     }
   }
-  if (active) h_last[st] = h;
+  if (Y && active) h_last[st] = h;
 }
 
 template <int N>
 cudaError_t launch(const void* dt, const void* x, const void* Bm,
                    const void* Cm, const void* A, const void* h0, void* y,
-                   void* h_last, int B, int S, int di, cudaStream_t st) {
+                   void* h_last, void* h_ck, int B, int S, int di,
+                   cudaStream_t st) {
   constexpr int CPB = NT / N;
   const dim3 grid((di + CPB - 1) / CPB, B);
-  ssm_scan_kernel<N><<<grid, NT, 0, st>>>(
+  const auto kernel = y == nullptr ? ssm_scan_kernel<N, STATES>
+                      : h_ck == nullptr ? ssm_scan_kernel<N, SCAN>
+                                        : ssm_scan_kernel<N, SCAN_STATES>;
+  kernel<<<grid, NT, 0, st>>>(
       (const float*)dt, (const float*)x, (const float*)Bm, (const float*)Cm,
-      (const float*)A, (const float*)h0, (float*)y, (float*)h_last, S, di);
+      (const float*)A, (const float*)h0, (float*)y, (float*)h_last,
+      (float*)h_ck, S, di);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dt, x: (B,S,di); B_, C_: (B,S,n); A: (di,n); h0: (B,di,n); outputs y:
-// (B,S,di) and h_last: (B,di,n); all fp32, contiguous, on the device. n in
-// {8, 16} (any other n returns cudaErrorInvalidValue). Launches on `stream`
-// and returns cudaGetLastError().
+// (B,S,di) and h_last: (B,di,n), and h_ck (B, ceil(S/16), di, n), the
+// state at the start of every 16-step tile, or null to skip it; y and
+// h_last may be null together (then C_ is not read): the saved states
+// alone. All fp32, contiguous, on the device. n in {8, 16} (any other n
+// returns cudaErrorInvalidValue). Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int ssm_scan_f32(const void* dt, const void* x, const void* Bm,
                             const void* Cm, const void* A, const void* h0,
-                            void* y, void* h_last, int B, int S, int di,
-                            int n, void* stream) {
+                            void* y, void* h_last, void* h_ck, int B, int S,
+                            int di, int n, void* stream) {
   if (B < 0 || S < 0 || di < 0) return (int)cudaErrorInvalidValue;
   if (n != 8 && n != 16) return (int)cudaErrorInvalidValue;
   if (B == 0 || di == 0) return (int)cudaSuccess;
   const cudaStream_t st = (cudaStream_t)stream;
   const cudaError_t err =
-      n == 8 ? launch<8>(dt, x, Bm, Cm, A, h0, y, h_last, B, S, di, st)
-             : launch<16>(dt, x, Bm, Cm, A, h0, y, h_last, B, S, di, st);
+      n == 8 ? launch<8>(dt, x, Bm, Cm, A, h0, y, h_last, h_ck, B, S, di, st)
+             : launch<16>(dt, x, Bm, Cm, A, h0, y, h_last, h_ck, B, S, di,
+                          st);
   return (int)err;
 }

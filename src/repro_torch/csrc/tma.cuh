@@ -2,8 +2,11 @@
 // (sm_90a), for the kernels that stage their tiles by TMA: flash_prefill
 // (csrc/flash_prefill.cu), its backward (csrc/flash_prefill_bwd.cu) and
 // the decode family (csrc/decode_warp.cuh);
-// and per-thread asynchronous copies, for the scans (csrc/ssm_scan.cu,
-// csrc/mlstm_scan.cu), which stage the next tile while they step this one.
+// per-thread asynchronous copies, for the scans and their backwards
+// (csrc/ssm_scan.cu, csrc/mlstm_scan.cu, csrc/ssm_scan_bwd.cu,
+// csrc/mlstm_scan_bwd.cu), which stage the next tile while they step this
+// one; and the thread block cluster's barrier and distributed shared
+// memory, for the backwards' sums across blocks.
 #pragma once
 
 #include <cuda.h>
@@ -84,6 +87,39 @@ __device__ __forceinline__ void copy_async(void* dst, const void* src) {
 // Wait for every asynchronous copy this thread has issued.
 __device__ __forceinline__ void copy_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// This block's rank in its thread block cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster's barrier in two halves: every thread of every block of the
+// cluster arrives (its shared memory writes released to the cluster), and
+// a wait returns once all have arrived (their writes acquired). Between
+// the two a thread may do work that needs no other block. Each arrive is
+// followed by one wait before the next arrive, and every thread of a warp
+// takes both (.aligned).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address of `p` (this block's shared memory) in the shared memory of
+// block `rank` of this cluster (distributed shared memory), as a generic
+// pointer: plain loads through it are ordered by cluster_wait() like any
+// other, and independent ones are issued together.
+template <typename T>
+__device__ __forceinline__ const T* cluster_map(const T* p, uint32_t rank) {
+  uint64_t a;
+  asm("mapa.u64 %0, %1, %2;\n" : "=l"(a)
+      : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<const T*>(a);
 }
 
 // cuTensorMapEncodeTiled, libcuda's entry point found through the runtime

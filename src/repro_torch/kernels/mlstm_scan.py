@@ -23,11 +23,14 @@ kernel's operand checks (``check_shapes``) apply on both devices, so a
 caller that the card would refuse fails on the CPU too.
 
 Its gradient is ``mlstm_scan_bwd``, a kernel with no TPU counterpart
-(``csrc/mlstm_scan_bwd.cu``: three launches from one C entry point, the
-gates and n stepped forward a head a warp, the columns of dC stepped in
-reverse over C recomputed from checkpoints, then a head a block for the
-sums across column tiles and the gates' reverse chain), whose plain
-version is ``ref.mlstm_scan_bwd_ref``. ``MlstmScanFn`` joins the two for
+(``csrc/mlstm_scan_bwd.cu``: five launches from one C entry point, only
+the true chains serial: the gates' m chain and n a row a thread; then n .
+q, the denominators and dh / den in parallel over the steps; dC's
+4-column tiles stepped in reverse over C rebuilt from chunk-start
+copies, their row sums added across thread block clusters of 8 tiles in
+distributed shared memory; the sums across clusters in parallel over the
+steps; last dn's and dm's reverse chains), whose plain version is
+``ref.mlstm_scan_bwd_ref``. ``MlstmScanFn`` joins the two for
 training: its forward is ``mlstm_scan`` as it is, its backward the
 backward kernel (on the CPU both plain versions); ``backend.mlstm_scan``
 goes through it only when grad is enabled and an input requires it.
@@ -53,12 +56,12 @@ TILE_COLS = {"scan": 8, "step": 16}
 # columns a tile; stream
 _ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 # the backward kernel: columns of dC a block, timesteps between two
-# checkpoints of C
-BWD_COLS, BWD_CHECKPOINT = 8, 8
+# copies of C, column tiles a thread block cluster
+BWD_COLS, BWD_CHECKPOINT, BWD_CLUSTER = 4, 8, 8
 # q, ks, v, i, f, C0, n0, m0, dh, dC1, dn1, dm1; dq, dk, dv, di, df, dC0,
-# dn0, dm0; gates, n_steps, C_ck, p_scal, p_dq, p_dk; BH, S, hd; scale;
-# stream
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 26 + [ctypes.c_int] * 3
+# dn0, dm0; gates, n_steps, dnum, C_ck, p_scal, p_dq, p_dk; BH, S, hd;
+# scale; stream
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 27 + [ctypes.c_int] * 3
                  + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -162,13 +165,17 @@ mlstm_scan.launches = 0
 
 def bwd_scratch_shapes(B: int, H: int, S: int, hd: int):
     """Shapes of the backward kernel's fp32 scratch: each step's gates
-    (fw, iw, exp(-m), n . q, the denominator, logsigmoid(f) + m_prev, m)
-    and n, C at every BWD_CHECKPOINT-th step, and each column tile's
-    per-step partials (the three scalar sums, dq's and dk's rows)."""
+    (fw, iw, exp(-m), n . q, the denominator, logsigmoid(f) + m_prev, m),
+    n and dh / den; each BWD_COLS-column tile's C at every
+    BWD_CHECKPOINT-th step; each tile's per-step <G, C_{t-1}> and then
+    the four scalars of the heads (dnq, dem and the G terms of diw and
+    dfw); each cluster of BWD_CLUSTER tiles' per-step row sums (C dnum,
+    G v)."""
     BH, T = B * H, hd // BWD_COLS
+    ncl = T // BWD_CLUSTER
     ck = -(-S // BWD_CHECKPOINT)
-    return ((BH, 7, S), (BH, S, hd), (BH, ck, hd, hd), (BH, T, 3, S),
-            (BH, T, S, hd), (BH, T, S, hd))
+    return ((BH, 7, S), (BH, S, hd), (BH, S, hd), (BH, T, ck, hd, BWD_COLS),
+            (BH, T + 4, S), (BH, ncl, S, hd), (BH, ncl, S, hd))
 
 
 def mlstm_scan_bwd(q, k, v, i_pre, f_pre, state, dh, dstate, *,

@@ -20,14 +20,19 @@ kernel's operand checks (``check_shapes``) apply on both devices, so a
 caller that the card would refuse fails on the CPU too.
 
 Its gradient is ``ssm_scan_bwd``, a kernel with no TPU counterpart
-(``csrc/ssm_scan_bwd.cu``: the forward's lanes, h checkpointed every
-32-step tile and each tile's states recomputed in reverse, then a
-fixed-order second pass for the sums across channel blocks and the
-batch), whose plain version is ``ref.selective_scan_bwd_ref``.
-``SsmScanFn`` joins the two for training: its forward is ``ssm_scan`` as
-it is, its backward the backward kernel (on the CPU both plain
-versions); ``backend.selective_scan`` goes through it only when grad is
-enabled and an input requires it.
+(``csrc/ssm_scan_bwd.cu``: the forward's lanes walking back over
+16- or 32-step tiles staged two deep, each tile's states rebuilt from the
+state the forward had at its start, the sums over the channels taken
+by a block, then by its thread block cluster through distributed
+shared memory, then by a fixed-order second pass over the clusters and
+the batch), whose plain version is ``ref.selective_scan_bwd_ref``. The
+forward kernel writes those tile-start states when asked
+(``ssm_scan_with_states``); a backward called without them has the
+forward kernel walk to them first, computing nothing else.
+``SsmScanFn`` joins the two for training: its forward is the forward
+kernel with the states saved, its backward the backward kernel on them
+(on the CPU both plain versions, and no states); ``backend.selective_scan``
+goes through it only when grad is enabled and an input requires it.
 """
 from __future__ import annotations
 
@@ -40,12 +45,14 @@ from repro_torch.kernels.ref import selective_scan_bwd_ref, \
     selective_scan_ref
 
 STATE_SIZES = (8, 16)     # the d_state values the kernel is built for
-# dt, x, B_, C_, A, h0, y, h_last; B, S, di, n; stream
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-# the backward kernel's blocks, timesteps a checkpoint tile
-BWD_THREADS, BWD_TILE = 128, 32
-# dt, x, B_, C_, A, h0, dy, dh_last; ddt, dx, dB_, dC_, dA, dh0; h_ck,
-# pB, pC, pA; B, S, di, n; stream
+# dt, x, B_, C_, A, h0, y, h_last, h_ck; B, S, di, n; stream
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# the backward kernel's threads a block, timesteps between two saved
+# states (the forward's CKS too; a tile is one or two of them) and blocks
+# a thread block cluster
+BWD_THREADS, BWD_TILE, BWD_CLUSTER = 128, 16, 8
+# dt, x, B_, C_, A, h0, dy, dh_last; ddt, dx, dB_, dC_, dA, dh0; h_ck
+# (the saved states), pB, pC, pA; B, S, di, n; stream
 _BWD_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 4 + \
     [ctypes.c_void_p]
 
@@ -85,13 +92,7 @@ def ssm_scan(dt, x, B_, C_, A, h0=None):
         return selective_scan_ref(dt, x, B_, C_, A, h0)
     y = torch.empty((Bsz, S, di), dtype=torch.float32, device=dt.device)
     h_last = torch.empty_like(h0)
-    fn = _build.entry("ssm_scan", "ssm_scan_f32", _ARGTYPES)
-    with torch.cuda.device(dt.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(dt.data_ptr(), x.data_ptr(), B_.data_ptr(), C_.data_ptr(),
-                A.data_ptr(), h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),
-                Bsz, S, di, A.shape[1], stream)
-    _build.check_rc("ssm_scan", rc)
+    _forward(dt, x, B_, C_, A, h0, y, h_last, None)
     ssm_scan.launches += 1
     return y, h_last
 
@@ -99,21 +100,64 @@ def ssm_scan(dt, x, B_, C_, A, h0=None):
 ssm_scan.launches = 0
 
 
+def _forward(dt, x, B_, C_, A, h0, y, h_last, h_ck):
+    """One launch of the forward kernel; any of y, h_last (both or
+    neither) and h_ck may be None (not written)."""
+    Bsz, S, di = dt.shape
+    ptr = lambda t: None if t is None else t.data_ptr()
+    fn = _build.entry("ssm_scan", "ssm_scan_f32", _ARGTYPES)
+    with torch.cuda.device(dt.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(dt.data_ptr(), x.data_ptr(), B_.data_ptr(), C_.data_ptr(),
+                A.data_ptr(), h0.data_ptr(), ptr(y), ptr(h_last), ptr(h_ck),
+                Bsz, S, di, A.shape[1], stream)
+    _build.check_rc("ssm_scan", rc)
+
+
+def states_shape(B: int, S: int, di: int, n: int):
+    """Shape of the saved states: the state at the start of every
+    BWD_TILE steps."""
+    return (B, -(-S // BWD_TILE), di, n)
+
+
+def ssm_scan_with_states(dt, x, B_, C_, A, h0=None):
+    """``ssm_scan`` on the card, also returning the state at the start of
+    every BWD_TILE steps, ``states_shape`` (what ``ssm_scan_bwd``
+    rebuilds its tiles from): (y, h_last, states)."""
+    if dt.device.type != "cuda":
+        raise ValueError("ssm_scan_with_states: the saved states exist "
+                         "only in the CUDA kernel")
+    Bsz, S, di = dt.shape
+    if h0 is None:
+        h0 = torch.zeros((Bsz, di, A.shape[-1]), dtype=torch.float32,
+                         device=dt.device)
+    check_shapes(dt, x, B_, C_, A, h0)
+    y = torch.empty((Bsz, S, di), dtype=torch.float32, device=dt.device)
+    h_last = torch.empty_like(h0)
+    h_ck = torch.empty(states_shape(Bsz, S, di, A.shape[1]),
+                       dtype=torch.float32, device=dt.device)
+    _forward(dt, x, B_, C_, A, h0, y, h_last, h_ck)
+    ssm_scan.launches += 1
+    return y, h_last, h_ck
+
+
 def bwd_scratch_shapes(B: int, S: int, di: int, n: int):
-    """Shapes of the backward kernel's fp32 scratch: the state at the
-    start of each BWD_TILE-step tile (B, tiles, di, n), each channel block's
-    partial dB_ and dC_ (B, blocks, S, n), and each batch row's dA (B,
+    """Shapes of the backward kernel's fp32 scratch: the saved states
+    (``states_shape``), each thread block cluster's sums of dB_ and dC_
+    over its channels (B, clusters, S, n), and each batch row's dA (B,
     di, n)."""
     blocks = -(-di // (BWD_THREADS // n))
-    tiles = -(-S // BWD_TILE)
-    return ((B, tiles, di, n), (B, blocks, S, n), (B, blocks, S, n),
-            (B, di, n))
+    clusters = -(-blocks // BWD_CLUSTER)
+    return (states_shape(B, S, di, n), (B, clusters, S, n),
+            (B, clusters, S, n), (B, di, n))
 
 
-def ssm_scan_bwd(dt, x, B_, C_, A, h0, dy, dh_last):
+def ssm_scan_bwd(dt, x, B_, C_, A, h0, dy, dh_last, *, saved_states=None):
     """The gradient of ``ssm_scan``: (ddt, dx, dB_, dC_, dA, dh0) fp32 in
     the shapes of dt, x, B_, C_, A and h0, from the forward's inputs and
-    the cotangents of y (B,S,di) and h_last (B,di,n)."""
+    the cotangents of y (B,S,di) and h_last (B,di,n). ``saved_states``:
+    the forward's states from ``ssm_scan_with_states`` (card only), or
+    None: the forward kernel walks to them first."""
     if dt.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ssm_scan_bwd: no kernel for device {dt.device}")
     check_shapes(dt, x, B_, C_, A, h0)
@@ -127,11 +171,26 @@ def ssm_scan_bwd(dt, x, B_, C_, A, h0, dy, dh_last):
             raise ValueError(f"ssm_scan_bwd: {name} {tuple(t.shape)} != "
                              f"{shape}")
     if dt.device.type == "cpu":
+        if saved_states is not None:
+            raise ValueError("ssm_scan_bwd: saved states exist only on the "
+                             "card")
         return selective_scan_bwd_ref(dt, x, B_, C_, A, h0, dy, dh_last)
+    ck_shape, pb_shape, pc_shape, pa_shape = bwd_scratch_shapes(Bsz, S, di,
+                                                                n)
+    empty = lambda shape: torch.empty(shape, dtype=torch.float32,
+                                      device=dt.device)
+    if saved_states is None:
+        h_ck = empty(ck_shape)
+        _forward(dt, x, B_, C_, A, h0, None, None, h_ck)
+    else:
+        h_ck = saved_states
+        _build.check_tensor("ssm_scan_bwd", "saved_states", h_ck,
+                            torch.float32, 4, dt.device)
+        if tuple(h_ck.shape) != ck_shape:
+            raise ValueError(f"ssm_scan_bwd: saved_states "
+                             f"{tuple(h_ck.shape)} != {ck_shape}")
     grads = tuple(torch.empty_like(t) for t in (dt, x, B_, C_, A, h0))
-    scratch = tuple(torch.empty(shape, dtype=torch.float32,
-                                device=dt.device)
-                    for shape in bwd_scratch_shapes(Bsz, S, di, n))
+    scratch = (h_ck, empty(pb_shape), empty(pc_shape), empty(pa_shape))
     fn = _build.entry("ssm_scan_bwd", "ssm_scan_bwd_f32", _BWD_ARGTYPES)
     with torch.cuda.device(dt.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -147,15 +206,20 @@ ssm_scan_bwd.launches = 0
 
 class SsmScanFn(torch.autograd.Function):
     """``ssm_scan`` with the backward kernel as its gradient: (y, h_last)
-    of (dt, x, B_, C_, A, h0)."""
+    of (dt, x, B_, C_, A, h0). On the card the forward saves the states
+    the backward starts its tiles from."""
 
     @staticmethod
     def forward(ctx, dt, x, B_, C_, A, h0):
-        y, h_last = ssm_scan(dt, x, B_, C_, A, h0)
-        ctx.save_for_backward(dt, x, B_, C_, A, h0)
+        if dt.device.type == "cuda":
+            y, h_last, states = ssm_scan_with_states(dt, x, B_, C_, A, h0)
+        else:
+            (y, h_last), states = ssm_scan(dt, x, B_, C_, A, h0), None
+        ctx.save_for_backward(dt, x, B_, C_, A, h0, states)
         return y, h_last
 
     @staticmethod
     def backward(ctx, dy, dh_last):
-        return ssm_scan_bwd(*ctx.saved_tensors, dy.contiguous(),
-                            dh_last.contiguous())
+        *ins, states = ctx.saved_tensors
+        return ssm_scan_bwd(*ins, dy.contiguous(), dh_last.contiguous(),
+                            saved_states=states)

@@ -26,7 +26,8 @@ from repro.models import model as JM
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import backend as KB
 from repro_torch.kernels.ref import selective_scan_bwd_ref
-from repro_torch.kernels.ssm_scan import SsmScanFn, ssm_scan_bwd
+from repro_torch.kernels.ssm_scan import SsmScanFn, ssm_scan_bwd, \
+    ssm_scan_with_states, states_shape
 from repro_torch.launch import train as LT
 from repro_torch.models.convert import _walk, params_from_numpy, \
     params_to_numpy
@@ -136,8 +137,16 @@ def test_scan_function_routes_to_the_plain_backward_on_cpu():
     direct = ssm_scan_bwd(dt, x, Bm, Cm, A, h0, dy, dh)
     assert all(torch.equal(a, b) for a, b in zip(direct, want))
     assert set(KB.launch_counts().values()) == {0}
+    # the saved states exist only on the card
+    with pytest.raises(ValueError, match="only in the CUDA kernel"):
+        ssm_scan_with_states(dt, x, Bm, Cm, A, h0)
+    with pytest.raises(ValueError, match="only on the card"):
+        ssm_scan_bwd(dt, x, Bm, Cm, A, h0, dy, dh,
+                     saved_states=torch.zeros(states_shape(2, 9, 8, 8)))
     y2, _ = SsmScanFn.apply(*leaves, h0)
     assert torch.equal(y2, y)
+    # the forward's saved states exist only on the card: none on the CPU
+    assert y2.grad_fn.saved_tensors[6] is None
     with torch.no_grad():
         assert KB.selective_scan(*leaves, h0)[0].grad_fn is None
 

@@ -151,6 +151,8 @@ def test_mlstm_function_routes_to_the_plain_backward_on_cpu():
     assert set(KB.launch_counts().values()) == {0}
     h2, *_ = MlstmScanFn.apply(*leaves, *tst, 0.2)
     assert torch.equal(h2, h)
+    # the forward saves its inputs alone: the backward rebuilds C itself
+    assert len(h2.grad_fn.saved_tensors) == 8
     with torch.no_grad():
         assert KB.mlstm_scan(*leaves, tst, scale=0.2)[0].grad_fn is None
 
